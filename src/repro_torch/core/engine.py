@@ -11,8 +11,17 @@ then executes ``iters = q*sweeps + r`` as ``q`` fused blocks plus one
 narrower remainder block.  A second engine with identical options reuses
 the same runner and plans (zero re-lowers).
 
+``spec`` is a :class:`StencilSpec` or a :class:`StencilPipeline`:
+
+    engine = CasperEngine(PAPER_PIPELINES["reaction_diffusion2d"],
+                          backend="cuda", sweeps=4)
+
+runs ``sweeps`` applications of the whole stage chain per fused block
+(K3/K4), or, for a chain that mixes periodic with non-periodic stages,
+one single-sweep K1/K2 launch per stage.
+
 Backends: ``"ref"`` (the torch oracle chain) and ``"cuda"`` (the fused
-hand-written kernels K1/K2; on a CPU device their plain versions run).
+hand-written kernels K1-K4; on a CPU device their plain versions run).
 ``device=None`` means ``"cuda"`` and raises where CUDA is missing; pass
 ``device="cpu"`` to run on the host.  The engine is frozen after
 ``__init__``.
@@ -26,7 +35,7 @@ import numpy as np
 import torch
 
 from . import plan as _plan
-from .isa import assemble
+from .isa import assemble_any
 from .segment import SegmentConfig
 from .stencil import StencilPipeline, StencilSpec
 
@@ -45,15 +54,13 @@ def resolve_device(device) -> torch.device:
 class CasperEngine:
     def __init__(
         self,
-        spec: StencilSpec,
+        spec: StencilSpec | StencilPipeline,
         backend: str = "ref",
         segment: SegmentConfig | None = None,
         device=None,
         sweeps: int = 1,
         tile: Sequence[int] | None = None,
     ):
-        if isinstance(spec, StencilPipeline):
-            raise _plan.not_ported("pipeline")
         if sweeps < 1:
             raise ValueError(f"sweeps must be >= 1, got {sweeps}")
         if backend == "vm":
@@ -68,7 +75,7 @@ class CasperEngine:
         self.device = resolve_device(device)
         self.sweeps = sweeps
         self.tile = tile
-        self.program = assemble(spec)
+        self.program = assemble_any(spec)
         self._frozen = True
 
     def __setattr__(self, name, value):

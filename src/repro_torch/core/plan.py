@@ -1,14 +1,18 @@
 """ExecutionPlan: the spec→plan lowering of the PyTorch port.
 
-The counterpart of ``repro.core.plan`` for one device and one spec.
+The counterpart of ``repro.core.plan`` for one device.
 ``lower(spec, shape, dtype, *, backend, sweeps, tile, device)`` resolves,
 once, everything a backend needs — the tap factorization, the
 boundary-ghost strategy, the tile, the halo depth and the assembled SPU
 program — and memoizes the frozen plan in the process-wide
-:data:`PLAN_CACHE`.  The backends are thin executors of the plan:
-``repro_torch.core.ref.execute_plan`` (``"ref"``, the torch oracle) and
-``repro_torch.kernels.engine.execute_plan`` (``"cuda"``, the
-hand-written kernels K1/K2 on a CUDA tensor, their plain versions on a
+:data:`PLAN_CACHE`.  ``spec`` is a :class:`StencilSpec` or a
+:class:`StencilPipeline`; a pipeline's fetched halo is the per-dim sum of
+its stage radii, and a chain that mixes periodic with non-periodic
+stages lowers ``fused=False`` to the ``"staged"`` strategy (one
+single-sweep stage plan per stage).  The backends are thin executors of
+the plan: ``repro_torch.core.ref.execute_plan`` (``"ref"``, the torch
+oracle) and ``repro_torch.kernels.engine.execute_plan`` (``"cuda"``, the
+hand-written kernels K1-K4 on a CUDA tensor, their plain versions on a
 CPU tensor).
 
 Differences from the reference, by design:
@@ -16,14 +20,15 @@ Differences from the reference, by design:
 * ``interpret`` is replaced by ``device`` (part of the plan key);
 * the kernel tile defaults to the first Hopper tile whose two shared
   memory window buffers fit 227 KB (:func:`default_tile`), and an
-  explicit tile that does not fit is refused here, at lowering time;
+  explicit tile that does not fit — or a chain for which no tile fits,
+  or whose taps exceed the kernels' argument pools — is refused here, at
+  lowering time, on every device;
 * ``lax.scan`` over the fused blocks is a Python loop.
 
-What this slice does not port raises ``NotImplementedError`` naming its
-ROADMAP item: pipelines (item 5), ``tile="auto"`` (item 6), grids past
-the device budget that would stream from the host (item 7), ``mesh``
-(item 9), strict static verification (item 10) and ``backend="vm"``
-(item 11).
+What the port does not have yet raises ``NotImplementedError`` naming
+its ROADMAP item: ``tile="auto"`` (item 6), grids past the device budget
+that would stream from the host (item 7), ``mesh`` (item 9), strict
+static verification (item 10) and ``backend="vm"`` (item 11).
 """
 from __future__ import annotations
 
@@ -39,8 +44,9 @@ import numpy as np
 import torch
 
 from . import perfmodel as _pm
-from .isa import assemble
-from .stencil import Factorization, StencilPipeline, StencilSpec, factor_taps
+from .isa import assemble, assemble_pipeline
+from .stencil import (Factorization, StencilPipeline, StencilSpec, as_stages,
+                      factor_taps)
 
 #: The execution layers a plan can target: ``"ref"`` is the torch oracle
 #: chain, ``"cuda"`` the fused hand-written kernels.
@@ -49,13 +55,15 @@ BACKENDS = ("ref", "cuda")
 #: Backends that lower to a fused kernel (resolved tile, ghost strategy).
 KERNEL_BACKENDS = ("cuda",)
 
-#: Boundary-ghost strategies a plan of this slice can select:
+#: Boundary-ghost strategies a plan can select:
 #: ``"pad"`` (oracle: re-extend before every application),
-#: ``"pad-free"`` (K1: windows loaded straight from the unpadded grid
-#: through the boundary index map) and ``"padded-window"`` (K2: windows
+#: ``"pad-free"`` (K1/K3: windows loaded straight from the unpadded grid
+#: through the boundary index map), ``"padded-window"`` (K2/K4: windows
 #: read from one ``pad_boundary`` copy — tiny grids, and periodic grids
-#: past the whole-grid budget).
-GHOST_STRATEGIES = ("pad", "pad-free", "padded-window")
+#: past the whole-grid budget) and ``"staged"`` (non-fusable pipelines:
+#: the chain runs stage by stage through cached single-sweep stage
+#: plans, each choosing its own strategy).
+GHOST_STRATEGIES = ("pad", "pad-free", "padded-window", "staged")
 
 #: Candidate kernel tiles per rank, largest first.  One CTA owns one
 #: tile; the innermost dim is a multiple of the 32-thread warp so loads
@@ -71,8 +79,6 @@ HOPPER_TILES: dict[int, tuple[tuple[int, ...], ...]] = {
 
 #: ROADMAP items named by what this slice leaves out.
 _NOT_PORTED = {
-    "pipeline": "StencilPipeline plans (fused pipelines, kernels K3/K4): "
-                "ROADMAP Queue 1 item 5",
     "auto": "tile='auto' (the autotuner): ROADMAP Queue 1 item 6",
     "stream": "grids past the device budget (stream-from-host slab "
               "streaming): ROADMAP Queue 1 item 7",
@@ -88,24 +94,28 @@ def not_ported(what: str) -> NotImplementedError:
         f"not yet ported to repro_torch: {_NOT_PORTED[what]}")
 
 
-def smem_bytes(tile: Sequence[int], halo: Sequence[int], sweeps: int,
+def smem_bytes(tile: Sequence[int], spec, sweeps: int,
                itemsize: int) -> int:
-    """Shared memory one CTA of K1/K2 needs: the fetched window
-    ``tile + 2*sweeps*halo`` plus, when ``sweeps > 1``, the ping-pong
-    buffer of the first intermediate (one halo layer narrower)."""
-    win = [t + 2 * sweeps * h for t, h in zip(tile, halo)]
+    """Shared memory one CTA of K1-K4 needs for ``spec`` (a spec or a
+    pipeline): the fetched window ``tile + 2*sweeps*H`` (``H`` the sum of
+    the stage radii) plus, when ``sweeps * n_stages > 1``, the ping-pong
+    buffer of the first intermediate — the window less stage 0's radius
+    per side, the largest one.  Both buffers hold the accumulator type:
+    an element of a grid narrower than f32 takes 4 bytes there."""
+    stages = as_stages(spec)
+    win = [t + 2 * sweeps * h for t, h in zip(tile, spec.halo)]
     total = math.prod(win)
-    if sweeps > 1:
-        total += math.prod(w - 2 * h for w, h in zip(win, halo))
-    return total * itemsize
+    if sweeps * len(stages) > 1:
+        total += math.prod(w - 2 * h for w, h in zip(win, stages[0].halo))
+    return total * max(itemsize, 4)
 
 
-def default_tile(spec: StencilSpec, sweeps: int = 1,
-                 itemsize: int = 4) -> tuple[int, ...]:
+def default_tile(spec, sweeps: int = 1, itemsize: int = 4
+                 ) -> tuple[int, ...]:
     """The first :data:`HOPPER_TILES` entry whose working set
     (:func:`smem_bytes`) fits one block's shared memory."""
     for tile in HOPPER_TILES[spec.ndim]:
-        if smem_bytes(tile, spec.halo, sweeps,
+        if smem_bytes(tile, spec, sweeps,
                       itemsize) <= _pm.H100_SMEM_PER_BLOCK:
             return tile
     raise ValueError(
@@ -132,7 +142,7 @@ def normalize_tile(spec: StencilSpec, tile: Sequence[int] | int | None,
 
 
 def _check_tile_fits(spec, tile, sweeps, itemsize) -> None:
-    need = smem_bytes(tile, spec.halo, sweeps, itemsize)
+    need = smem_bytes(tile, spec, sweeps, itemsize)
     if need > _pm.H100_SMEM_PER_BLOCK:
         raise ValueError(
             f"{spec.name}: tile {tile} at sweeps={sweeps} needs {need} "
@@ -147,12 +157,14 @@ def ghost_strategy_for(spec: StencilSpec, shape: Sequence[int],
                        itemsize: int, sweeps: int,
                        tile: Sequence[int] | int | None,
                        *, periodic_budget_bytes: int | None = None) -> str:
-    """Pad-free (K1) vs padded-window (K2), the rule of
+    """Pad-free (K1/K3) vs padded-window (K2/K4), the rule of
     ``repro.core.plan.ghost_strategy_for``: a grid smaller than one fetch
     window in any dim takes the padded window; a periodic grid takes it
     when its bytes exceed ``periodic_budget_bytes`` (default
     :data:`repro_torch.core.perfmodel.PERIODIC_WHOLE_GRID_BYTES`, a
-    quarter of the H100's L2)."""
+    quarter of the H100's L2).  A fusable pipeline takes the same rule:
+    its ``halo`` is the sum of the stage radii and its mode is periodic
+    only when every stage is."""
     tile = normalize_tile(spec, tile, sweeps, itemsize)
     shape = tuple(shape)
     wide = tuple(sweeps * h for h in spec.halo)
@@ -174,9 +186,10 @@ def ghost_strategy_for(spec: StencilSpec, shape: Sequence[int],
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """Everything a backend needs to execute one fused block of
-    ``sweeps`` stencil applications — resolved once at lowering time."""
+    ``sweeps`` stencil (or stage-chain) applications — resolved once at
+    lowering time."""
 
-    spec: StencilSpec
+    spec: StencilSpec | StencilPipeline
     shape: tuple[int, ...]              # global grid shape
     dtype: str                          # canonical dtype name
     backend: str                        # one of BACKENDS
@@ -185,17 +198,37 @@ class ExecutionPlan:
     tile: tuple[int, ...] | None        # resolved output tile (cuda only)
     tile_request: object                # what was asked: tuple/None
     ghost_strategy: str                 # one of GHOST_STRATEGIES
-    halo: tuple[int, ...]
+    halo: tuple[int, ...]               # per application (pipelines: sum)
     deep_halo: tuple[int, ...]          # sweeps * halo, per dim
-    factorization: Factorization        # pinned f64 order
-    boundary_mode: str
+    factorization: Factorization | None  # pinned f64 order (None: pipeline,
+                                         # each stage keeps its own)
+    boundary_mode: str                  # pipelines: stage 0's
     boundary_value: float
-    program: object                     # assembled isa.Program
+    program: object                     # isa.Program / PipelineProgram
+    fused: bool = True                  # False: non-fusable pipeline,
+                                        # executed stage plan by stage plan
 
     @property
     def stream_plan(self):
         """The assembled stream plan (``program.plan``)."""
         return self.program.plan
+
+    @property
+    def is_pipeline(self) -> bool:
+        return isinstance(self.spec, StencilPipeline)
+
+    @property
+    def stages(self) -> tuple[StencilSpec, ...]:
+        """The stage chain: the pipeline's stages, or ``(spec,)``."""
+        return as_stages(self.spec)
+
+    def stage_plan(self, k: int) -> "ExecutionPlan":
+        """The single-sweep plan of stage ``k`` (same shape, dtype,
+        backend, tile request and device), lowered through the cache —
+        what the staged fallback executes."""
+        return lower(self.stages[k], self.shape, self.dtype,
+                     backend=self.backend, sweeps=1, tile=self.tile_request,
+                     device=self.device)
 
     def decompose(self, iters: int) -> tuple[int, int]:
         """``iters = q * sweeps + r``."""
@@ -342,14 +375,12 @@ def plan_key(spec: StencilSpec, shape, dtype, backend: str, sweeps: int,
 # ---------------------------------------------------------------------------
 # Lowering
 # ---------------------------------------------------------------------------
-def lower(spec: StencilSpec, shape: Sequence[int], dtype, *,
-          backend: str = "ref", sweeps: int = 1,
+def lower(spec: StencilSpec | StencilPipeline, shape: Sequence[int], dtype,
+          *, backend: str = "ref", sweeps: int = 1,
           tile: Sequence[int] | int | None = None,
           device=None, mesh=None, grid_axes=None) -> ExecutionPlan:
     """Lower ``(spec, shape, dtype, …)`` to an :class:`ExecutionPlan`,
     through the process-wide :data:`PLAN_CACHE`."""
-    if isinstance(spec, StencilPipeline):
-        raise not_ported("pipeline")
     if mesh is not None or grid_axes is not None:
         raise not_ported("mesh")
     if backend == "vm":
@@ -374,17 +405,25 @@ def lower(spec: StencilSpec, shape: Sequence[int], dtype, *,
 
 def _lower_uncached(spec, shape, dtype, backend, sweeps, tile_req,
                     device) -> ExecutionPlan:
+    """One plan for a spec or a pipeline.  A pipeline's halo is the sum
+    of its stage radii and its initial extension is stage 0's; a chain
+    that is not fusable lowers ``fused=False`` with strategy
+    ``"staged"``, and its stage plans decide everything else."""
     halo = spec.halo
     deep = tuple(sweeps * h for h in halo)
     itemsize = torch.empty((), dtype=dtype).element_size()
     if math.prod(shape) * itemsize > _pm.slab_budget_bytes():
         raise not_ported("stream")
+    pipeline = isinstance(spec, StencilPipeline)
+    fused = spec.fusable if pipeline else True
 
     resolved_tile = None
-    ghost = "pad"                               # oracle default
-    if backend in KERNEL_BACKENDS:
+    ghost = "pad" if fused else "staged"        # oracle default
+    if backend in KERNEL_BACKENDS and fused:
         resolved_tile = normalize_tile(spec, tile_req, sweeps, itemsize)
         _check_tile_fits(spec, resolved_tile, sweeps, itemsize)
+        from ..kernels import engine as _keng
+        _keng.check_kernel_args(spec)
         ghost = ghost_strategy_for(spec, shape, itemsize, sweeps,
                                    resolved_tile)
 
@@ -392,9 +431,12 @@ def _lower_uncached(spec, shape, dtype, backend, sweeps, tile_req,
         spec=spec, shape=shape, dtype=dtype_name(dtype), backend=backend,
         sweeps=sweeps, device=device, tile=resolved_tile,
         tile_request=tile_req, ghost_strategy=ghost, halo=halo,
-        deep_halo=deep, factorization=factor_taps(spec),
+        deep_halo=deep,
+        factorization=None if pipeline else factor_taps(spec),
         boundary_mode=spec.boundary_mode,
-        boundary_value=spec.boundary_value, program=assemble(spec))
+        boundary_value=spec.boundary_value,
+        program=assemble_pipeline(spec) if pipeline else assemble(spec),
+        fused=fused)
 
 
 # ---------------------------------------------------------------------------
@@ -402,7 +444,16 @@ def _lower_uncached(spec, shape, dtype, backend, sweeps, tile_req,
 # ---------------------------------------------------------------------------
 def execute(plan: ExecutionPlan, grid: torch.Tensor) -> torch.Tensor:
     """One fused block — ``plan.sweeps`` applications — on the plan's
-    backend (an optional leading batch dim is one more launch axis)."""
+    backend (an optional leading batch dim is one more launch axis).  A
+    non-fusable pipeline plan runs its chain through the cached
+    single-sweep stage plans instead: chained semantics, per-stage
+    traffic."""
+    if not plan.fused:
+        out = grid
+        for _ in range(plan.sweeps):
+            for k in range(len(plan.stages)):
+                out = execute(plan.stage_plan(k), out)
+        return out
     if plan.backend == "ref":
         from . import ref as _ref
         return _ref.execute_plan(plan, grid)
@@ -429,7 +480,7 @@ def run_plan(plan: ExecutionPlan, grid: torch.Tensor,
     return out
 
 
-def _grid_shape_for(spec: StencilSpec, grid) -> tuple[int, ...]:
+def _grid_shape_for(spec, grid) -> tuple[int, ...]:
     """The per-grid shape to lower for: ``grid`` may carry one leading
     batch dimension."""
     if grid.ndim == spec.ndim + 1:
@@ -438,7 +489,7 @@ def _grid_shape_for(spec: StencilSpec, grid) -> tuple[int, ...]:
 
 
 @functools.lru_cache(maxsize=512)
-def runner(spec: StencilSpec, backend: str, sweeps: int, tile_req,
+def runner(spec, backend: str, sweeps: int, tile_req,
            device: str):
     """Process-wide ``run(grid, iters)`` for an engine configuration: a
     second engine with identical options gets the same callable, and

@@ -244,6 +244,67 @@ def masked_window_sweeps(window: torch.Tensor, taps, halo, out_shape,
     return x
 
 
+def masked_window_pipeline(window: torch.Tensor, stages, out_shape,
+                           sweeps: int, starts, grid_shape,
+                           acc_dtype) -> torch.Tensor:
+    """Apply ``sweeps`` fused applications of a stage chain to one
+    widened window (or a leading batch of them) — the pipeline form of
+    :func:`masked_window_sweeps`, as
+    ``repro.core.ref.masked_window_pipeline``.
+
+    ``window`` carries ``sweeps * H`` ghost layers per side (``H`` the
+    per-dim sum of the stage radii) holding stage 0's boundary
+    extension.  Each stage application consumes its own radius; after
+    every application but the last, the ghosts left are restored to the
+    extension of the *next* stage to run, ``stages[(k+1) % n]``, at
+    ``g0 = starts - rem`` where ``rem`` is the ghost depth the rest of
+    the block still consumes.  This is the shared core of the plain
+    versions of kernels K3 and K4.
+    """
+    ndim = len(out_shape)
+    stages = tuple(stages)
+    n = len(stages)
+    total = sweeps * n
+    rem = tuple(sweeps * sum(s.halo[d] for s in stages)
+                for d in range(ndim))
+    x = window.to(acc_dtype)
+    step = 0
+    for _ in range(sweeps):
+        for k, stage in enumerate(stages):
+            halo = stage.halo
+            rem = tuple(r - h for r, h in zip(rem, halo))
+            cur = tuple(t + 2 * r for t, r in zip(out_shape, rem))
+            terms = (None if stage.structure == "dense"
+                     else _classify(ndim, stage.taps).compute_terms)
+            acc = _window_apply(x, stage.taps, halo, cur, acc_dtype, terms)
+            step += 1
+            if step < total:
+                nxt = stages[(k + 1) % n]
+                g0s = tuple(starts[d] - rem[d] for d in range(ndim))
+                acc = _restore_ghosts(acc, nxt.boundary_mode,
+                                      nxt.boundary_value, g0s, grid_shape,
+                                      cur)
+            x = acc
+    return x
+
+
+def apply_pipeline(pipeline, grid: torch.Tensor) -> torch.Tensor:
+    """One application of a stage chain (a ``StencilPipeline`` or any
+    sequence of specs): each stage one :func:`apply_stencil` sweep under
+    its own boundary mode — the chained oracle of the fused pipelines."""
+    for stage in (pipeline.stages if hasattr(pipeline, "stages")
+                  else tuple(pipeline)):
+        grid = apply_stencil(stage, grid)
+    return grid
+
+
+def run_pipeline(pipeline, grid: torch.Tensor, iters: int) -> torch.Tensor:
+    """``iters`` chained applications of the full stage chain."""
+    for _ in range(iters):
+        grid = apply_pipeline(pipeline, grid)
+    return grid
+
+
 def apply_stencil(spec: StencilSpec, grid: torch.Tensor) -> torch.Tensor:
     """``out[p] = sum_k c_k * in[p + off_k]``, one sweep over the
     trailing ``spec.ndim`` dims; taps past the edge are served by
@@ -273,7 +334,8 @@ def run_iterations(spec: StencilSpec, grid: torch.Tensor,
 
 def execute_plan(plan, grid: torch.Tensor) -> torch.Tensor:
     """``ref``-backend executor of one lowered plan: ``plan.sweeps``
-    chained oracle applications (ghost strategy ``"pad"``)."""
+    chained oracle applications of the plan's stage chain (ghost
+    strategy ``"pad"``)."""
     if plan.backend != "ref":
         raise ValueError(f"not a ref plan: backend={plan.backend!r}")
     out = grid

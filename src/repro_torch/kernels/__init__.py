@@ -3,12 +3,18 @@
 Kernels are built from ``csrc/`` at first use (``_build``), never at
 import.
 """
-from .engine import (LAUNCHES, execute_plan, hbm_traffic, reset_launches,
+from .engine import (LAUNCHES, execute_plan, hbm_pipeline_traffic,
+                     hbm_traffic, pipeline_apply, pipeline_sweep,
+                     pipeline_sweep_plain, pipeline_window_sweep,
+                     pipeline_window_sweep_plain, reset_launches,
                      stencil_apply, stencil_sweep, stencil_sweep_plain,
                      stencil_window_sweep, stencil_window_sweep_plain)
 
 __all__ = [
-    "LAUNCHES", "execute_plan", "hbm_traffic", "reset_launches",
-    "stencil_apply", "stencil_sweep", "stencil_sweep_plain",
-    "stencil_window_sweep", "stencil_window_sweep_plain",
+    "LAUNCHES", "execute_plan", "hbm_pipeline_traffic", "hbm_traffic",
+    "pipeline_apply", "pipeline_sweep", "pipeline_sweep_plain",
+    "pipeline_window_sweep", "pipeline_window_sweep_plain",
+    "reset_launches", "stencil_apply", "stencil_sweep",
+    "stencil_sweep_plain", "stencil_window_sweep",
+    "stencil_window_sweep_plain",
 ]

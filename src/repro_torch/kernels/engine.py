@@ -1,23 +1,34 @@
-"""Fused temporal-blocking stencil kernels K1/K2 and their wrappers.
+"""Fused temporal-blocking stencil kernels K1-K4 and their wrappers.
 
-The port's counterpart of ``repro.kernels.engine``.  Two hand-written
-CUDA kernels (``csrc/stencil.cu``) replace the reference's Pallas
-kernels:
+The port's counterpart of ``repro.kernels.engine``.  One hand-written
+CUDA kernel template (``csrc/stencil.cu``) replaces the reference's four
+Pallas kernels; it runs ``sweeps`` fused applications of a chain of 1-4
+stages, one stage for a :class:`StencilSpec`:
 
 * **K1** — :func:`stencil_sweep`, pad-free: each window element is
   loaded from the unpadded grid through the boundary index map of its
   global coordinate (replaces ``_padfree_kernel``);
 * **K2** — :func:`stencil_window_sweep`, padded window: windows are read
   from an input that already carries ``sweeps*halo`` ghosts, with an
-  ``origin`` that places it in the global grid (replaces ``_kernel``).
+  ``origin`` that places it in the global grid (replaces ``_kernel``);
+* **K3** — :func:`pipeline_sweep`, K1 for a fusable
+  :class:`StencilPipeline`: the window is widened by ``sweeps`` times the
+  sum of the stage radii and built with stage 0's extension, and between
+  stage applications ghosts are restored per the next stage's mode
+  (replaces ``_padfree_pipeline_kernel``);
+* **K4** — :func:`pipeline_window_sweep`, K2 for a fusable pipeline
+  (replaces ``_pipeline_kernel``).
 
 Each kernel has a **plain PyTorch version** beside it
-(:func:`stencil_sweep_plain`, :func:`stencil_window_sweep_plain`) that
+(:func:`stencil_sweep_plain`, :func:`stencil_window_sweep_plain`,
+:func:`pipeline_sweep_plain`, :func:`pipeline_window_sweep_plain`) that
 runs the kernel's own algorithm — the same tiles, the same windows, the
-torch ``masked_window_sweeps`` core — with every tile gathered at once
-as a leading batch.  A wrapper takes the plain version only for a CPU
-tensor; for a CUDA tensor it launches the kernel or raises.  Each kernel
-counts its launches in :data:`LAUNCHES`.
+torch ``masked_window_sweeps`` / ``masked_window_pipeline`` core — with
+every tile gathered at once as a leading batch.  A wrapper takes the
+plain version only for a CPU tensor; for a CUDA tensor it launches the
+kernel or raises.  Each kernel counts its launches in :data:`LAUNCHES`.
+The kernels take float32, float64 and bfloat16 (computed in f32 and
+rounded once at the store, as the reference accumulates).
 """
 from __future__ import annotations
 
@@ -31,19 +42,22 @@ import torch.nn.functional as F
 
 from ..core import plan as _plan
 from ..core import ref as _ref
-from ..core.stencil import StencilSpec, _classify
+from ..core.stencil import StencilPipeline, StencilSpec, _classify, as_stages
 from . import _build
 
 #: Launches per kernel since the last :func:`reset_launches` — counted
 #: where the kernel is launched and nowhere else.
-LAUNCHES: dict[str, int] = {"K1": 0, "K2": 0}
+LAUNCHES: dict[str, int] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
-#: The CUDA source that holds K1 and K2.
+#: The CUDA source that holds K1-K4.
 SOURCE = "stencil.cu"
 
-_MAX_TAPS, _MAX_TERMS, _MAX_FACS, _MAX_FOFF = 64, 8, 12, 64
+# Argument pools (taps and factored terms are pooled across the stages).
+_MAX_STAGES, _MAX_TAPS, _MAX_TERMS, _MAX_FACS, _MAX_FOFF = 4, 96, 16, 24, 96
 _MODES = {"zero": 0, "constant": 1, "periodic": 2, "reflect": 3}
-_KERNEL_DTYPES = (torch.float32, torch.float64)
+_ENTRY = {torch.float32: "casper_stencil_f32",
+          torch.float64: "casper_stencil_f64",
+          torch.bfloat16: "casper_stencil_bf16"}
 
 
 def reset_launches() -> None:
@@ -64,21 +78,29 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
 _I3 = ctypes.c_int * 3
 
 
+class CasperStage(ctypes.Structure):
+    _fields_ = [
+        ("halo", _I3), ("mode", ctypes.c_int),
+        ("tap_first", ctypes.c_int), ("n_taps", ctypes.c_int),
+        ("term_first", ctypes.c_int), ("n_terms", ctypes.c_int),
+        ("value", ctypes.c_double),
+    ]
+
+
 class CasperArgs(ctypes.Structure):
     _fields_ = [
-        ("padded", ctypes.c_int), ("mode", ctypes.c_int),
-        ("sweeps", ctypes.c_int), ("batch", ctypes.c_int),
+        ("padded", ctypes.c_int), ("sweeps", ctypes.c_int),
+        ("batch", ctypes.c_int), ("n_stages", ctypes.c_int),
         ("grid", _I3), ("tile", _I3), ("halo", _I3), ("src", _I3),
         ("out", _I3), ("origin", _I3),
-        ("n_taps", ctypes.c_int), ("n_terms", ctypes.c_int),
+        ("stage", CasperStage * _MAX_STAGES),
         ("tap_off", _I3 * _MAX_TAPS),
-        ("term_first", ctypes.c_int * _MAX_TERMS),
+        ("term_fac", ctypes.c_int * _MAX_TERMS),
         ("term_nf", ctypes.c_int * _MAX_TERMS),
         ("fac_axis", ctypes.c_int * _MAX_FACS),
         ("fac_first", ctypes.c_int * _MAX_FACS),
         ("fac_n", ctypes.c_int * _MAX_FACS),
         ("foff", ctypes.c_int * _MAX_FOFF),
-        ("value", ctypes.c_double),
         ("tap_c", ctypes.c_double * _MAX_TAPS),
         ("fc", ctypes.c_double * _MAX_FOFF),
     ]
@@ -87,7 +109,7 @@ class CasperArgs(ctypes.Structure):
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     if not getattr(lib, "_casper_bound", False):
-        for name in ("casper_stencil_f32", "casper_stencil_f64"):
+        for name in _ENTRY.values():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_void_p]
@@ -108,60 +130,85 @@ def _rank3(v: Sequence[int], pad: int, fill: int) -> tuple[int, ...]:
     return (fill,) * pad + tuple(int(x) for x in v)
 
 
+def _pack_stages(a: CasperArgs, spec) -> None:
+    """Fill the stage table and the pooled tap/term tables of ``a`` for
+    ``spec`` (a spec: one stage; a pipeline: its stages).  Raises
+    ``ValueError`` when the chain exceeds the pools."""
+    stages = as_stages(spec)
+    if len(stages) > _MAX_STAGES:
+        raise ValueError(f"{spec.name}: {len(stages)} stages exceed the CUDA "
+                         f"kernels' {_MAX_STAGES}")
+    nd = spec.ndim
+    pad = 3 - nd
+    a.n_stages = len(stages)
+    ntap = nterm = nfac = noff = 0
+    for k, st in enumerate(stages):
+        s = a.stage[k]
+        s.halo[:] = _rank3(st.halo, pad, 0)
+        s.mode, s.value = _MODES[st.boundary_mode], st.boundary_value
+        if ntap + st.n_taps > _MAX_TAPS:
+            raise ValueError(f"{spec.name}: more than {_MAX_TAPS} taps over "
+                             "all stages")
+        s.tap_first, s.n_taps = ntap, st.n_taps
+        for off, c in st.taps:
+            a.tap_off[ntap][:] = _rank3(off, pad, 0)
+            a.tap_c[ntap] = c
+            ntap += 1
+        terms = (None if st.structure == "dense"
+                 else _classify(nd, st.taps).compute_terms) or ()
+        s.term_first, s.n_terms = nterm, len(terms)
+        for term in terms:
+            if nterm >= _MAX_TERMS or nfac + len(term.factors) > _MAX_FACS:
+                raise ValueError(f"{spec.name}: too many factored terms")
+            a.term_fac[nterm], a.term_nf[nterm] = nfac, len(term.factors)
+            nterm += 1
+            for f in term.factors:
+                if noff + len(f.offsets) > _MAX_FOFF:
+                    raise ValueError(f"{spec.name}: too many factor offsets")
+                a.fac_axis[nfac] = f.axis + pad
+                a.fac_first[nfac], a.fac_n[nfac] = noff, len(f.offsets)
+                for o, c in zip(f.offsets, f.coeffs):
+                    a.foff[noff], a.fc[noff] = o, c
+                    noff += 1
+                nfac += 1
+
+
+@functools.lru_cache(maxsize=256)
+def check_kernel_args(spec) -> None:
+    """Raise ``ValueError`` unless ``spec``'s stage chain fits the CUDA
+    kernels' argument pools — asked at lowering, on every device."""
+    _pack_stages(CasperArgs(), spec)
+
+
 @functools.lru_cache(maxsize=1024)
-def _args(spec: StencilSpec, padded: bool, sweeps: int, batch: int,
+def _args(spec, padded: bool, sweeps: int, batch: int,
           grid_shape: tuple, tile: tuple, src: tuple, out: tuple,
           origin: tuple) -> CasperArgs:
     """Pack one launch's arguments; every rank is carried as rank 3."""
     if max(grid_shape + src + out) >= 2 ** 31:
         raise ValueError("the CUDA kernels take extents below 2**31 per dim")
-    nd = spec.ndim
-    pad = 3 - nd
+    pad = 3 - spec.ndim
     a = CasperArgs()
-    a.padded, a.mode = int(padded), _MODES[spec.boundary_mode]
-    a.sweeps, a.batch = sweeps, batch
+    a.padded, a.sweeps, a.batch = int(padded), sweeps, batch
     a.grid[:] = _rank3(grid_shape, pad, 1)
     a.tile[:] = _rank3(tile, pad, 1)
     a.halo[:] = _rank3(spec.halo, pad, 0)
     a.src[:] = _rank3(src, pad, 1)
     a.out[:] = _rank3(out, pad, 1)
     a.origin[:] = _rank3(origin, pad, 0)
-    a.value = spec.boundary_value
-    if spec.n_taps > _MAX_TAPS:
-        raise ValueError(f"{spec.name}: {spec.n_taps} taps > {_MAX_TAPS}")
-    a.n_taps = spec.n_taps
-    for k, (off, c) in enumerate(spec.taps):
-        a.tap_off[k][:] = _rank3(off, pad, 0)
-        a.tap_c[k] = c
-    terms = (None if spec.structure == "dense"
-             else _classify(nd, spec.taps).compute_terms)
-    a.n_terms = 0 if terms is None else len(terms)
-    nfac = noff = 0
-    for t, term in enumerate(terms or ()):
-        if t >= _MAX_TERMS or nfac + len(term.factors) > _MAX_FACS:
-            raise ValueError(f"{spec.name}: too many factored terms")
-        a.term_first[t], a.term_nf[t] = nfac, len(term.factors)
-        for f in term.factors:
-            if noff + len(f.offsets) > _MAX_FOFF:
-                raise ValueError(f"{spec.name}: too many factor offsets")
-            a.fac_axis[nfac] = f.axis + pad
-            a.fac_first[nfac], a.fac_n[nfac] = noff, len(f.offsets)
-            for o, c in zip(f.offsets, f.coeffs):
-                a.foff[noff], a.fc[noff] = o, c
-                noff += 1
-            nfac += 1
+    _pack_stages(a, spec)
     return a
 
 
-def _launch(kernel: str, spec: StencilSpec, src: torch.Tensor,
-            out: torch.Tensor, *, sweeps: int, tile: tuple,
-            grid_shape: tuple, out_shape: tuple, origin: tuple) -> None:
-    """Launch K1 (``kernel="K1"``) or K2 on the current stream."""
+def _launch(kernel: str, spec, src: torch.Tensor, out: torch.Tensor, *,
+            sweeps: int, tile: tuple, grid_shape: tuple, out_shape: tuple,
+            origin: tuple) -> None:
+    """Launch ``kernel`` (K1-K4: padded for K2/K4) on the current
+    stream."""
     lib = _lib()
-    a = _args(spec, kernel == "K2", sweeps, src.shape[0], grid_shape, tile,
-              tuple(src.shape[1:]), out_shape, origin)
-    fn = (lib.casper_stencil_f64 if src.dtype == torch.float64
-          else lib.casper_stencil_f32)
+    a = _args(spec, kernel in ("K2", "K4"), sweeps, src.shape[0],
+              grid_shape, tile, tuple(src.shape[1:]), out_shape, origin)
+    fn = getattr(lib, _ENTRY[src.dtype])
     stream = torch.cuda.current_stream(src.device).cuda_stream
     err = fn(src.device.index, src.data_ptr(), out.data_ptr(),
              ctypes.addressof(a), stream)
@@ -172,9 +219,9 @@ def _launch(kernel: str, spec: StencilSpec, src: torch.Tensor,
 
 
 def _check_cuda_input(x: torch.Tensor, what: str) -> None:
-    if x.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"{what}: the CUDA kernels take float32/float64, "
-                        f"got {x.dtype}")
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"{what}: the CUDA kernels take float32/float64/"
+                        f"bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: the CUDA kernels need a contiguous "
                          "tensor")
@@ -186,7 +233,7 @@ def _device_kind(x: torch.Tensor) -> str:
     return x.device.type
 
 
-def _batched(spec: StencilSpec, x: torch.Tensor, what: str):
+def _batched(spec, x: torch.Tensor, what: str):
     if x.ndim == spec.ndim:
         return x.unsqueeze(0), False
     if x.ndim == spec.ndim + 1:
@@ -240,19 +287,13 @@ def _untile(y: torch.Tensor, batch: int, nt, tile, out_shape,
         .to(dtype).contiguous()
 
 
-def stencil_sweep_plain(spec: StencilSpec, grid: torch.Tensor,
-                        tile: Sequence[int], sweeps: int = 1
-                        ) -> torch.Tensor:
-    """Plain version of K1: each tile's window ``tile + 2*sweeps*halo``
-    gathered from the unpadded grid through the boundary index map of its
-    global coordinate, then the torch ``masked_window_sweeps``."""
-    g, batched = _batched(spec, grid, "grid")
-    tile = tuple(tile)
+def _padfree_windows(g: torch.Tensor, tile, wide, mode: str, value: float):
+    """Every tile's ``tile + 2*wide`` window of the unpadded ``(B, *S)``
+    grid, each element gathered through the boundary index map of its
+    global coordinate under ``mode`` (what K1/K3 load)."""
     n_shape = tuple(g.shape[1:])
-    nd = spec.ndim
-    wide = tuple(sweeps * h for h in spec.halo)
+    nd = len(tile)
     nt = _n_tiles(n_shape, tile)
-    mode, value = spec.boundary_mode, spec.boundary_value
     idx, valid = [], []
     for d in range(nd):
         gc = ((torch.arange(nt[d], dtype=torch.int64, device=g.device)
@@ -274,28 +315,13 @@ def stencil_sweep_plain(spec: StencilSpec, grid: torch.Tensor,
         windows = torch.where(mask.reshape((1, -1) + tuple(win)),
                               windows.reshape((g.shape[0], -1) + tuple(win)),
                               fill).reshape(windows.shape)
-    starts = _tile_starts(nt, tile, g.shape[0], (0,) * nd, g.device)
-    y = _ref.masked_window_sweeps(
-        windows, spec.taps, spec.halo, tile, sweeps, starts, n_shape,
-        _acc_dtype(g.dtype), mode=mode, value=value,
-        structure=spec.structure)
-    out = _untile(y, g.shape[0], nt, tile, n_shape, g.dtype)
-    return out if batched else out[0]
+    return windows, nt
 
 
-def stencil_window_sweep_plain(spec: StencilSpec, window: torch.Tensor,
-                               out_shape: Sequence[int], origin,
-                               grid_shape: Sequence[int],
-                               tile: Sequence[int], sweeps: int = 1
-                               ) -> torch.Tensor:
-    """Plain version of K2: the window zero-extended at its end to whole
-    tiles, each tile's ``tile + 2*sweeps*halo`` block sliced at the
-    tile's local offset, then the torch ``masked_window_sweeps`` with
-    global coordinates shifted by ``origin``."""
-    w, batched = _batched(spec, window, "window")
-    tile, out_shape = tuple(tile), tuple(int(n) for n in out_shape)
-    nd = spec.ndim
-    wide = tuple(sweeps * h for h in spec.halo)
+def _padded_windows(w: torch.Tensor, out_shape, tile, wide):
+    """Every tile's ``tile + 2*wide`` block of the padded ``(B, *W)``
+    window, zero-extended at its end to whole tiles (what K2/K4 load)."""
+    nd = len(tile)
     nt = _n_tiles(out_shape, tile)
     pads = []
     for n, t in zip(reversed(out_shape), reversed(tile)):
@@ -306,29 +332,91 @@ def stencil_window_sweep_plain(spec: StencilSpec, window: torch.Tensor,
            + torch.arange(tile[d] + 2 * wide[d], dtype=torch.int64,
                           device=w.device)
            for d in range(nd)]
-    windows = _gather_windows(xp, idx)
-    starts = _tile_starts(nt, tile, w.shape[0], tuple(origin), w.device)
-    y = _ref.masked_window_sweeps(
-        windows, spec.taps, spec.halo, tile, sweeps, starts,
-        tuple(int(n) for n in grid_shape), _acc_dtype(w.dtype),
+    return _gather_windows(xp, idx), nt
+
+
+def _fused_core(spec, windows, tile, sweeps, starts, grid_shape, acc):
+    """The fused core of the plain versions: ``masked_window_sweeps``
+    for a spec, ``masked_window_pipeline`` for a pipeline."""
+    if isinstance(spec, StencilPipeline):
+        return _ref.masked_window_pipeline(windows, spec.stages, tile, sweeps,
+                                           starts, grid_shape, acc)
+    return _ref.masked_window_sweeps(
+        windows, spec.taps, spec.halo, tile, sweeps, starts, grid_shape, acc,
         mode=spec.boundary_mode, value=spec.boundary_value,
         structure=spec.structure)
+
+
+def stencil_sweep_plain(spec, grid: torch.Tensor, tile: Sequence[int],
+                        sweeps: int = 1) -> torch.Tensor:
+    """Plain version of K1 (of K3 for a pipeline): each tile's window
+    ``tile + 2*sweeps*halo`` gathered from the unpadded grid through the
+    boundary index map of its global coordinate (stage 0's for a
+    pipeline), then the torch ``masked_window_sweeps`` (or
+    ``masked_window_pipeline``)."""
+    g, batched = _batched(spec, grid, "grid")
+    tile = tuple(tile)
+    n_shape = tuple(g.shape[1:])
+    wide = tuple(sweeps * h for h in spec.halo)
+    windows, nt = _padfree_windows(g, tile, wide, spec.boundary_mode,
+                                   spec.boundary_value)
+    starts = _tile_starts(nt, tile, g.shape[0], (0,) * spec.ndim, g.device)
+    y = _fused_core(spec, windows, tile, sweeps, starts, n_shape,
+                    _acc_dtype(g.dtype))
+    out = _untile(y, g.shape[0], nt, tile, n_shape, g.dtype)
+    return out if batched else out[0]
+
+
+def stencil_window_sweep_plain(spec, window: torch.Tensor,
+                               out_shape: Sequence[int], origin,
+                               grid_shape: Sequence[int],
+                               tile: Sequence[int], sweeps: int = 1
+                               ) -> torch.Tensor:
+    """Plain version of K2 (of K4 for a pipeline): the window
+    zero-extended at its end to whole tiles, each tile's
+    ``tile + 2*sweeps*halo`` block sliced at the tile's local offset,
+    then the fused core with global coordinates shifted by ``origin``."""
+    w, batched = _batched(spec, window, "window")
+    tile, out_shape = tuple(tile), tuple(int(n) for n in out_shape)
+    wide = tuple(sweeps * h for h in spec.halo)
+    windows, nt = _padded_windows(w, out_shape, tile, wide)
+    starts = _tile_starts(nt, tile, w.shape[0], tuple(origin), w.device)
+    y = _fused_core(spec, windows, tile, sweeps, starts,
+                    tuple(int(n) for n in grid_shape), _acc_dtype(w.dtype))
     out = _untile(y, w.shape[0], nt, tile, out_shape, w.dtype)
     return out if batched else out[0]
+
+
+def pipeline_sweep_plain(pipeline: StencilPipeline, grid: torch.Tensor,
+                         tile: Sequence[int], sweeps: int = 1
+                         ) -> torch.Tensor:
+    """Plain version of K3: each tile's window ``tile + 2*sweeps*H``
+    (``H`` the sum of the stage radii) gathered from the unpadded grid
+    through stage 0's boundary index map, then the torch
+    ``masked_window_pipeline``."""
+    return stencil_sweep_plain(pipeline, grid, tile, sweeps)
+
+
+def pipeline_window_sweep_plain(pipeline: StencilPipeline,
+                                window: torch.Tensor,
+                                out_shape: Sequence[int], origin,
+                                grid_shape: Sequence[int],
+                                tile: Sequence[int], sweeps: int = 1
+                                ) -> torch.Tensor:
+    """Plain version of K4: K2's tiling of a window pre-padded to depth
+    ``sweeps*H`` with stage 0's mode, then the torch
+    ``masked_window_pipeline``."""
+    return stencil_window_sweep_plain(pipeline, window, out_shape, origin,
+                                      grid_shape, tile, sweeps)
 
 
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
-def stencil_window_sweep(spec: StencilSpec, window: torch.Tensor,
-                         out_shape: Sequence[int], origin,
-                         grid_shape: Sequence[int],
-                         tile: Sequence[int] | int | None = None,
-                         sweeps: int = 1) -> torch.Tensor:
-    """K2: ``sweeps`` fused applications to a window (optional leading
-    batch dim) that already carries ``sweeps*halo`` ghosts per side; the
-    interior's origin sits at global coordinate ``origin`` of a
-    ``grid_shape`` grid."""
+def _window_sweep(spec, window, out_shape, origin, grid_shape, tile,
+                  sweeps) -> torch.Tensor:
+    """K2 (spec) or K4 (pipeline) on a window that already carries its
+    ``sweeps*halo`` ghosts; the plain version for a CPU tensor."""
     if sweeps < 1:
         raise ValueError(f"sweeps must be >= 1, got {sweeps}")
     w, batched = _batched(spec, window, "window")
@@ -351,9 +439,56 @@ def stencil_window_sweep(spec: StencilSpec, window: torch.Tensor,
     out = torch.empty((w.shape[0],) + out_shape, dtype=w.dtype,
                       device=w.device)
     if out.numel():
-        _launch("K2", spec, w, out, sweeps=sweeps, tile=tile,
+        _launch("K4" if isinstance(spec, StencilPipeline) else "K2", spec,
+                w, out, sweeps=sweeps, tile=tile,
                 grid_shape=grid_shape, out_shape=out_shape, origin=origin)
     return out if batched else out[0]
+
+
+def _sweep(spec, grid, tile, sweeps, strategy) -> torch.Tensor:
+    """``sweeps`` fused applications of ``spec`` (a spec or a fusable
+    pipeline): K1/K3 pad-free, or one ``pad_boundary`` copy with stage
+    0's mode and K2/K4."""
+    pipeline = isinstance(spec, StencilPipeline)
+    g, batched = _batched(spec, grid, "grid")
+    itemsize = g.element_size()
+    tile = _plan.normalize_tile(spec, tile, sweeps, itemsize)
+    n_shape = tuple(g.shape[1:])
+    if strategy is None:
+        strategy = _plan.ghost_strategy_for(spec, n_shape, itemsize, sweeps,
+                                            tile)
+    if strategy == "padded-window":
+        wide = tuple(sweeps * h for h in spec.halo)
+        window = _ref.pad_boundary(g, wide, spec.boundary_mode,
+                                   spec.boundary_value)
+        out = _window_sweep(spec, window, n_shape, (0,) * spec.ndim,
+                            n_shape, tile, sweeps)
+    elif strategy != "pad-free":
+        raise ValueError(f"unknown kernel ghost strategy {strategy!r}")
+    elif _device_kind(g) == "cpu":
+        out = stencil_sweep_plain(spec, g, tile, sweeps)
+    else:
+        _check_cuda_input(g, "grid")
+        _plan._check_tile_fits(spec, tile, sweeps, itemsize)
+        out = torch.empty_like(g)
+        if out.numel():
+            _launch("K3" if pipeline else "K1", spec, g, out, sweeps=sweeps,
+                    tile=tile, grid_shape=n_shape, out_shape=n_shape,
+                    origin=(0,) * spec.ndim)
+    return out if batched else out[0]
+
+
+def stencil_window_sweep(spec: StencilSpec, window: torch.Tensor,
+                         out_shape: Sequence[int], origin,
+                         grid_shape: Sequence[int],
+                         tile: Sequence[int] | int | None = None,
+                         sweeps: int = 1) -> torch.Tensor:
+    """K2: ``sweeps`` fused applications to a window (optional leading
+    batch dim) that already carries ``sweeps*halo`` ghosts per side; the
+    interior's origin sits at global coordinate ``origin`` of a
+    ``grid_shape`` grid."""
+    return _window_sweep(spec, window, out_shape, origin, grid_shape, tile,
+                         sweeps)
 
 
 def stencil_sweep(spec: StencilSpec, grid: torch.Tensor,
@@ -369,32 +504,7 @@ def stencil_sweep(spec: StencilSpec, grid: torch.Tensor,
     """
     if sweeps < 1:
         raise ValueError(f"sweeps must be >= 1, got {sweeps}")
-    g, batched = _batched(spec, grid, "grid")
-    itemsize = g.element_size()
-    tile = _plan.normalize_tile(spec, tile, sweeps, itemsize)
-    n_shape = tuple(g.shape[1:])
-    if strategy is None:
-        strategy = _plan.ghost_strategy_for(spec, n_shape, itemsize, sweeps,
-                                            tile)
-    if strategy == "padded-window":
-        wide = tuple(sweeps * h for h in spec.halo)
-        window = _ref.pad_boundary(g, wide, spec.boundary_mode,
-                                   spec.boundary_value)
-        out = stencil_window_sweep(spec, window, n_shape, (0,) * spec.ndim,
-                                   n_shape, tile=tile, sweeps=sweeps)
-    elif strategy != "pad-free":
-        raise ValueError(f"unknown kernel ghost strategy {strategy!r}")
-    elif _device_kind(g) == "cpu":
-        out = stencil_sweep_plain(spec, g, tile, sweeps)
-    else:
-        _check_cuda_input(g, "grid")
-        _plan._check_tile_fits(spec, tile, sweeps, itemsize)
-        out = torch.empty_like(g)
-        if out.numel():
-            _launch("K1", spec, g, out, sweeps=sweeps, tile=tile,
-                    grid_shape=n_shape, out_shape=n_shape,
-                    origin=(0,) * spec.ndim)
-    return out if batched else out[0]
+    return _sweep(spec, grid, tile, sweeps, strategy)
 
 
 def stencil_apply(spec: StencilSpec, grid: torch.Tensor,
@@ -408,13 +518,75 @@ def stencil_apply(spec: StencilSpec, grid: torch.Tensor,
                          strategy=strategy)
 
 
+def _require_fusable(pipeline: StencilPipeline, what: str) -> None:
+    if not pipeline.fusable:
+        raise ValueError(
+            f"{pipeline.name}: mixed periodic/non-periodic stages cannot run "
+            f"fused ({what}); use strategy='staged' or lower the pipeline")
+
+
+def pipeline_window_sweep(pipeline: StencilPipeline, window: torch.Tensor,
+                          out_shape: Sequence[int], origin,
+                          grid_shape: Sequence[int],
+                          tile: Sequence[int] | int | None = None,
+                          sweeps: int = 1) -> torch.Tensor:
+    """K4: ``sweeps`` fused chain applications to a window that already
+    carries ``sweeps*H`` ghosts (``H`` the sum of the stage radii) filled
+    with stage 0's extension; the interior's origin sits at global
+    coordinate ``origin`` of a ``grid_shape`` grid."""
+    _require_fusable(pipeline, "padded window")
+    return _window_sweep(pipeline, window, out_shape, origin, grid_shape,
+                         tile, sweeps)
+
+
+def pipeline_sweep(pipeline: StencilPipeline, grid: torch.Tensor,
+                   tile: Sequence[int] | int | None = None,
+                   sweeps: int = 1,
+                   strategy: str | None = None) -> torch.Tensor:
+    """``sweeps`` fused applications of a stage chain: each tile reads its
+    ``sweeps*H``-widened window once and writes its tile once; every
+    intermediate stage field stays in shared memory.
+
+    ``"pad-free"`` runs K3 on the unpadded grid; ``"padded-window"``
+    builds one ``pad_boundary`` copy with stage 0's mode at depth
+    ``sweeps*H`` and runs K4 on it; ``"staged"`` (the default for a chain
+    that is not fusable) runs each stage as one single-sweep K1/K2 call,
+    ``sweeps`` times over.  ``None`` asks
+    :func:`repro_torch.core.plan.ghost_strategy_for`.
+    """
+    if sweeps < 1:
+        raise ValueError(f"sweeps must be >= 1, got {sweeps}")
+    if strategy is None and not pipeline.fusable:
+        strategy = "staged"
+    if strategy == "staged":
+        out = grid
+        for _ in range(sweeps):
+            for stage in pipeline.stages:
+                out = stencil_sweep(stage, out, tile=tile, sweeps=1)
+        return out
+    _require_fusable(pipeline, f"strategy {strategy!r}")
+    return _sweep(pipeline, grid, tile, sweeps, strategy)
+
+
+def pipeline_apply(pipeline: StencilPipeline, grid: torch.Tensor,
+                   tile: Sequence[int] | int | None = None,
+                   sweeps: int = 1,
+                   strategy: str | None = None) -> torch.Tensor:
+    """Pipeline form of :func:`stencil_apply`: one grid, or a leading
+    batch dim as one more axis of the launch grid."""
+    return pipeline_sweep(pipeline, grid, tile=tile, sweeps=sweeps,
+                          strategy=strategy)
+
+
 def execute_plan(plan, grid: torch.Tensor) -> torch.Tensor:
     """Executor of one lowered ``"cuda"`` plan: one fused block of
-    ``plan.sweeps`` applications with the plan's tile and strategy."""
+    ``plan.sweeps`` applications with the plan's tile and strategy
+    (pipeline plans run K3/K4)."""
     if plan.backend != "cuda":
         raise ValueError(f"not a cuda plan: backend={plan.backend!r}")
-    return stencil_apply(plan.spec, grid, tile=plan.tile,
-                         sweeps=plan.sweeps, strategy=plan.ghost_strategy)
+    apply = pipeline_apply if plan.is_pipeline else stencil_apply
+    return apply(plan.spec, grid, tile=plan.tile, sweeps=plan.sweeps,
+                 strategy=plan.ghost_strategy)
 
 
 # ---------------------------------------------------------------------------
@@ -456,4 +628,42 @@ def hbm_traffic(spec: StencilSpec, shape: Sequence[int],
         "halo_overhead": n_tiles * window_bytes(sweeps) / fused,
         "pad_bytes_unfused": float(sweeps * pad_copy_bytes(1)),
         "legacy_fused_bytes": float(fused + pad_copy_bytes(sweeps)),
+    }
+
+
+def hbm_pipeline_traffic(pipeline: StencilPipeline, shape: Sequence[int],
+                         tile: Sequence[int] | None = None,
+                         sweeps: int = 1,
+                         itemsize: int = 4) -> dict[str, float]:
+    """Bytes moved between device memory and the SMs for ``sweeps``
+    fused chain applications vs the stage-by-stage chain —
+    ``repro.kernels.engine.hbm_pipeline_traffic`` with the port's default
+    tile.  ``fused``: one K3 call, each tile reading its ``sweeps*H``
+    window once and writing its tile once; ``staged``: every one of the
+    ``sweeps * n_stages`` stage passes as a pad-free single-sweep call
+    with its own windows (a lower bound on the staged chain's bytes);
+    ``intermediate_bytes``: the intermediate fields the fusion keeps out
+    of device memory."""
+    if tile is None:
+        tile = _plan.default_tile(pipeline, sweeps, itemsize)
+    tile = tuple(tile)
+    n_tiles = math.prod(-(-n // t) for n, t in zip(shape, tile))
+    out_b = math.prod(tile) * itemsize
+
+    def window_bytes(layers: Sequence[int]) -> int:
+        return math.prod(t + 2 * w for t, w in zip(tile, layers)) * itemsize
+
+    fused = n_tiles * (window_bytes(tuple(sweeps * h
+                                          for h in pipeline.halo)) + out_b)
+    staged = sweeps * sum(
+        n_tiles * (window_bytes(stage.halo) + out_b)
+        for stage in pipeline.stages)
+    grid_b = math.prod(shape) * itemsize
+    passes = sweeps * pipeline.n_stages
+    return {
+        "fused_bytes": float(fused),
+        "staged_bytes": float(staged),
+        "reduction": staged / fused,
+        "intermediate_bytes": float(2 * (passes - 1) * grid_b),
+        "n_stage_passes": float(passes),
     }

@@ -1,0 +1,60 @@
+"""Seed -> random stage chain, and the seed-pinned regression corpus.
+
+Copies of the reference fuzz harness's generator and corpus
+(``tests/test_pipeline_fuzz.py``), building ``repro_torch`` specs from
+numpy alone, so that both the CPU parity tests and ``chip_smoke.py`` (on
+the card, without JAX) run the same chains.  A case is determined by its
+seed: the same seed gives the reference harness's taps, coefficients,
+boundaries and structures.
+"""
+import numpy as np
+
+from repro_torch.core.stencil import StencilPipeline, StencilSpec
+
+NONPERIODIC = ("zero", "constant(0.5)", "reflect")
+
+# (seed, ndim, periodic, n_stages, sweeps); append, never remove.
+REGRESSION_CORPUS = (
+    (1, 2, False, 2, 1),
+    (7, 2, False, 3, 2),
+    (13, 2, True, 2, 2),
+    (29, 1, False, 4, 1),
+    (31, 1, True, 3, 2),
+    (42, 3, False, 2, 1),
+    (57, 3, True, 2, 1),
+    (101, 2, False, 4, 1),
+    (163, 3, False, 2, 2),
+    (211, 1, True, 2, 2),
+)
+
+
+def random_spec(rng: np.random.Generator, ndim: int, boundary: str,
+                name: str) -> StencilSpec:
+    """A random spec: random radius (1-2), random tap set inside the
+    radius box (center always present, so specs are well-conditioned),
+    random coefficients, randomly forced-dense structure."""
+    radius = int(rng.integers(1, 3))
+    n_extra = int(rng.integers(1, 5))
+    offs = {(0,) * ndim}
+    for _ in range(n_extra):
+        offs.add(tuple(int(o) for o in
+                       rng.integers(-radius, radius + 1, size=ndim)))
+    taps = tuple((off, float(np.round(rng.uniform(-1.0, 1.0), 4)))
+                 for off in sorted(offs))
+    structure = "dense" if rng.random() < 0.25 else "auto"
+    return StencilSpec(name, ndim, taps, boundary=boundary,
+                       structure=structure)
+
+
+def random_pipeline(seed: int, ndim: int, periodic: bool,
+                    n_stages: int) -> StencilPipeline:
+    """A random fusable chain: all stages periodic, or each stage a
+    random non-periodic boundary (the two fusable families)."""
+    rng = np.random.default_rng(seed)
+    stages = tuple(
+        random_spec(rng, ndim,
+                    "periodic" if periodic
+                    else NONPERIODIC[int(rng.integers(len(NONPERIODIC)))],
+                    f"fz{seed}_s{k}")
+        for k in range(n_stages))
+    return StencilPipeline(f"fuzz_pipe_{seed}", stages)

@@ -155,7 +155,7 @@ def test_hopper_tiles_fit_shared_memory_and_explicit_misfit_raises():
     for sweeps in (1, 2, 4):
         for itemsize in (4, 8):
             tile = tplan.default_tile(spec, sweeps, itemsize)
-            assert tplan.smem_bytes(tile, spec.halo, sweeps, itemsize) \
+            assert tplan.smem_bytes(tile, spec, sweeps, itemsize) \
                 <= tplan._pm.H100_SMEM_PER_BLOCK
     # the reference's Volta-shaped GPU tile does not fit at sweeps=4 f64
     with pytest.raises(ValueError, match="shared memory"):
@@ -166,9 +166,12 @@ def test_hopper_tiles_fit_shared_memory_and_explicit_misfit_raises():
 def test_not_ported_paths_raise_with_their_roadmap_item(monkeypatch):
     from repro_torch import PAPER_PIPELINES
     spec = _port(J_SPECS["jacobi2d"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tplan.lower(PAPER_PIPELINES["reaction_diffusion2d"], (8, 8),
-                    torch.float64, device="cpu")
+    pipe = PAPER_PIPELINES["reaction_diffusion2d"]
+    with pytest.raises(NotImplementedError, match="item 6"):
+        CasperEngine(pipe, backend="cuda", device="cpu", tile="auto")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tplan.lower(pipe, (8, 8), torch.float64, backend="cuda",
+                    tile="auto", device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         CasperEngine(spec, backend="cuda", device="cpu", tile="auto")
     with pytest.raises(NotImplementedError, match="item 9"):
@@ -184,6 +187,9 @@ def test_not_ported_paths_raise_with_their_roadmap_item(monkeypatch):
     monkeypatch.setenv("CASPER_SLAB_BUDGET", "64")
     with pytest.raises(NotImplementedError, match="item 7"):
         eng.run(np.zeros((8, 8)), iters=1)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        CasperEngine(pipe, backend="cuda", device="cpu").run(
+            np.zeros((8, 8)), iters=1)
     monkeypatch.delenv("CASPER_SLAB_BUDGET")
     monkeypatch.setenv("CASPER_VERIFY", "strict")
     with pytest.raises(NotImplementedError, match="item 10"):

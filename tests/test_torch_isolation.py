@@ -2,8 +2,9 @@
 
 Importing the port must load neither ``jax`` nor any ``repro`` module
 and must not need ``triton`` or ``nvcc`` (kernels are built at first
-use); a subprocess with those imports blocked proves it, and an AST scan
-of the package's sources finds no such import.
+use); a subprocess with those imports blocked runs a stencil and both
+paper pipelines through ``CasperEngine``, and an AST scan of the
+package's sources finds no such import.
 """
 import ast
 import os
@@ -27,13 +28,17 @@ class Block:
 sys.meta_path.insert(0, Block())
 import numpy as np
 import repro_torch
-from repro_torch import CasperEngine, PAPER_STENCILS
+from repro_torch import CasperEngine, PAPER_PIPELINES, PAPER_STENCILS
 from repro_torch.kernels import engine
 
 spec = PAPER_STENCILS["jacobi2d"]
 out = CasperEngine(spec, backend="cuda", device="cpu", sweeps=2).run(
     np.ones((40, 70)), iters=3)
 assert out.shape == (40, 70)
+for pipe in PAPER_PIPELINES.values():
+    out = CasperEngine(pipe, backend="cuda", device="cpu", sweeps=2).run(
+        np.ones((40, 70)), iters=3)
+    assert out.shape == (40, 70)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton")]
 assert not bad, bad
