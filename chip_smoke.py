@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels K1-K4 from ``src/repro_torch/kernels/csrc``
-(nvcc, into ``build/repro_torch/``), then:
+Builds the hand-written kernels K1-K4 (``stencil.cu``) and K5
+(``swa.cu``) from ``src/repro_torch/kernels/csrc`` (nvcc, one process per
+source, into ``build/repro_torch/``), then:
 
 1. holds each kernel against its plain PyTorch version on the card —
    every paper stencil (plus forced-dense blur2d/star33_3d) and every
@@ -12,7 +13,11 @@ Builds the hand-written kernels K1-K4 from ``src/repro_torch/kernels/csrc``
    pipeline): f64 bitwise, f32 within 1e-5, bf16 equal or within one
    bf16 ulp; plus the fuzz regression corpus's chains (ranks 1-3), a
    mixed zero/constant/reflect chain, tiny grids, a periodic grid above
-   the whole-grid budget and batched grids;
+   the whole-grid budget and batched grids; and K5 (sliding-window
+   attention) against its plain version on a seeded subset of the
+   reference tests' matrix, every head dim K5 is built for and tq
+   {32, 64, 128} among them (f32 within 2e-5; bf16 within one ulp or
+   4e-6, whichever is larger, and bitwise K5's f32 result rounded once);
 2. runs the engine — ``CasperEngine(spec, backend="cuda",
    sweeps=4).run(grid, iters=10)``, all f64, each bitwise equal to
    ``backend="ref"`` on the card, on two main paths, each with the launch
@@ -22,11 +27,17 @@ Builds the hand-written kernels K1-K4 from ``src/repro_torch/kernels/csrc``
    (K1, K2); (b) pipelines: reaction_diffusion2d at 2048^2 and 8192^2,
    advect_diffuse2d at 1024^2 and 2048^2 (above the periodic whole-grid
    budget), the mixed chain at 2048^2 (K3, K4) and a chain that cannot
-   fuse at 2048^2 (staged: K1 per stage);
+   fuse at 2048^2 (staged: K1 per stage); (c) sliding-window attention,
+   ``kernels.ops.swa`` at gemma2-27b's local-layer width (bf16 at 8192
+   and 8000 tokens, f32 at 8192; K5), each result held against K5's plain
+   version and the dense oracle ``swa_ref``;
 3. times one fused block per phase-2 case with CUDA events (median),
    beside its bytes bound, the plain version, chained ``F.conv`` (the
    yardstick, never used by the port) and, for pipelines, the staged
-   chain of the port's own K1 launches.
+   chain of the port's own K1 launches; and K5 at the 8192-token bf16
+   shape beside its operation bounds, its plain version and
+   ``F.scaled_dot_product_attention`` with the same band mask (the
+   yardstick, never used by the port).
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 before the last line, which is ``{"ok": true, "device": {...}}``.  Full
@@ -36,6 +47,7 @@ no result, when CUDA is missing or any check fails.
 from __future__ import annotations
 
 import importlib.util
+import itertools
 import json
 import math
 import os
@@ -59,17 +71,43 @@ REPLACES = {                                      # the TPU kernels
     "K2": "src/repro/kernels/engine.py:151",      # _kernel
     "K3": "src/repro/kernels/engine.py:450",      # _padfree_pipeline_kernel
     "K4": "src/repro/kernels/engine.py:434",      # _pipeline_kernel
+    "K5": "src/repro/kernels/swa.py:53",          # _kernel
 }
-SOURCE = "src/repro_torch/kernels/csrc/stencil.cu"
+SOURCES = {k: "src/repro_torch/kernels/csrc/stencil.cu" for k in REPLACES}
+SOURCES["K5"] = "src/repro_torch/kernels/csrc/swa.cu"
 
-# Data-sheet rates by card (NVIDIA H100/H200 data sheets): HBM bytes/s
-# and f64 FLOP/s outside the tensor cores.
+# Data-sheet rates by card (NVIDIA H100 and H200 data sheets, dense rates
+# without sparsity): HBM bytes/s, f64 and f32 FLOP/s outside the tensor
+# cores, and bf16 FLOP/s on the tensor cores.
 CARD_RATES = {
-    "H100 PCIe": (2.0e12, 25.6e12),
-    "H100 NVL": (3.9e12, 30e12),
-    "H200": (4.8e12, 34e12),
-    "H100": (3.35e12, 34e12),               # SXM
+    "H100 PCIe": (2.0e12, 25.6e12, 51.2e12, 756e12),
+    "H100 NVL": (3.9e12, 30e12, 60e12, 835e12),
+    "H200": (4.8e12, 34e12, 67e12, 989e12),
+    "H100": (3.35e12, 34e12, 67e12, 989e12),               # SXM
 }
+
+# Sliding-window attention at gemma2-27b's local layers
+# (src/repro/configs/gemma2_27b.py: n_heads=32, n_kv=16, d_head=128,
+# window=4096, attn_softcap=50.0; 8192-token context, arXiv:2408.00118),
+# at the reference kernel's default query tile.
+GEMMA2_LOCAL = {"batch": 1, "hq": 32, "hkv": 16, "head_dim": 128,
+                "window": 4096, "softcap": 50.0, "tq": 128}
+GEMMA2_SEQS = (8192, 8000)
+SWA_F32_ATOL = 2e-5     # K5 vs plain in f32: tests/test_kernels.py's bound
+# K5 vs plain in bf16: one bf16 ulp, but never less than SWA_BF16_FLOOR.
+# Both round an f32 result once, and the two f32 results differ in
+# summation order by a gap d (at most 1.8e-6 on an H100, head dims up to
+# 256).  Two roundings of values d apart land at most one ulp + d apart,
+# which is more than one ulp only where an ulp is below d (outputs that
+# cancel, |o| < 2**-12), and there at most 2 d.  That the bf16 path is
+# the f32 path rounded once is checked bitwise on the side.
+SWA_BF16_FLOOR = 4e-6
+SWA_REF_BF16_ATOL = 0.08  # bf16 vs the f32 oracle: tests/test_kernels.py
+SWA_CASES = 400         # phase-1 K5 cases drawn from the matrix below
+SWA_MATRIX = {"b": (1, 2), "hkv": (1, 2), "g": (1, 2, 4),
+              "s": (64, 96, 128, 100), "d": (16, 32, 64, 128, 256),
+              "w": (1, 8, 32, 64, None), "softcap": (None, 50.0),
+              "tq": (32, 64, 128), "dtype": (torch.float32, torch.bfloat16)}
 
 
 def log(*args):
@@ -105,12 +143,13 @@ def randn(shape, dtype, gen):
                        generator=gen).to(dtype)
 
 
-def within_bf16_ulp(got, want) -> bool:
-    """Every element equal, or one bf16 ulp of ``want`` apart."""
+def within_bf16_ulp(got, want, floor: float = 0.0) -> bool:
+    """Every element equal, or one bf16 ulp of ``want`` (or ``floor``,
+    where that is larger) apart."""
     g, w = got.double(), want.double()
     mag = w.abs().clamp_min(2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return bool(((g - w).abs() <= ulp).all())
+    return bool(((g - w).abs() <= ulp.clamp_min(floor)).all())
 
 
 def conv_chain(spec, sweeps):
@@ -158,6 +197,8 @@ def main() -> int:
     from repro_torch.core import ref as tref
     from repro_torch.kernels import _build
     from repro_torch.kernels import engine as keng
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import swa as kswa
     # the fuzz corpus's chains (by path: a site package may own `tests`)
     cases_path = os.path.join(ROOT, "tests", "_pipeline_cases.py")
     loader = importlib.util.spec_from_file_location("_pipeline_cases",
@@ -174,9 +215,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    rate_key, (hbm_bw, peak_f64) = card_rates(name)
+    rate_key, (hbm_bw, peak_f64, peak_f32, peak_bf16_tc) = card_rates(name)
     log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
-        f" | rates of {rate_key}: {hbm_bw:.3g} B/s, f64 {peak_f64:.3g}")
+        f" | rates of {rate_key}: {hbm_bw:.3g} B/s, f64 {peak_f64:.3g}, "
+        f"f32 {peak_f32:.3g}, bf16 tensor {peak_bf16_tc:.3g} FLOP/s")
 
     # ---- setup: build every kernel source from the checkout -------------
     t0 = time.time()
@@ -184,12 +226,14 @@ def main() -> int:
     log(f"build: {time.time() - t0:.1f}s -> {[str(p) for p in paths.values()]}")
     for src, text in _build.BUILD_LOGS.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 log(f"  {src}: {line.strip()}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     max_err = {k: 0.0 for k in REPLACES}
+    swa_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     failures = []
 
     def is_pipe(spec):
@@ -199,12 +243,16 @@ def main() -> int:
         err = (got.double() - want.double()).abs().max().item() \
             if got.numel() else 0.0
         max_err[kernel] = max(max_err[kernel], err)
+        floor = 0.0
+        if kernel == "K5":
+            swa_err[dtype] = max(swa_err[dtype], err)
+            floor = SWA_BF16_FLOOR
         if dtype == torch.float64:
             ok = torch.equal(got, want)
         elif dtype == torch.float32:
-            ok = err <= F32_ATOL
+            ok = err <= (SWA_F32_ATOL if kernel == "K5" else F32_ATOL)
         else:
-            ok = within_bf16_ulp(got, want)
+            ok = within_bf16_ulp(got, want, floor)
         if not (ok and got.shape == want.shape and got.dtype == want.dtype
                 and bool(torch.isfinite(got).all())):
             failures.append(f"{label}: {kernel} err {err}")
@@ -307,6 +355,52 @@ def main() -> int:
         log(f"  {label} {shape} s{sweeps}: plan chose "
             f"{kernel}, equal to plain: "
             f"{not any(f.startswith(label) for f in failures)}")
+
+    def swa_rounded_f32_path(got, q, k, v, w, tq, softcap, label):
+        """A bf16 K5 result must be its f32 instantiation's result on the
+        widened inputs, rounded once (bitwise)."""
+        f32 = kswa.sliding_window_attention(q.float(), k.float(), v.float(),
+                                            w, tq, softcap)
+        if not torch.equal(got, f32.to(torch.bfloat16)):
+            failures.append(f"{label}: bf16 K5 != f32 K5 rounded")
+
+    # K5 vs its plain version on a seeded subset of the reference matrix
+    t0 = time.time()
+    matrix = list(itertools.product(*SWA_MATRIX.values()))
+    pick = torch.randperm(len(matrix), generator=torch.Generator()
+                          .manual_seed(SEED))[:SWA_CASES].sort().values
+    n_swa = 0
+    drawn = {"d": set(), "tq": set()}
+    for i in pick.tolist():
+        b, hkv, g, s, d, w, softcap, tq, dtype = matrix[i]
+        w = s if w is None else w
+        drawn["d"].add(d)
+        drawn["tq"].add(tq)
+        label = (f"K5 b{b} hkv{hkv} g{g} s{s} d{d} w{w} cap{softcap} "
+                 f"tq{tq} {dtype}")
+        q = randn((b, hkv * g, s, d), dtype, gen)
+        k = randn((b, hkv, s, d), dtype, gen)
+        v = randn((b, hkv, s, d), dtype, gen)
+        before = keng.LAUNCHES["K5"]
+        got = kswa.sliding_window_attention(q, k, v, w, tq, softcap)
+        torch.cuda.synchronize()
+        if keng.LAUNCHES["K5"] != before + 1:
+            failures.append(f"{label}: {keng.LAUNCHES['K5'] - before} "
+                            "K5 launches")
+        compare("K5", got, kswa.sliding_window_attention_plain(
+            q, k, v, w, tq, softcap), dtype, label)
+        if dtype == torch.bfloat16:
+            swa_rounded_f32_path(got, q, k, v, w, tq, softcap, label)
+        n_swa += 1
+    for key, values in drawn.items():
+        if values != set(SWA_MATRIX[key]):
+            failures.append(f"phase 1 K5: {key} drew {sorted(values)} of "
+                            f"{SWA_MATRIX[key]}")
+    log(f"phase 1: {n_swa} K5-vs-plain cases of {len(matrix)} (head dims "
+        f"{sorted(drawn['d'])}, tq {sorted(drawn['tq'])}), max |err| f32 "
+        f"{swa_err[torch.float32]} (limit {SWA_F32_ATOL}), bf16 "
+        f"{swa_err[torch.bfloat16]} (one ulp, at least {SWA_BF16_FLOOR}) "
+        f"({time.time() - t0:.1f}s)")
     if failures:
         raise SystemExit("phase 1 failed:\n" + "\n".join(failures[:40]))
 
@@ -393,6 +487,72 @@ def main() -> int:
         f"mixed_rd (77,301): {'phase 2: card' not in ' '.join(failures)}")
     if failures:
         raise SystemExit("phase 2 failed:\n" + "\n".join(failures))
+
+    # ---- phase 2c: sliding-window attention at gemma2-27b's width --------
+    cfg = GEMMA2_LOCAL
+    swa_kw = {"window": cfg["window"], "tq": cfg["tq"],
+              "softcap": cfg["softcap"]}
+
+    def swa_ref_by_heads(q, k, v, step=4):
+        """The dense oracle, ``step`` KV heads (their query heads with
+        them) at a time, to bound the S x S score block."""
+        g = q.shape[1] // k.shape[1]
+        return torch.cat([kswa.swa_ref(
+            q[:, h * g:(h + step) * g], k[:, h:h + step], v[:, h:h + step],
+            cfg["window"], cfg["softcap"])
+            for h in range(0, k.shape[1], step)], dim=1)
+
+    swa_runs = [(s, torch.bfloat16) for s in GEMMA2_SEQS]
+    swa_runs.append((GEMMA2_SEQS[0], torch.float32))
+    swa_in = [tuple(randn((cfg["batch"], h, s, cfg["head_dim"]), dtype, gen)
+                    for h in (cfg["hq"], cfg["hkv"], cfg["hkv"]))
+              for s, dtype in swa_runs]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    keng.reset_launches()
+    swa_out, swa_per_run = [], []
+    for q, k, v in swa_in:
+        before = dict(keng.LAUNCHES)
+        swa_out.append(kops.swa(q, k, v, **swa_kw))
+        swa_per_run.append({n: keng.LAUNCHES[n] - before[n]
+                            for n in keng.LAUNCHES
+                            if keng.LAUNCHES[n] != before[n]})
+    torch.cuda.synchronize()
+    alaunches = dict(keng.LAUNCHES)
+    log(f"phase 2c: ops.swa at gemma2-27b's local layer {cfg} on "
+        f"{[(s, str(dt)) for s, dt in swa_runs]} in {time.time() - t0:.2f}s;"
+        f" launches {alaunches}")
+    swa_results = []
+    for (s, dtype), (q, k, v), out, k_run in zip(swa_runs, swa_in, swa_out,
+                                                 swa_per_run):
+        label = f"phase 2c S={s} {dtype}"
+        if k_run != {"K5": 1}:
+            failures.append(f"{label}: launched {k_run}")
+        plain_err = compare("K5", out, kswa.sliding_window_attention_plain(
+            q, k, v, **swa_kw), dtype, label)
+        if dtype == torch.bfloat16:
+            swa_rounded_f32_path(out, q, k, v, cfg["window"], cfg["tq"],
+                                 cfg["softcap"], label)
+        ref = swa_ref_by_heads(q.float(), k.float(), v.float())
+        ref_err = (out.float() - ref).abs().max().item()
+        limit = SWA_REF_BF16_ATOL if dtype == torch.bfloat16 \
+            else SWA_F32_ATOL
+        del ref
+        finite = bool(torch.isfinite(out).all())
+        if not (ref_err <= limit and finite and out.shape == q.shape):
+            failures.append(f"{label}: vs swa_ref {ref_err} (limit {limit}),"
+                            f" finite {finite}, shape {tuple(out.shape)}")
+        swa_results.append({"seq": s, "dtype": str(dtype),
+                            "launches_per_run": k_run,
+                            "max_abs_err_plain": plain_err,
+                            "max_abs_err_swa_ref": ref_err,
+                            "swa_ref_limit": limit})
+        log(f"  S={s} {dtype}: launches {k_run}, |err| vs plain {plain_err}"
+            f", vs swa_ref {ref_err} (limit {limit})")
+    del swa_out
+    torch.cuda.empty_cache()
+    if alaunches["K5"] < 1 or failures:
+        raise SystemExit("phase 2c failed:\n" + "\n".join(failures))
 
     # ---- phase 3: times ---------------------------------------------------
     def kernel_of(plan):
@@ -494,7 +654,7 @@ def main() -> int:
         compare(kname, kern(), plain(), torch.float64, f"kernels {kname}")
         lib = conv_chain(spec, sweeps)
         entry = {
-            "name": kname, "route": "cuda", "source": SOURCE,
+            "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname], "launches": count[kname],
             "max_abs_err": max_err[kname],
             "ms": time_ms(kern, 20),
@@ -529,6 +689,77 @@ def main() -> int:
                                        "periodic", (2048, 2048)),
                      True, plaunches),
     ]
+
+    def swa_entry(q, k, v, count):
+        """K5 at the phase-2c shape: times beside the operation bounds,
+        the plain version and SDPA with the same band mask."""
+        b, hq, s, d = q.shape
+        w, tq, softcap = cfg["window"], cfg["tq"], cfg["softcap"]
+        # useful work: every query against its min(p+1, W) valid keys,
+        # two products of 2*D FLOP each per (query head, key)
+        keys = sum(min(p + 1, w) for p in range(s))
+        flop = 4 * b * hq * d * keys
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        t_bytes = nbytes / hbm_bw * 1e3
+        t_f32 = flop / peak_f32 * 1e3
+        t_tc = flop / peak_bf16_tc * 1e3
+
+        def kern(cap=softcap):
+            return kswa.sliding_window_attention(q, k, v, w, tq, cap)
+
+        g = hq // k.shape[1]
+        kk, vv = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+        pos = torch.arange(s, device="cuda")
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                                 > pos[:, None] - w)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, kk, vv, attn_mask=band)
+
+        lib_diff = (sdpa().float() - kern(None).float()).abs().max().item()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kswa.sliding_window_attention_plain(q, k, v, w, tq, softcap)
+        plain_peak = torch.cuda.max_memory_allocated() - base
+        entry = {
+            "name": "K5", "route": "cuda", "source": SOURCES["K5"],
+            "replaces": REPLACES["K5"], "launches": count["K5"],
+            "max_abs_err": max_err["K5"],
+            "ms": time_ms(kern, 20),
+            "plain_ms": time_ms(lambda: kswa.sliding_window_attention_plain(
+                q, k, v, w, tq, softcap), 3, warmup=1),
+            "bound_ms": max(t_bytes, t_tc),
+            "bound_by": "bytes" if t_bytes >= t_tc else "operations",
+            "library_ms": time_ms(sdpa, 10),
+            "shape": {"q": list(q.shape), "kv": list(k.shape)},
+            "dtype": str(q.dtype).replace("torch.", ""),
+            "window": w, "tq": tq, "softcap": softcap,
+            "ms_no_softcap": time_ms(lambda: kern(None), 20),
+        }
+        details = {
+            "flop": flop, "bytes": nbytes, "bytes_ms": t_bytes,
+            "bound_f32_cuda_cores_ms": t_f32, "bound_bf16_tensor_ms": t_tc,
+            "library": "F.scaled_dot_product_attention, bool band mask, "
+                       "K/V repeat_interleave'd outside the timing, "
+                       "softcap=None",
+            "library_max_abs_diff_no_softcap": lib_diff,
+            "plain_peak_bytes": plain_peak,
+            "max_abs_err_f32": swa_err[torch.float32],
+            "max_abs_err_bf16": swa_err[torch.bfloat16],
+        }
+        log(f"  K5 {entry['shape']} {entry['dtype']}: {entry['ms']:.3f} ms "
+            f"(softcap off {entry['ms_no_softcap']:.3f}) | bounds: "
+            f"{flop:.4g} FLOP at f32 {t_f32:.3f} ms, at bf16 tensor "
+            f"{t_tc:.3f} ms; {nbytes} B at {t_bytes:.4f} ms | plain "
+            f"{entry['plain_ms']:.2f} ms (peak {plain_peak / 2**30:.2f} GiB) | SDPA {entry['library_ms']:.3f} ms"
+            f" (max |diff| vs K5 {lib_diff:.3g}) | card {smi}")
+        del kk, vv, band
+        torch.cuda.empty_cache()
+        return entry, details
+
+    k5_entry, k5_details = swa_entry(*swa_in[0], alaunches)
+    kernels.append(k5_entry)
     if failures:
         raise SystemExit("kernels line failed:\n" + "\n".join(failures))
 
@@ -539,7 +770,9 @@ def main() -> int:
                    "hbm_bw": hbm_bw, "peak_f64": peak_f64,
                    "phase1_cases": n_cases, "launches": launches,
                    "pipeline_launches": plaunches, "cases": results,
-                   "pipeline_cases": presults, "kernels": kernels,
+                   "pipeline_cases": presults, "swa_phase1_cases": n_swa,
+                   "swa_launches": alaunches, "swa_cases": swa_results,
+                   "k5_details": k5_details, "kernels": kernels,
                    "seconds": time.time() - t_start}, fh, indent=1)
     log(f"total {time.time() - t_start:.1f}s")
     print(smi)

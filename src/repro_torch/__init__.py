@@ -7,6 +7,7 @@ written for Hopper.  Imports torch and numpy only — never jax, never the
 """
 from .core import *  # noqa: F401,F403
 from .core import __all__ as _core_all
-from .convert import grid_from_numpy, spec_from_reference
+from .convert import grid_from_numpy, spec_from_reference, tensor_from_numpy
 
-__all__ = list(_core_all) + ["grid_from_numpy", "spec_from_reference"]
+__all__ = list(_core_all) + ["grid_from_numpy", "spec_from_reference",
+                             "tensor_from_numpy"]

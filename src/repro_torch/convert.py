@@ -1,11 +1,13 @@
 """Carry the reference's inputs across to the port.
 
 The port has no weights: its parameters are the stencil spec and the
-grid.  :func:`spec_from_reference` rebuilds a ``repro_torch`` spec from
-any object with ``name/ndim/taps/boundary/structure`` (a ``repro`` spec,
-duck-typed — the JAX package is never imported), and
-:func:`grid_from_numpy` puts a numpy grid on a device.  The parity tests
-feed both packages the same inputs through these.
+grid, and sliding-window attention's are its q/k/v.
+:func:`spec_from_reference` rebuilds a ``repro_torch`` spec from any
+object with ``name/ndim/taps/boundary/structure`` (a ``repro`` spec,
+duck-typed — the JAX package is never imported), :func:`grid_from_numpy`
+puts a numpy grid on a device and :func:`tensor_from_numpy` puts a numpy
+array there in a given dtype.  The parity tests feed both packages the
+same inputs through these.
 """
 from __future__ import annotations
 
@@ -31,3 +33,10 @@ def spec_from_reference(obj) -> StencilSpec | StencilPipeline:
 def grid_from_numpy(a, device="cpu") -> torch.Tensor:
     """A contiguous tensor copy of ``a`` on ``device``."""
     return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
+
+
+def tensor_from_numpy(a, dtype: torch.dtype, device="cpu") -> torch.Tensor:
+    """A contiguous ``dtype`` tensor of ``a`` on ``device``.  The cast
+    happens on the torch side; from an f32 array to bfloat16 it rounds to
+    nearest even, as ``jnp.asarray(a, jnp.bfloat16)`` does."""
+    return grid_from_numpy(a, device).to(dtype)

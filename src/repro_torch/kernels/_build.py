@@ -20,8 +20,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 #: Every kernel source, built in parallel (one nvcc process each).
-SOURCES = ("stencil.cu",)
+SOURCES = ("stencil.cu", "swa.cu")
 
+#: ``-fmad=false``: no multiply-add is contracted unless the source asks
+#: for it (``fmaf``), so the stencil kernels round every product and sum
+#: as the reference does (f64 bit-identity), and K5's bf16 and f32
+#: instantiations round alike (its bf16 output is its f32 output on the
+#: widened inputs, rounded once).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

@@ -46,8 +46,9 @@ from ..core.stencil import StencilPipeline, StencilSpec, _classify, as_stages
 from . import _build
 
 #: Launches per kernel since the last :func:`reset_launches` — counted
-#: where the kernel is launched and nowhere else.
-LAUNCHES: dict[str, int] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+#: where the kernel is launched and nowhere else (K5, sliding-window
+#: attention, counts from ``kernels/swa.py``).
+LAUNCHES: dict[str, int] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 
 #: The CUDA source that holds K1-K4.
 SOURCE = "stencil.cu"

@@ -3,8 +3,9 @@
 Importing the port must load neither ``jax`` nor any ``repro`` module
 and must not need ``triton`` or ``nvcc`` (kernels are built at first
 use); a subprocess with those imports blocked runs a stencil and both
-paper pipelines through ``CasperEngine``, and an AST scan of the
-package's sources finds no such import.
+paper pipelines through ``CasperEngine`` and sliding-window attention
+through ``kernels.ops.swa``, and an AST scan of the package's sources
+and of ``chip_smoke.py`` finds no such import.
 """
 import ast
 import os
@@ -29,7 +30,8 @@ sys.meta_path.insert(0, Block())
 import numpy as np
 import repro_torch
 from repro_torch import CasperEngine, PAPER_PIPELINES, PAPER_STENCILS
-from repro_torch.kernels import engine
+import torch
+from repro_torch.kernels import engine, ops
 
 spec = PAPER_STENCILS["jacobi2d"]
 out = CasperEngine(spec, backend="cuda", device="cpu", sweeps=2).run(
@@ -39,6 +41,8 @@ for pipe in PAPER_PIPELINES.values():
     out = CasperEngine(pipe, backend="cuda", device="cpu", sweeps=2).run(
         np.ones((40, 70)), iters=3)
     assert out.shape == (40, 70)
+q, kv = torch.ones(1, 4, 50, 16), torch.ones(1, 2, 50, 16)
+assert ops.swa(q, kv, kv, window=8, tq=32, softcap=50.0).shape == q.shape
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton")]
 assert not bad, bad
@@ -64,8 +68,10 @@ def _imports(tree):
 
 
 def test_sources_import_no_jax_and_no_repro():
-    files = sorted(PORT.rglob("*.py"))
+    files = sorted(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
     assert len(files) >= 10
+    assert PORT / "kernels" / "swa.py" in files
+    assert PORT / "kernels" / "ops.py" in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for mod in _imports(tree):
