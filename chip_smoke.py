@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels K1-K4 (``stencil.cu``) and K5
-(``swa.cu``) from ``src/repro_torch/kernels/csrc`` (nvcc, one process per
-source, into ``build/repro_torch/``), then:
+Builds the hand-written kernels K1-K4 (``stencil.cu``) and K5 (bf16 on
+the tensor cores, ``swa_wgmma.cu``; f32 on the CUDA cores, ``swa.cu``)
+from ``src/repro_torch/kernels/csrc`` (nvcc, one process per source, all
+three at once, into ``build/repro_torch/``), then:
 
 1. holds each kernel against its plain PyTorch version on the card —
    every paper stencil (plus forced-dense blur2d/star33_3d) and every
@@ -16,8 +17,10 @@ source, into ``build/repro_torch/``), then:
    the whole-grid budget and batched grids; and K5 (sliding-window
    attention) against its plain version on a seeded subset of the
    reference tests' matrix, every head dim K5 is built for and tq
-   {32, 64, 128} among them (f32 within 2e-5; bf16 within one ulp or
-   4e-6, whichever is larger, and bitwise K5's f32 result rounded once);
+   {32, 64, 128} among them, plus 8 cases at softcap <= 2, where
+   |s / softcap| passes 0.55 (f32 within 2e-5; bf16 within one ulp or
+   4e-6, whichever is larger, of the plain version and of the f32
+   CUDA-core kernel on the widened inputs);
 2. runs the engine — ``CasperEngine(spec, backend="cuda",
    sweeps=4).run(grid, iters=10)``, all f64, each bitwise equal to
    ``backend="ref"`` on the card, on two main paths, each with the launch
@@ -37,7 +40,8 @@ source, into ``build/repro_torch/``), then:
    chain of the port's own K1 launches; and K5 at the 8192-token bf16
    shape beside its operation bounds, its plain version and
    ``F.scaled_dot_product_attention`` with the same band mask (the
-   yardstick, never used by the port).
+   yardstick, never used by the port), and the f32 CUDA-core K5 at the
+   same width (logged).
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 before the last line, which is ``{"ok": true, "device": {...}}``.  Full
@@ -51,6 +55,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -74,7 +79,9 @@ REPLACES = {                                      # the TPU kernels
     "K5": "src/repro/kernels/swa.py:53",          # _kernel
 }
 SOURCES = {k: "src/repro_torch/kernels/csrc/stencil.cu" for k in REPLACES}
-SOURCES["K5"] = "src/repro_torch/kernels/csrc/swa.cu"
+# K5's entry in the kernels line is the bf16 call (tensor cores); f32 runs
+# on the CUDA cores in csrc/swa.cu and is logged beside it
+SOURCES["K5"] = "src/repro_torch/kernels/csrc/swa_wgmma.cu"
 
 # Data-sheet rates by card (NVIDIA H100 and H200 data sheets, dense rates
 # without sparsity): HBM bytes/s, f64 and f32 FLOP/s outside the tensor
@@ -99,8 +106,11 @@ SWA_F32_ATOL = 2e-5     # K5 vs plain in f32: tests/test_kernels.py's bound
 # summation order by a gap d (at most 1.8e-6 on an H100, head dims up to
 # 256).  Two roundings of values d apart land at most one ulp + d apart,
 # which is more than one ulp only where an ulp is below d (outputs that
-# cancel, |o| < 2**-12), and there at most 2 d.  That the bf16 path is
-# the f32 path rounded once is checked bitwise on the side.
+# cancel, |o| < 2**-12), and there at most 2 d.  The bf16 kernel (tensor
+# cores, P.V exact up to order with P as three bf16 terms) is held by the
+# same rule against the f32 CUDA-core kernel on the widened inputs, a
+# cross-check between the two kernels; they sum in different orders, so
+# the bf16 result is not the f32 one rounded bitwise.
 SWA_BF16_FLOOR = 4e-6
 SWA_REF_BF16_ATOL = 0.08  # bf16 vs the f32 oracle: tests/test_kernels.py
 SWA_CASES = 400         # phase-1 K5 cases drawn from the matrix below
@@ -150,6 +160,25 @@ def within_bf16_ulp(got, want, floor: float = 0.0) -> bool:
     mag = w.abs().clamp_min(2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     return bool(((g - w).abs() <= ulp.clamp_min(floor)).all())
+
+
+def tc_ptxas(text: str) -> dict:
+    """Registers and spills per head dim of the tensor-core K5 kernel,
+    read from nvcc's ``-Xptxas -v`` output."""
+    out, d = {}, None
+    for line in text.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"swa_tc_kernelILi(\d+)E", line)
+            d = int(m.group(1)) if m else None
+        elif d is not None and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            out.setdefault(d, {}).update(spill_stores=int(m.group(1)),
+                                         spill_loads=int(m.group(2)))
+        elif d is not None and "Used" in line and "registers" in line:
+            m = re.search(r"Used (\d+) registers", line)
+            out.setdefault(d, {})["registers"] = int(m.group(1))
+    return out
 
 
 def conv_chain(spec, sweeps):
@@ -229,6 +258,11 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 log(f"  {src}: {line.strip()}")
+    tc_budget = tc_ptxas(_build.BUILD_LOGS.get("swa_wgmma.cu", ""))
+    for d in kswa.HEAD_DIMS:
+        tc_budget.setdefault(d, {})["smem_bytes"] = kswa.tc_smem_bytes(d)
+        log(f"  swa_wgmma.cu D={d}: {tc_budget[d]} (registers at entry; "
+            f"the consumers run at 232 after setmaxnreg.inc)")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -356,26 +390,21 @@ def main() -> int:
             f"{kernel}, equal to plain: "
             f"{not any(f.startswith(label) for f in failures)}")
 
-    def swa_rounded_f32_path(got, q, k, v, w, tq, softcap, label):
-        """A bf16 K5 result must be its f32 instantiation's result on the
-        widened inputs, rounded once (bitwise)."""
+    cross_err = [0.0]
+
+    def swa_cross_check(got, q, k, v, w, tq, softcap, label):
+        """A bf16 K5 result (tensor cores) must lie within one bf16 ulp,
+        or SWA_BF16_FLOOR, of the f32 K5 (CUDA cores) on the widened
+        inputs."""
         f32 = kswa.sliding_window_attention(q.float(), k.float(), v.float(),
                                             w, tq, softcap)
-        if not torch.equal(got, f32.to(torch.bfloat16)):
-            failures.append(f"{label}: bf16 K5 != f32 K5 rounded")
+        cross_err[0] = max(cross_err[0],
+                           (got.double() - f32.double()).abs().max().item())
+        if not within_bf16_ulp(got, f32, SWA_BF16_FLOOR):
+            failures.append(f"{label}: bf16 K5 (tensor cores) not within "
+                            f"one ulp / {SWA_BF16_FLOOR} of f32 K5")
 
-    # K5 vs its plain version on a seeded subset of the reference matrix
-    t0 = time.time()
-    matrix = list(itertools.product(*SWA_MATRIX.values()))
-    pick = torch.randperm(len(matrix), generator=torch.Generator()
-                          .manual_seed(SEED))[:SWA_CASES].sort().values
-    n_swa = 0
-    drawn = {"d": set(), "tq": set()}
-    for i in pick.tolist():
-        b, hkv, g, s, d, w, softcap, tq, dtype = matrix[i]
-        w = s if w is None else w
-        drawn["d"].add(d)
-        drawn["tq"].add(tq)
+    def swa_case(b, hkv, g, s, d, w, softcap, tq, dtype):
         label = (f"K5 b{b} hkv{hkv} g{g} s{s} d{d} w{w} cap{softcap} "
                  f"tq{tq} {dtype}")
         q = randn((b, hkv * g, s, d), dtype, gen)
@@ -390,16 +419,38 @@ def main() -> int:
         compare("K5", got, kswa.sliding_window_attention_plain(
             q, k, v, w, tq, softcap), dtype, label)
         if dtype == torch.bfloat16:
-            swa_rounded_f32_path(got, q, k, v, w, tq, softcap, label)
+            swa_cross_check(got, q, k, v, w, tq, softcap, label)
+
+    # K5 vs its plain version on a seeded subset of the reference matrix
+    t0 = time.time()
+    matrix = list(itertools.product(*SWA_MATRIX.values()))
+    pick = torch.randperm(len(matrix), generator=torch.Generator()
+                          .manual_seed(SEED))[:SWA_CASES].sort().values
+    n_swa = 0
+    drawn = {"d": set(), "tq": set()}
+    for i in pick.tolist():
+        b, hkv, g, s, d, w, softcap, tq, dtype = matrix[i]
+        w = s if w is None else w
+        drawn["d"].add(d)
+        drawn["tq"].add(tq)
+        swa_case(b, hkv, g, s, d, w, softcap, tq, dtype)
         n_swa += 1
+    # softcaps of 2 and below reach |s / softcap| > 0.55, where the bf16
+    # kernel takes tanhf instead of its polynomial (softcap 50 never does)
+    for d, softcap in ((16, 0.5), (64, 2.0), (128, 1.0), (256, 1.0)):
+        for dtype in (torch.float32, torch.bfloat16):
+            swa_case(1, 2, 2, 100, d, 32, softcap, 64, dtype)
+            n_swa += 1
     for key, values in drawn.items():
         if values != set(SWA_MATRIX[key]):
             failures.append(f"phase 1 K5: {key} drew {sorted(values)} of "
                             f"{SWA_MATRIX[key]}")
-    log(f"phase 1: {n_swa} K5-vs-plain cases of {len(matrix)} (head dims "
+    log(f"phase 1: {n_swa} K5-vs-plain cases ({SWA_CASES} of {len(matrix)} "
+        f"and 8 at softcap <= 2; head dims "
         f"{sorted(drawn['d'])}, tq {sorted(drawn['tq'])}), max |err| f32 "
         f"{swa_err[torch.float32]} (limit {SWA_F32_ATOL}), bf16 "
-        f"{swa_err[torch.bfloat16]} (one ulp, at least {SWA_BF16_FLOOR}) "
+        f"{swa_err[torch.bfloat16]} (one ulp, at least {SWA_BF16_FLOOR}), "
+        f"bf16 tensor-core vs f32 CUDA-core K5 {cross_err[0]} "
         f"({time.time() - t0:.1f}s)")
     if failures:
         raise SystemExit("phase 1 failed:\n" + "\n".join(failures[:40]))
@@ -531,8 +582,8 @@ def main() -> int:
         plain_err = compare("K5", out, kswa.sliding_window_attention_plain(
             q, k, v, **swa_kw), dtype, label)
         if dtype == torch.bfloat16:
-            swa_rounded_f32_path(out, q, k, v, cfg["window"], cfg["tq"],
-                                 cfg["softcap"], label)
+            swa_cross_check(out, q, k, v, cfg["window"], cfg["tq"],
+                            cfg["softcap"], label)
         ref = swa_ref_by_heads(q.float(), k.float(), v.float())
         ref_err = (out.float() - ref).abs().max().item()
         limit = SWA_REF_BF16_ATOL if dtype == torch.bfloat16 \
@@ -690,9 +741,10 @@ def main() -> int:
                      True, plaunches),
     ]
 
-    def swa_entry(q, k, v, count):
+    def swa_entry(q, k, v, count, f32_in):
         """K5 at the phase-2c shape: times beside the operation bounds,
-        the plain version and SDPA with the same band mask."""
+        the plain version and SDPA with the same band mask; the f32
+        CUDA-core K5 on ``f32_in`` (same width) is timed for the log."""
         b, hq, s, d = q.shape
         w, tq, softcap = cfg["window"], cfg["tq"], cfg["softcap"]
         # useful work: every query against its min(p+1, W) valid keys,
@@ -737,7 +789,25 @@ def main() -> int:
             "window": w, "tq": tq, "softcap": softcap,
             "ms_no_softcap": time_ms(lambda: kern(None), 20),
         }
+        f32_ms = time_ms(lambda: kswa.sliding_window_attention(
+            *f32_in, w, tq, softcap), 5)
+        # what the bf16 kernel runs on the tensor cores: every chunk of
+        # every block, all TC_ROWS rows, Q.K^T once and P.V per bf16 term
+        npos, kc = kswa.tc_positions(g), kswa.tc_chunk_keys(d)
+        chunks = sum(-(-(min(s - 1, p0 + npos - 1) - max(0, p0 - w + 1) + 1)
+                       // kc) for p0 in range(0, s, npos))
+        tc_flop = (chunks * kc * kswa.TC_ROWS * d * 2 * (1 + kswa.TC_TERMS)
+                   * b * k.shape[1])
         details = {
+            "tc_budget": tc_budget,
+            "useful_tflops": flop / entry["ms"] / 1e9,
+            "tensor_flop_executed": tc_flop,
+            "executed_tflops": tc_flop / entry["ms"] / 1e9,
+            "executed_tflops_no_softcap": tc_flop / entry["ms_no_softcap"]
+            / 1e9,
+            "useful_tflops_no_softcap": flop / entry["ms_no_softcap"] / 1e9,
+            "f32_cuda_core_ms": f32_ms,
+            "cross_check_max_abs_diff": cross_err[0],
             "flop": flop, "bytes": nbytes, "bytes_ms": t_bytes,
             "bound_f32_cuda_cores_ms": t_f32, "bound_bf16_tensor_ms": t_tc,
             "library": "F.scaled_dot_product_attention, bool band mask, "
@@ -754,11 +824,19 @@ def main() -> int:
             f"{t_tc:.3f} ms; {nbytes} B at {t_bytes:.4f} ms | plain "
             f"{entry['plain_ms']:.2f} ms (peak {plain_peak / 2**30:.2f} GiB) | SDPA {entry['library_ms']:.3f} ms"
             f" (max |diff| vs K5 {lib_diff:.3g}) | card {smi}")
+        log(f"  K5 bf16 (tensor cores) useful rate "
+            f"{details['useful_tflops']:.1f} TFLOP/s (softcap off "
+            f"{details['useful_tflops_no_softcap']:.1f}) of "
+            f"{peak_bf16_tc / 1e12:.0f}; executed on the tensor cores "
+            f"{tc_flop:.4g} FLOP, {details['executed_tflops']:.1f} TFLOP/s "
+            f"(softcap off {details['executed_tflops_no_softcap']:.1f}); "
+            f"f32 K5 (CUDA cores) at the same "
+            f"width {f32_ms:.3f} ms | card {smi}")
         del kk, vv, band
         torch.cuda.empty_cache()
         return entry, details
 
-    k5_entry, k5_details = swa_entry(*swa_in[0], alaunches)
+    k5_entry, k5_details = swa_entry(*swa_in[0], alaunches, swa_in[2])
     kernels.append(k5_entry)
     if failures:
         raise SystemExit("kernels line failed:\n" + "\n".join(failures))

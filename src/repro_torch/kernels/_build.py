@@ -20,13 +20,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 #: Every kernel source, built in parallel (one nvcc process each).
-SOURCES = ("stencil.cu", "swa.cu")
+SOURCES = ("stencil.cu", "swa.cu", "swa_wgmma.cu")
 
 #: ``-fmad=false``: no multiply-add is contracted unless the source asks
 #: for it (``fmaf``), so the stencil kernels round every product and sum
-#: as the reference does (f64 bit-identity), and K5's bf16 and f32
-#: instantiations round alike (its bf16 output is its f32 output on the
-#: widened inputs, rounded once).
+#: as the reference does (f64 bit-identity), and K5's f32 kernel rounds
+#: as its source says.  K5's bf16 kernel sums its products on the tensor
+#: cores in their own order, so it is held to one bf16 ulp (or a small
+#: floor) of the f32 kernel and of the plain version, not bitwise.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,15 +1,16 @@
-// Sliding-window attention kernel K5 for Hopper (sm_90a).
+// Sliding-window attention kernel K5, float32 path, on the CUDA cores
+// (sm_90a).  bfloat16 runs on the tensor cores in swa_wgmma.cu.
 //
 // Replaces (TPU/Pallas kernel of the reference package):
 //   K5  src/repro/kernels/swa.py  _kernel  (sliding_window_attention, ops.swa)
+// for float32 q/k/v.
 //
 // What it computes: windowed-causal GQA attention.  q is (B, Hq, S, D),
 // k/v are (B, Hkv, S, D) with G = Hq / Hkv query heads per KV head; query
 // position p attends to keys k with p - W < k <= p.  Scores are
 // s = (q . k) * scale in f32 (scale = 1/sqrt(D)), optionally
 // softcap * tanh(s / softcap), softmaxed over the valid keys, and the
-// output sum_k softmax(s)_k * v_k is accumulated in f32 and rounded once
-// to the input type at the store.
+// output sum_k softmax(s)_k * v_k is accumulated in f32.
 //
 // The reference kernel materialises, per query tile of tq positions, the
 // scores of its G*tq rows against the whole tq + W - 1 key window of a
@@ -37,18 +38,14 @@
 // * Masked keys are skipped (probability exactly 0), as the reference's
 //   -1e30 fill gives exp(-1e30 - m) = 0; key k = p is always valid, so
 //   l > 0 for every real row.
-// * bf16 inputs are widened to f32 when staged (exact); scores,
-//   probabilities and the accumulator stay f32.  Built with -fmad=false,
-//   products that should fuse are written as fmaf, so the bf16 and f32
-//   instantiations do the same arithmetic: the bf16 output is the f32
-//   output on the widened inputs, rounded once to nearest even.
+// * Built with -fmad=false; the products that should fuse are written
+//   as fmaf.
 //
 // Bound on this card: operations.  At gemma2-27b's local layer
 // (B=1, Hq=32, Hkv=16, D=128, S=8192, W=4096) the useful work is
-// 4*Hq*D*sum_p keys(p) = 4.12e11 FLOP against 192 MiB of bf16 q, k, v, o.
-// This first kernel runs on the CUDA cores (f32 FMA, 67 TFLOP/s at most);
-// the tensor cores (wgmma, 989 TFLOP/s dense bf16), TMA staging and
-// warp specialisation are left to a later kernel.  Each CTA stages
+// 4*Hq*D*sum_p keys(p) = 4.12e11 FLOP against 384 MiB of f32 q, k, v, o.
+// This kernel runs on the CUDA cores (f32 FMA, 67 TFLOP/s at most, 6.15 ms
+// at that shape): the tensor cores have no full-f32 product.  Each CTA stages
 // 64 x (D+4) query floats and two 64 x (D+4) key/value chunks plus the
 // 64 x 68 probability block: 118,784 bytes at D = 128, one CTA per SM.
 //
@@ -56,7 +53,6 @@
 // ctypes.Structure (SwaArgs in kernels/swa.py); casper_swa_args_size()
 // lets the loader check the layout.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -82,17 +78,7 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// four bf16 -> f32 (exact: a bf16 is the top half of its f32)
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr size_t swa_smem_bytes() {
@@ -100,10 +86,11 @@ constexpr size_t swa_smem_bytes() {
          sizeof(float);
 }
 
-template <typename S, int D>
+template <int D>
 __global__ void __launch_bounds__(SWA_THREADS)
-swa_kernel(const S* __restrict__ q, const S* __restrict__ k, const S* __restrict__ v,
-           S* __restrict__ out, const __grid_constant__ SwaArgs a) {
+swa_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ out,
+           const __grid_constant__ SwaArgs a) {
   constexpr int DP = D + 4;        // padded row of q/k/v in shared memory
   constexpr int RBP = SWA_RB + 4;  // padded row of the transposed P block
   constexpr int D4 = D / 4;
@@ -276,7 +263,7 @@ swa_kernel(const S* __restrict__ q, const S* __restrict__ k, const S* __restrict
   for (int i = 0; i < 4; ++i) {
     if (!live[i]) continue;
     const int r = r0 + tr * 4 + i;
-    S* const dst = out + (((long long)bh * G + r % G) * a.seq + pos[i]) * D;
+    float* const dst = out + (((long long)bh * G + r % G) * a.seq + pos[i]) * D;
 #pragma unroll
     for (int u = 0; u < TN / VEC; ++u)
 #pragma unroll
@@ -285,11 +272,11 @@ swa_kernel(const S* __restrict__ q, const S* __restrict__ k, const S* __restrict
   }
 }
 
-template <typename S, int D>
-static cudaError_t launch_d(const S* q, const S* k, const S* v, S* out, const SwaArgs* a,
-                            cudaStream_t stream) {
+template <int D>
+static cudaError_t launch_d(const float* q, const float* k, const float* v, float* out,
+                            const SwaArgs* a, cudaStream_t stream) {
   const size_t smem = swa_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(swa_kernel<S, D>,
+  cudaError_t err = cudaFuncSetAttribute(swa_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long rows = (long long)(a->hq / a->hkv) * a->tq;
@@ -297,28 +284,27 @@ static cudaError_t launch_d(const S* q, const S* k, const S* v, S* out, const Sw
                            ((rows + SWA_RB - 1) / SWA_RB) *
                            ((a->seq + a->tq - 1) / a->tq);
   if (rows >= (1LL << 31) || blocks >= (1LL << 31)) return cudaErrorInvalidConfiguration;
-  swa_kernel<S, D><<<(unsigned int)blocks, SWA_THREADS, smem, stream>>>(q, k, v, out, *a);
+  swa_kernel<D><<<(unsigned int)blocks, SWA_THREADS, smem, stream>>>(q, k, v, out, *a);
   return cudaGetLastError();
 }
 
-template <typename S>
 static int launch(int device, const void* q, const void* k, const void* v, void* out,
                   const SwaArgs* a, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (a->hkv < 1 || a->hq % a->hkv || a->seq < 1 || a->window < 1 || a->tq < 1)
     return (int)cudaErrorInvalidValue;
-  const S* qp = static_cast<const S*>(q);
-  const S* kp = static_cast<const S*>(k);
-  const S* vp = static_cast<const S*>(v);
-  S* op = static_cast<S*>(out);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  float* op = static_cast<float*>(out);
   cudaStream_t st = (cudaStream_t)stream;
   switch (a->head_dim) {
-    case 16: err = launch_d<S, 16>(qp, kp, vp, op, a, st); break;
-    case 32: err = launch_d<S, 32>(qp, kp, vp, op, a, st); break;
-    case 64: err = launch_d<S, 64>(qp, kp, vp, op, a, st); break;
-    case 128: err = launch_d<S, 128>(qp, kp, vp, op, a, st); break;
-    case 256: err = launch_d<S, 256>(qp, kp, vp, op, a, st); break;
+    case 16: err = launch_d<16>(qp, kp, vp, op, a, st); break;
+    case 32: err = launch_d<32>(qp, kp, vp, op, a, st); break;
+    case 64: err = launch_d<64>(qp, kp, vp, op, a, st); break;
+    case 128: err = launch_d<128>(qp, kp, vp, op, a, st); break;
+    case 256: err = launch_d<256>(qp, kp, vp, op, a, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;
@@ -330,13 +316,7 @@ int casper_swa_args_size(void) { return (int)sizeof(SwaArgs); }
 
 int casper_swa_f32(int device, const void* q, const void* k, const void* v, void* out,
                    const void* args, void* stream) {
-  return launch<float>(device, q, k, v, out, static_cast<const SwaArgs*>(args), stream);
-}
-
-int casper_swa_bf16(int device, const void* q, const void* k, const void* v, void* out,
-                    const void* args, void* stream) {
-  return launch<__nv_bfloat16>(device, q, k, v, out, static_cast<const SwaArgs*>(args),
-                               stream);
+  return launch(device, q, k, v, out, static_cast<const SwaArgs*>(args), stream);
 }
 
 const char* casper_swa_error_string(int err) {

@@ -13,12 +13,15 @@ over the window and applied to v in f32; the output takes q's dtype.
   reference kernel's algorithm, K/V front-padded by ``W - 1``, one
   ``tq + W - 1`` key window per query tile and a full softmax per tile;
 * :func:`sliding_window_attention` — the wrapper: the plain version for a
-  CPU tensor; for a CUDA tensor it launches K5
-  (``csrc/swa.cu``, replaces ``repro/kernels/swa.py`` ``_kernel``) or
-  raises.  K5 walks each query block's valid key range in chunks with a
-  running max and sum (online softmax) instead of materialising the
-  window's scores, so it computes the same function without the front
-  pad.  Its launches count in ``engine.LAUNCHES["K5"]``.
+  CPU tensor; for a CUDA tensor it launches K5 (replaces
+  ``repro/kernels/swa.py`` ``_kernel``) or raises.  bfloat16 runs on the
+  tensor cores (``csrc/swa_wgmma.cu``: TMA ring, wgmma Q.K^T, P.V with P
+  split into :data:`TC_TERMS` bf16 terms), float32 on the CUDA cores
+  (``csrc/swa.cu``).  Both walk each query block's valid key range in
+  chunks with a running max and sum (online softmax) instead of
+  materialising the window's scores, so they compute the same function
+  without the front pad.  Their launches count in
+  ``engine.LAUNCHES["K5"]``.
 """
 from __future__ import annotations
 
@@ -33,13 +36,32 @@ from .engine import LAUNCHES
 
 NEG_INF = -1e30
 
-#: The CUDA source that holds K5.
-SOURCE = "swa.cu"
-
-_ENTRY = {torch.float32: "casper_swa_f32",
-          torch.bfloat16: "casper_swa_bf16"}
-#: Head dims K5 is instantiated for.
+#: K5's CUDA source and C entry per dtype: bf16 on the tensor cores,
+#: f32 on the CUDA cores.
+_ENTRY = {torch.float32: ("swa.cu", "casper_swa_f32"),
+          torch.bfloat16: ("swa_wgmma.cu", "casper_swa_tc_bf16")}
+#: Head dims K5 is instantiated for (both sources).
 HEAD_DIMS = (16, 32, 64, 128, 256)
+
+# The tensor-core kernel's block geometry (csrc/swa_wgmma.cu), also walked
+# by the CPU mirror of its arithmetic in the tests.
+#: Query rows per CTA: two warpgroups of wgmma's 64.
+TC_ROWS = 128
+#: bf16 terms P is split into for P.V on the tensor cores.
+TC_TERMS = 3
+
+
+def tc_chunk_keys(d: int) -> int:
+    """Keys per K/V chunk of the tensor-core kernel at head dim ``d``."""
+    return 64 if d == 256 else 128
+
+
+def tc_positions(g: int) -> int:
+    """Query positions per CTA of the tensor-core kernel for ``g`` query
+    heads per KV head: ``TC_ROWS // g`` rounded down to a multiple of 8
+    (each head's rows are one TMA box, which starts on a swizzle atom of
+    8 rows); 0 where ``g > 16`` (refused)."""
+    return TC_ROWS // g // 8 * 8
 
 
 def swa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
@@ -131,21 +153,39 @@ class SwaArgs(ctypes.Structure):
     ]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+class SwaTcArgs(ctypes.Structure):
+    """Mirrors struct SwaTcArgs in csrc/swa_wgmma.cu."""
+    _fields_ = [
+        ("batch", ctypes.c_int), ("hq", ctypes.c_int), ("hkv", ctypes.c_int),
+        ("seq", ctypes.c_int), ("head_dim", ctypes.c_int),
+        ("window", ctypes.c_int), ("positions", ctypes.c_int),
+        ("has_softcap", ctypes.c_int),
+        ("scale", ctypes.c_float), ("softcap", ctypes.c_float),
+    ]
+
+
+# per source: its entry's args struct and the prefix of its helpers
+_C_API = {"swa.cu": (SwaArgs, "casper_swa"),
+          "swa_wgmma.cu": (SwaTcArgs, "casper_swa_tc")}
+
+
+def _lib(source: str) -> ctypes.CDLL:
+    lib = _build.load(source)
     if not getattr(lib, "_swa_bound", False):
-        for name in _ENTRY.values():
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6
-            fn.restype = ctypes.c_int
-        lib.casper_swa_args_size.argtypes = []
-        lib.casper_swa_args_size.restype = ctypes.c_int
-        lib.casper_swa_error_string.argtypes = [ctypes.c_int]
-        lib.casper_swa_error_string.restype = ctypes.c_char_p
-        if lib.casper_swa_args_size() != ctypes.sizeof(SwaArgs):
+        args, prefix = _C_API[source]
+        for src, name in _ENTRY.values():
+            if src == source:
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6
+                fn.restype = ctypes.c_int
+        size = getattr(lib, f"{prefix}_args_size")
+        size.argtypes, size.restype = [], ctypes.c_int
+        errs = getattr(lib, f"{prefix}_error_string")
+        errs.argtypes, errs.restype = [ctypes.c_int], ctypes.c_char_p
+        if size() != ctypes.sizeof(args):
             raise RuntimeError(
-                f"SwaArgs layout mismatch: C {lib.casper_swa_args_size()} "
-                f"bytes, Python {ctypes.sizeof(SwaArgs)}")
+                f"{args.__name__} layout mismatch: C {size()} bytes, "
+                f"Python {ctypes.sizeof(args)}")
         lib._swa_bound = True
     return lib
 
@@ -153,21 +193,35 @@ def _lib() -> ctypes.CDLL:
 def _launch(q, k, v, out, window: int, tq: int,
             softcap: float | None) -> None:
     b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    source, entry = _ENTRY[q.dtype]
     # a window or tile longer than the sequence means the same as S
-    a = SwaArgs(batch=b, hq=hq, hkv=k.shape[1], seq=s, head_dim=d,
-                window=min(int(window), s), tq=min(int(tq), s),
-                has_softcap=int(softcap is not None),
-                scale=1.0 / math.sqrt(d),
-                softcap=0.0 if softcap is None else float(softcap))
-    lib = _lib()
+    common = dict(batch=b, hq=hq, hkv=hkv, seq=s, head_dim=d,
+                  window=min(int(window), s),
+                  has_softcap=int(softcap is not None),
+                  scale=1.0 / math.sqrt(d),
+                  softcap=0.0 if softcap is None else float(softcap))
+    if q.dtype == torch.bfloat16:
+        a = SwaTcArgs(positions=tc_positions(hq // hkv), **common)
+    else:
+        a = SwaArgs(tq=min(int(tq), s), **common)
+    lib = _lib(source)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = getattr(lib, _ENTRY[q.dtype])(
+    err = getattr(lib, entry)(
         q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), ctypes.addressof(a), stream)
     if err:
-        raise RuntimeError(
-            f"K5 launch failed: {lib.casper_swa_error_string(err).decode()}")
+        msg = getattr(lib, f"{_C_API[source][1]}_error_string")(err)
+        raise RuntimeError(f"K5 launch failed ({source}): {msg.decode()}")
     LAUNCHES["K5"] += 1
+
+
+def tc_smem_bytes(d: int) -> int:
+    """Dynamic shared memory per CTA of the tensor-core kernel at head
+    dim ``d``, as the built library reports it (needs nvcc)."""
+    fn = _lib("swa_wgmma.cu").casper_swa_tc_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(int(d))
 
 
 def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
@@ -179,7 +233,8 @@ def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
     tensors: one K5 launch, or an error — K5 takes contiguous, 16-byte
     aligned float32 or bfloat16 q/k/v of one dtype with ``D`` in
     :data:`HEAD_DIMS`, and any ``tq >= 1`` (the query tile; the result
-    does not depend on it)."""
+    does not depend on it).  bfloat16 runs on the tensor cores and takes
+    at most 16 query heads per KV head; float32 runs on the CUDA cores."""
     b, hq, hkv, s, d = _check_shapes(q, k, v, window, tq)
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
@@ -198,6 +253,9 @@ def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"K5 needs a contiguous, 16-byte aligned {name}")
     if s >= 2 ** 30:
         raise ValueError(f"K5 takes sequences below 2**30, got {s}")
+    if q.dtype == torch.bfloat16 and tc_positions(hq // hkv) < 8:
+        raise ValueError(f"bf16 K5 takes at most 16 query heads per KV "
+                         f"head, got {hq // hkv}")
     out = torch.empty_like(q)
     if out.numel():
         _launch(q, k, v, out, window, tq, softcap)

@@ -3,12 +3,16 @@
 The same numpy inputs (seeded) go through the JAX package — its dense
 oracle ``swa_ref`` and ``ops.swa`` (the Pallas kernel in interpret mode)
 — and through the port on the CPU, where ``ops.swa`` runs K5's plain
-version.  Also ``ops.stencil_apply`` against the reference's, and a
-``cuda``-marked test of K5 against its plain version that skips itself
-without a card.
+version.  Also ``ops.stencil_apply`` against the reference's; the CPU
+mirror of the tensor-core kernel's arithmetic (``_swa_tc_mirror``)
+against the plain version and the reference oracle, with the bf16 split
+of P it relies on; and a ``cuda``-marked test of K5 against its plain
+version that skips itself without a card.
 """
 import importlib.util
 import itertools
+import math
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -22,6 +26,10 @@ from repro.kernels.swa import swa_ref as jswa_ref
 from repro_torch import spec_from_reference, tensor_from_numpy
 from repro_torch.kernels import LAUNCHES, ops, swa_ref
 from repro_torch.kernels import swa as tswa
+
+from _hypothesis_compat import given, settings, st
+import _swa_tc_mirror as mirror
+from _swa_tc_mirror import split_bf16, swa_tc_mirror
 
 # a fixed, seeded subset of the reference property test's matrix:
 # (b, hkv, g, s, d, w, softcap)
@@ -158,7 +166,8 @@ def _chip_smoke():
 # head dim K5 is built for and tq 64 and 128
 CARD_CASES = [c + (32,) for c in CASES] + [
     (1, 2, 2, 100, 64, 32, 50.0, 64), (2, 1, 4, 96, 256, 64, None, 64),
-    (1, 2, 1, 128, 128, 8, 50.0, 128), (1, 1, 2, 64, 256, 1, 50.0, 128)]
+    (1, 2, 1, 128, 128, 8, 50.0, 128), (1, 1, 2, 64, 256, 1, 50.0, 128),
+    (1, 2, 2, 128, 128, 64, 1.0, 64)]   # softcap 1: tanhf's range too
 
 
 @pytest.mark.cuda
@@ -183,9 +192,96 @@ def test_k5_matches_plain_version_on_the_card():
                 assert err <= smoke.SWA_F32_ATOL, case
                 continue
             # one bf16 ulp of the plain version (at least the floor, for
-            # outputs that cancel), and bitwise the f32 kernel's result
-            # on the widened inputs, rounded once
+            # outputs that cancel), and of the f32 CUDA-core kernel on the
+            # widened inputs (the tensor-core kernel sums in its own order)
             assert smoke.within_bf16_ulp(got, want, smoke.SWA_BF16_FLOOR), case
             f32 = ops.swa(q.float(), k.float(), v.float(), window=w, tq=tq,
                           softcap=softcap)
-            assert torch.equal(got, f32.to(torch.bfloat16)), case
+            assert smoke.within_bf16_ulp(got, f32, smoke.SWA_BF16_FLOOR), case
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(st.integers(-100, 0), st.integers(0, 2 ** 23 - 1))
+def test_three_bf16_terms_reconstruct_f32_p(exponent, mantissa):
+    """Any f32 p in [2^-100, 1]: three bf16 terms (each the rounding of
+    what the earlier left) sum back to p exactly, two to within 2^-16
+    relative — the split the tensor-core kernel feeds to P.V."""
+    p = min(math.ldexp(1.0 + mantissa / 2 ** 23, exponent), 1.0)
+    x = torch.tensor([p], dtype=torch.float32)
+    three = split_bf16(x, 3)
+    assert all(torch.equal(t.to(torch.bfloat16).float(), t) for t in three)
+    assert torch.equal(three[0] + three[1] + three[2], x)
+    assert ((three[0] + three[1]) - x).abs().item() <= 2.0 ** -16 * p
+
+
+# (b, hkv, g, s, d, w, softcap) drawn from chip_smoke.SWA_MATRIX's small
+# sizes, every head dim and window among them
+_TC_MATRIX = [c for c in itertools.product(
+    (1, 2), (1, 2), (1, 2, 4), (64, 96, 128, 100), (16, 32, 64, 128, 256),
+    (1, 8, 32, 64, None), (None, 50.0))]
+TC_CASES = [_TC_MATRIX[i] for i in sorted(
+    np.random.default_rng(2024).choice(len(_TC_MATRIX), 12, replace=False))]
+TC_CASES += [(1, 2, 2, 100, 256, None, 50.0), (2, 1, 4, 128, 16, 1, None)]
+
+
+def test_tc_block_geometry():
+    """The tensor-core kernel's positions per CTA: 128 rows head-major,
+    each head's box a whole number of 8-row swizzle atoms; G > 16 is
+    refused (0), and chunks are 64 keys only at D = 256."""
+    assert [tswa.tc_positions(g) for g in (1, 2, 3, 4, 5, 16, 17)] == [
+        128, 64, 40, 32, 24, 8, 0]
+    assert [tswa.tc_chunk_keys(d) for d in tswa.HEAD_DIMS] == [
+        128, 128, 128, 128, 64]
+
+
+@pytest.mark.parametrize("terms", [2, 3])
+@pytest.mark.parametrize("case", TC_CASES, ids=str)
+def test_tc_mirror_matches_plain_and_reference(case, terms):
+    """The tensor-core kernel's arithmetic, mirrored on the CPU, against
+    the port's plain version (one bf16 ulp, at least chip_smoke's floor:
+    the check the card applies) and the JAX oracle (0.08).  The kernel
+    splits P into ``tswa.TC_TERMS`` terms; that count must pass the ulp
+    check, the other count's largest gap is printed (``-s``)."""
+    smoke = _chip_smoke()
+    b, hkv, g, s, d, w, softcap = case
+    w = s if w is None else w
+    q, k, v = _qkv(b, hkv, g, s, d, seed=300 + sum(case[:5]) + w)
+    tq_, tk, tv = _port(q, k, v, dtype=torch.bfloat16)
+    got32 = swa_tc_mirror(tq_, tk, tv, w, softcap, terms=terms,
+                          out_dtype=torch.float32)
+    got = got32.to(torch.bfloat16)
+    plain = tswa.sliding_window_attention_plain(tq_, tk, tv, w, 32, softcap)
+    plain32 = tswa.sliding_window_attention_plain(
+        tq_.float(), tk.float(), tv.float(), w, 32, softcap)
+    print(f"terms={terms} {case}: largest f32 |mirror - plain| "
+          f"{(got32 - plain32).abs().max().item():.3g}")
+    ref = np.asarray(jswa_ref(*_jax(q, k, v, dtype=jnp.bfloat16), w,
+                              softcap=softcap).astype(jnp.float32))
+    assert np.abs(got.float().numpy() - ref).max() < 0.08
+    if terms == tswa.TC_TERMS:
+        assert smoke.within_bf16_ulp(got, plain, smoke.SWA_BF16_FLOOR), case
+
+
+def test_kernel_tanh_polynomial_within_one_ulp():
+    """The tensor-core kernel's tanh for |y| <= 0.55 (``tanh_small``,
+    mirrored in f32 with one rounding per fmaf) lies within one f32 ulp of
+    tanh on a dense sweep of f32 values, and the mirror's coefficients are
+    the ones in the CUDA source."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+           "kernels" / "csrc" / "swa_wgmma.cu").read_text()
+    body = src[src.index("float tanh_small(float y)"):]
+    body = body[:body.index("\n}")]
+    lits = [float(x) for x in re.findall(r"(-?\d\.\d+e[-+]\d+)f", body)]
+    assert sorted(lits) == sorted(mirror.TANH_POLY)
+    lo = int(np.float32(2.0 ** -14).view(np.int32))
+    hi = int(np.float32(mirror.TANH_SMALL_MAX).view(np.int32))
+    bits = np.arange(lo, hi + 1, 61, dtype=np.int32)
+    y = torch.from_numpy(np.concatenate([bits.view(np.float32),
+                                         -bits.view(np.float32)]))
+    got = mirror.tanh_small(y).double()
+    want = torch.tanh(y.double())
+    ulp = torch.from_numpy(np.spacing(want.float().abs().numpy())).double()
+    worst = ((got - want).abs() / ulp).max().item()
+    print(f"tanh_small: largest error {worst:.3f} f32 ulp over "
+          f"{y.numel()} values")
+    assert worst <= 1.0
