@@ -9,12 +9,18 @@ three at once, into ``build/repro_torch/``), then:
 
 1. holds each kernel against its plain PyTorch version on the card —
    every paper stencil (plus forced-dense blur2d/star33_3d) and every
-   paper pipeline x 4 boundaries x f64/f32/bf16 x sweeps {1,2,4}, odd
-   shapes, both kernels per case (K1/K2 for a spec, K3/K4 for a
-   pipeline): f64 bitwise, f32 within 1e-5, bf16 equal or within one
-   bf16 ulp; plus the fuzz regression corpus's chains (ranks 1-3), a
-   mixed zero/constant/reflect chain, tiny grids, a periodic grid above
-   the whole-grid budget and batched grids; and K5 (sliding-window
+   paper pipeline x 4 boundaries x f64/f32/bf16 x sweeps {1,2,4}, on odd
+   shapes (rows not 16-byte aligned, mostly rim tiles) and on aligned
+   shapes with interior tiles for every case, both kernels per case
+   (K1/K2 for a spec, K3/K4 for a pipeline): f64 bitwise, f32 within
+   1e-5, bf16 equal or within one bf16 ulp; plus the fuzz regression
+   corpus's chains (ranks 1-3), a mixed zero/constant/reflect chain, tiny
+   grids, a periodic grid above the whole-grid budget and batched grids;
+   every K1-K4 launch counts its interior and rim tiles on the card, and
+   the phase fails unless each kernel ran both kinds and K1 and K3 ran
+   interior tiles on both load paths (16-byte ``cp.async`` and element
+   by element), or unless ``plan.smem_bytes`` equals the shared memory
+   each launch asked for (``casper_smem_bytes``); and K5 (sliding-window
    attention) against its plain version on a seeded subset of the
    reference tests' matrix, every head dim K5 is built for and tq
    {32, 64, 128} among them, plus 8 cases at softcap <= 2, where
@@ -162,22 +168,24 @@ def within_bf16_ulp(got, want, floor: float = 0.0) -> bool:
     return bool(((g - w).abs() <= ulp.clamp_min(floor)).all())
 
 
-def tc_ptxas(text: str) -> dict:
-    """Registers and spills per head dim of the tensor-core K5 kernel,
-    read from nvcc's ``-Xptxas -v`` output."""
-    out, d = {}, None
+def ptxas_table(text: str, entry: str, key) -> dict:
+    """Registers, spills and stack frame per kernel instance, read from
+    nvcc's ``-Xptxas -v`` output: ``entry`` matches an instance's mangled
+    name and ``key(match)`` names the instance."""
+    out, k = {}, None
     for line in text.splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"swa_tc_kernelILi(\d+)E", line)
-            d = int(m.group(1)) if m else None
-        elif d is not None and "spill stores" in line:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                          line)
-            out.setdefault(d, {}).update(spill_stores=int(m.group(1)),
-                                         spill_loads=int(m.group(2)))
-        elif d is not None and "Used" in line and "registers" in line:
+            m = re.search(entry, line)
+            k = key(m) if m else None
+        elif k is not None and "spill stores" in line:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            out.setdefault(k, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        elif k is not None and "Used" in line and "registers" in line:
             m = re.search(r"Used (\d+) registers", line)
-            out.setdefault(d, {})["registers"] = int(m.group(1))
+            out.setdefault(k, {})["registers"] = int(m.group(1))
     return out
 
 
@@ -258,7 +266,20 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 log(f"  {src}: {line.strip()}")
-    tc_budget = tc_ptxas(_build.BUILD_LOGS.get("swa_wgmma.cu", ""))
+    storage = {"d": "f64", "f": "f32", "13__nv_bfloat16": "bf16"}
+    chain_budget = ptxas_table(
+        _build.BUILD_LOGS.get("stencil.cu", ""),
+        r"casper_chain_kernelI(d|f|13__nv_bfloat16)Li(\d)E",
+        lambda m: f"{storage[m.group(1)]} rank {m.group(2)}")
+    for key, budget in chain_budget.items():
+        log(f"  stencil.cu casper_chain_kernel {key}: {budget} (shared "
+            "memory is dynamic: plan.smem_bytes per launch, held below)")
+    if len(chain_budget) != 9:
+        raise SystemExit(f"setup: {len(chain_budget)} stencil kernel "
+                         "instances in the build log, expected 9")
+    tc_budget = ptxas_table(_build.BUILD_LOGS.get("swa_wgmma.cu", ""),
+                            r"swa_tc_kernelILi(\d+)E",
+                            lambda m: int(m.group(1)))
     for d in kswa.HEAD_DIMS:
         tc_budget.setdefault(d, {})["smem_bytes"] = kswa.tc_smem_bytes(d)
         log(f"  swa_wgmma.cu D={d}: {tc_budget[d]} (registers at entry; "
@@ -330,7 +351,14 @@ def main() -> int:
 
     # ---- phase 1: each kernel vs its plain version ----------------------
     t0 = time.time()
+    # odd shapes (rows not 16-byte aligned: the plain load path, mostly
+    # rim tiles) and aligned ones, whose inner extent is a whole number of
+    # 16-byte chunks in every dtype and which hold interior tiles for every
+    # paper stencil and pipeline at every sweeps (the cp.async path for
+    # f32/f64)
     odd = {1: (10007,), 2: (77, 301), 3: (37, 45, 101)}
+    aligned = {1: (20480,), 2: (160, 512), 3: (24, 48, 96)}
+    keng.count_tiles(True)
     specs = [(n, s) for n, s in PAPER_STENCILS.items()]
     specs += [(f"{n}-dense", PAPER_STENCILS[n].with_structure("dense"))
               for n in ("blur2d", "star33_3d")]
@@ -340,13 +368,13 @@ def main() -> int:
     for label, spec0 in specs:
         for boundary in BOUNDARIES:
             spec = spec0.with_boundary(boundary)
-            for dtype in DTYPES:
-                g = randn(odd[spec.ndim], dtype, gen)
+            for dtype, shapes in itertools.product(DTYPES, (odd, aligned)):
+                g = randn(shapes[spec.ndim], dtype, gen)
                 for sweeps in (1, 2, 4):
                     for strategy in ("pad-free", "padded-window"):
                         run_kernel(spec, g, sweeps, strategy,
-                                   f"{label} {boundary} {dtype} s{sweeps}",
-                                   dtype)
+                                   f"{label} {boundary} {dtype} "
+                                   f"{tuple(g.shape)} s{sweeps}", dtype)
                         n_cases += 1
     rd = PAPER_PIPELINES["reaction_diffusion2d"]
     mixed = StencilPipeline("mixed_rd", (
@@ -358,15 +386,17 @@ def main() -> int:
     for label, pipe, sweeps in chains + [("mixed_rd", mixed, 1),
                                          ("mixed_rd", mixed, 2),
                                          ("mixed_rd", mixed, 4)]:
-        for dtype in DTYPES:
-            g = randn(odd[pipe.ndim], dtype, gen)
+        for dtype, shapes in itertools.product(DTYPES, (odd, aligned)):
+            g = randn(shapes[pipe.ndim], dtype, gen)
             for strategy in ("pad-free", "padded-window"):
                 run_kernel(pipe, g, sweeps, strategy,
-                           f"{label} {dtype} s{sweeps}", dtype)
+                           f"{label} {dtype} {tuple(g.shape)} s{sweeps}",
+                           dtype)
                 n_cases += 1
     log(f"phase 1: {n_cases} kernel-vs-plain cases on odd shapes "
-        f"{list(odd.values())}, launches {dict(keng.LAUNCHES)}, max |err| "
-        f"{max_err} ({time.time() - t0:.1f}s)")
+        f"{list(odd.values())} and aligned shapes {list(aligned.values())}, "
+        f"launches {dict(keng.LAUNCHES)}, max |err| {max_err} "
+        f"({time.time() - t0:.1f}s)")
     tiny = {1: (5,), 2: (3, 7), 3: (2, 3, 5)}
     extra = [(f"tiny {n}", PAPER_STENCILS[n].with_boundary(b), tiny[
         PAPER_STENCILS[n].ndim], 1, 4)
@@ -389,6 +419,36 @@ def main() -> int:
         log(f"  {label} {shape} s{sweeps}: plan chose "
             f"{kernel}, equal to plain: "
             f"{not any(f.startswith(label) for f in failures)}")
+    # every launch so far: its tiles by kind, its load path, and its
+    # shared memory (the C library's) against plan.smem_bytes
+    tiles = {}
+    smem_bad = []
+    records = keng.tile_records()
+    keng.count_tiles(False)
+    for r in records:
+        t = tiles.setdefault(r["kernel"], {}).setdefault(
+            r["path"], {"launches": 0, "interior": 0, "rim": 0})
+        t["launches"] += 1
+        t["interior"] += r["interior"]
+        t["rim"] += r["rim"]
+        if r["smem_launch"] != r["smem_plan"]:
+            smem_bad.append(r)
+    for kernel in ("K1", "K2", "K3", "K4"):
+        log(f"  {kernel} tiles by load path: {tiles.get(kernel)}")
+        kinds = tiles.get(kernel, {}).values()
+        if not (sum(t["interior"] for t in kinds)
+                and sum(t["rim"] for t in kinds)):
+            failures.append(f"phase 1 {kernel}: never ran an interior and "
+                            f"a rim tile: {tiles.get(kernel)}")
+    for kernel in ("K1", "K3"):
+        if set(tiles.get(kernel, {})) != {"async", "plain"} or not all(
+                t["interior"] for t in tiles[kernel].values()):
+            failures.append(f"phase 1 {kernel}: interior tiles did not run "
+                            f"on both load paths: {tiles.get(kernel)}")
+    log(f"  shared memory: {len(records)} launches, plan.smem_bytes equal to "
+        f"the launch's (casper_smem_bytes) in {len(records) - len(smem_bad)}")
+    if smem_bad:
+        failures.append(f"phase 1: plan.smem_bytes != launch: {smem_bad[:3]}")
 
     cross_err = [0.0]
 
@@ -846,7 +906,8 @@ def main() -> int:
         json.dump({"card": smi, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "rates_of": rate_key,
                    "hbm_bw": hbm_bw, "peak_f64": peak_f64,
-                   "phase1_cases": n_cases, "launches": launches,
+                   "phase1_cases": n_cases, "phase1_tiles": tiles,
+                   "chain_ptxas": chain_budget, "launches": launches,
                    "pipeline_launches": plaunches, "cases": results,
                    "pipeline_cases": presults, "swa_phase1_cases": n_swa,
                    "swa_launches": alaunches, "swa_cases": swa_results,

@@ -68,10 +68,13 @@ GHOST_STRATEGIES = ("pad", "pad-free", "padded-window", "staged")
 #: Candidate kernel tiles per rank, largest first.  One CTA owns one
 #: tile; the innermost dim is a multiple of the 32-thread warp so loads
 #: coalesce.  :func:`default_tile` takes the first whose working set fits
-#: one block's shared memory at the plan's ``sweeps`` and itemsize.
+#: one block's shared memory at the plan's ``sweeps`` and itemsize.  The
+#: square 64x64 leads in 2-D: it recomputes less halo than 32x128 (9.9
+#: against 10.3 points per output for reaction_diffusion2d at sweeps=4)
+#: and still leaves room for two CTAs per SM in f64.
 HOPPER_TILES: dict[int, tuple[tuple[int, ...], ...]] = {
     1: ((4096,), (2048,), (1024,), (512,), (256,), (128,), (32,)),
-    2: ((32, 128), (32, 64), (16, 64), (16, 32), (8, 32), (4, 32),
+    2: ((64, 64), (32, 128), (32, 64), (16, 64), (16, 32), (8, 32), (4, 32),
         (1, 32)),
     3: ((8, 16, 32), (8, 8, 32), (4, 8, 32), (4, 4, 32), (2, 4, 32),
         (2, 2, 32), (1, 2, 32), (1, 1, 32)),
@@ -94,20 +97,86 @@ def not_ported(what: str) -> NotImplementedError:
         f"not yet ported to repro_torch: {_NOT_PORTED[what]}")
 
 
+def _chunk(itemsize: int) -> int:
+    """Elements per 16 bytes of a grid row: the unit of the kernels'
+    ``cp.async`` loads and of their shared-memory rows (1 for bf16, which
+    is widened to f32 on load and never copied asynchronously)."""
+    return 16 // itemsize if itemsize >= 4 else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLayout:
+    """The shared buffers of one K1-K4 CTA, as ``layout_of`` in
+    ``csrc/stencil.cu`` builds them (every rank carried as rank 3).
+
+    Buffer 0 holds the window, buffer 1 the intermediates (the first of
+    them, the window less stage 0's radius per side, is the largest).
+    Both keep the window's row pitch ``row``, so an element at window
+    coordinate ``(j0, j1, j2)`` sits at
+    ``j0 * plane[b] + j1 * row + j2 + base[b]`` of buffer ``b`` and a tap
+    is one linear offset per buffer.  ``row`` rounds ``lead`` plus the
+    window's row up to 16 bytes of storage; ``lead`` places every tile's
+    first window column at the residue its grid column has mod 16 bytes.
+    ``elems`` counts each buffer's elements (buffer 1: 0 when the block
+    is one application)."""
+
+    lead: int
+    row: int
+    plane: tuple[int, int]
+    base: tuple[int, int]
+    elems: tuple[int, int]
+
+    def offset(self, b: int, off3: Sequence[int]) -> int:
+        """The linear offset in buffer ``b`` of a rank-3 tap offset."""
+        return off3[0] * self.plane[b] + off3[1] * self.row + off3[2]
+
+
+def kernel_layout(tile: Sequence[int], spec, sweeps: int,
+                  itemsize: int) -> KernelLayout:
+    """The :class:`KernelLayout` of ``spec`` (a spec or a pipeline) at
+    ``tile``, ``sweeps`` and the grid's ``itemsize``."""
+    stages = as_stages(spec)
+    pad = 3 - spec.ndim
+    t3 = (1,) * pad + tuple(tile)
+    big = (0,) * pad + tuple(spec.halo)
+    h = (0,) * pad + tuple(stages[0].halo)
+    vec = _chunk(itemsize)
+    win = [t + 2 * sweeps * hh for t, hh in zip(t3, big)]
+    lead = -(sweeps * big[2]) % vec
+    row = -(-(lead + win[2]) // vec) * vec
+    plane = (win[1] * row, (win[1] - 2 * h[1]) * row)
+    base = (lead, lead - h[0] * plane[1] - h[1] * row)
+    elems = (win[0] * plane[0],
+             (win[0] - 2 * h[0]) * plane[1] if sweeps * len(stages) > 1
+             else 0)
+    return KernelLayout(lead, row, plane, base, elems)
+
+
 def smem_bytes(tile: Sequence[int], spec, sweeps: int,
                itemsize: int) -> int:
     """Shared memory one CTA of K1-K4 needs for ``spec`` (a spec or a
-    pipeline): the fetched window ``tile + 2*sweeps*H`` (``H`` the sum of
-    the stage radii) plus, when ``sweeps * n_stages > 1``, the ping-pong
-    buffer of the first intermediate — the window less stage 0's radius
-    per side, the largest one.  Both buffers hold the accumulator type:
+    pipeline): the two buffers of :func:`kernel_layout` — the fetched
+    window ``tile + 2*sweeps*H`` (``H`` the sum of the stage radii) and,
+    when ``sweeps * n_stages > 1``, the intermediate buffer, both on the
+    window's 16-byte-rounded row pitch.  Both hold the accumulator type:
     an element of a grid narrower than f32 takes 4 bytes there."""
-    stages = as_stages(spec)
-    win = [t + 2 * sweeps * h for t, h in zip(tile, spec.halo)]
-    total = math.prod(win)
-    if sweeps * len(stages) > 1:
-        total += math.prod(w - 2 * h for w, h in zip(win, stages[0].halo))
-    return total * max(itemsize, 4)
+    return sum(kernel_layout(tile, spec, sweeps, itemsize).elems) \
+        * max(itemsize, 4)
+
+
+def load_path(shape: Sequence[int], tile: Sequence[int], itemsize: int,
+              data_ptr: int = 0) -> str:
+    """How a pad-free launch (K1/K3) loads its interior windows, fixed
+    before the launch: ``"async"`` (16-byte ``cp.async``) for an f32/f64
+    grid whose rows are whole 16-byte chunks, whose tile's row is a whole
+    number of chunks (so every window starts on the layout's ``lead``)
+    and whose data starts 16-byte aligned; ``"plain"`` (element by
+    element) otherwise.  Rim tiles always load element by element."""
+    vec = _chunk(itemsize)
+    if (itemsize < 4 or shape[-1] % vec or tile[-1] % vec
+            or data_ptr % 16):
+        return "plain"
+    return "async"
 
 
 def default_tile(spec, sweeps: int = 1, itemsize: int = 4

@@ -6,18 +6,17 @@
 //   K3  src/repro/kernels/engine.py  _padfree_pipeline_kernel  (pipeline_sweep)
 //   K4  src/repro/kernels/engine.py  _pipeline_kernel          (pipeline_window_sweep)
 //
-// All four are one kernel template: `sweeps` fused applications of a
-// chain of 1..4 rank-1..3 stencil stages (one stage for K1/K2, a
-// StencilPipeline's stages for K3/K4) on one output tile per CTA
-// (blockIdx.x = tile, blockIdx.y = batch element).  The window
-// tile + 2*sweeps*H, where H is the per-dim sum of the stage radii, is
-// staged in shared memory; each stage application writes the next
-// intermediate, narrower by that stage's radius per side, into the other
-// of two shared buffers (ping-pong), and the last application writes the
-// tile straight to global memory, masked at the ragged edge.  The entry
-// points differ only in how the window is loaded:
-//   pad-free (K1/K3) loads each window element straight from the unpadded
-//      grid through the boundary index map of its global coordinate under
+// All four are one kernel template, instantiated per storage type and per
+// rank (1, 2, 3): `sweeps` fused applications of a chain of 1..4 stencil
+// stages (one stage for K1/K2, a StencilPipeline's stages for K3/K4) on
+// one output tile per CTA (blockIdx.x = tile, blockIdx.y = batch element).
+// The window tile + 2*sweeps*H, where H is the per-dim sum of the stage
+// radii, is staged in shared memory; each stage application writes the
+// next intermediate, narrower by that stage's radius per side, into the
+// other of two shared buffers (ping-pong), and the last application writes
+// the tile straight to global memory, masked at the ragged edge.  The
+// entry points differ only in how the window is loaded:
+//   pad-free (K1/K3) reads the unpadded grid by global coordinate under
 //      stage 0's mode: fill for zero/constant, g mod N for periodic, the
 //      period-(2N-2) fold for reflect.  That is pad_boundary at any depth,
 //      read in place: no padded copy of the grid exists.
@@ -29,10 +28,42 @@
 // intermediate (by global coordinate) are restored to the extension of
 // the NEXT stage to run, stages[(k+1) % n], as
 // repro.core.ref.masked_window_pipeline does: fill for zero/constant,
-// re-mirror from inside the buffer for reflect, nothing for periodic (a
-// fusable chain with a periodic stage is periodic in every stage).  The
-// remaining ghost depth before stage k's application is the sum of the
-// radii the rest of the block still consumes; g0 = tile origin - depth.
+// re-mirror from inside the buffer one axis at a time for reflect,
+// nothing for periodic (a fusable chain with a periodic stage is periodic
+// in every stage).  The remaining ghost depth before stage k's
+// application is the sum of the radii the rest of the block still
+// consumes; g0 = tile origin - depth.
+//
+// Tiles are interior or rim, uniformly per CTA.  An interior tile's whole
+// window [origin - sweeps*H, origin + tile + sweeps*H) lies inside the
+// grid in every dim, so no intermediate holds an out-of-grid point: its
+// window is a plain copy (no boundary index map) and it skips the fill
+// test and the restoration.  A rim tile maps every window element and
+// restores only its ghost rim: the positions with an out-of-grid
+// coordinate, one slab per side and axis, never a pass over the buffer.
+//
+// Layout: both shared buffers keep the window's row pitch P1 (and the
+// window buffer its plane pitch), so a tap is one linear offset per stage
+// and buffer, packed by the host; a point's position is linear in its
+// window coordinate with no per-point division (threads walk a box with
+// deltas computed once per box).  P1 rounds the row up to 16 bytes, with
+// the window's first column placed at `lead` so that a row of the grid
+// and its row in shared memory agree modulo 16 bytes.
+//
+// Compute: a stage of 3, 5 or 7 taps holds its offsets and coefficients in
+// registers for the whole application (FixedTaps); a radius-1 star of rank
+// 2 or 3 in the paper stencils' tap order runs in strips of CASPER_STRIP
+// rows per thread, the center column read once per strip (star_strips);
+// other stages read their taps per point.  Each thread forms two points
+// before it stores either, so their loads overlap.
+//
+// Loads: an interior tile of a pad-free f32/f64 launch whose grid rows
+// are 16-byte aligned (decided by the host before the launch, args.async_load)
+// copies its window with 16-byte cp.async, no register round trip; every
+// other tile loads element by element.  Two CTAs fit on an SM at the 2-D
+// default tile in f64, so one CTA's load overlaps the other's compute (a
+// window prefetched by persistent CTAs would leave one: measured, the
+// load overlaps all but about a tenth of the block already).
 //
 // Arithmetic: f64 results must be bit-identical to the reference oracle.
 // Every product is rounded on its own and added to an accumulator that
@@ -51,12 +82,9 @@
 // one write of the grid: 2 * prod(shape) * itemsize bytes over the
 // 3.35 TB/s of an H100 SXM.  For the paper stencils and pipelines the
 // operations per byte stay below the f64 ridge point (about 10 flop/byte),
-// so the kernels are bound by bytes.  This version keeps every
-// intermediate (every stage of every sweep) in shared memory, the only
-// lever against the bytes bound that temporal blocking and stage fusion
-// offer, but makes no other attempt at speed: windows are re-read per tile
-// (the halo overhead of hbm_traffic), loads are plain (no TMA, no
-// cp.async), and one CTA holds one tile.
+// so the kernels are bound by bytes; what keeps them from it is the
+// instructions each point costs (shared-memory loads, index arithmetic)
+// and the halo each window recomputes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,7 +94,9 @@
 #define CASPER_MAX_TERMS 16
 #define CASPER_MAX_FACS 24
 #define CASPER_MAX_FOFF 96
-#define CASPER_THREADS 256
+#define CASPER_THREADS 256       // threads per CTA
+#define CASPER_STRIP 4           // rows per thread in a star stage's strip
+#define CASPER_MIN_BLOCKS 2      // CTAs per SM the register budget leaves room for
 
 enum { MODE_ZERO = 0, MODE_CONSTANT = 1, MODE_PERIODIC = 2, MODE_REFLECT = 3 };
 
@@ -79,34 +109,71 @@ struct CasperStage {
   int n_taps;
   int term_first;
   int n_terms;                   // 0: tap chain; else factored terms
+  int star;                      // 2 or 3: the radius-1 star of that rank, in
+                                 // the paper stencils' tap order; else 0
   double value;                  // constant(c) fill
 };
 
 // Every rank is carried as rank 3: missing leading dims have extent 1,
 // tile 1, halo 0.  Mirrored field for field by repro_torch.kernels.engine
 // (a ctypes.Structure); casper_args_size() lets the loader check it.
+// Tap offsets are linear in the buffers' pitches (Layout below), which
+// the host mirrors (repro_torch.core.plan.kernel_layout).
 struct CasperArgs {
   int padded;                    // 0: pad-free (K1/K3), 1: padded window (K2/K4)
+  int rank;                      // 1..3: which template instance runs
   int sweeps;
   int batch;
   int n_stages;
+  int async_load;                // 1: interior windows by 16-byte cp.async
   int grid[3];                   // global grid extents (ghost restoration)
   int tile[3];
   int halo[3];                   // sum of the stage radii
   int src[3];                    // input extents per batch element
   int out[3];                    // output extents per batch element
   int origin[3];                 // padded: global coordinate of the output origin
+  int* tiles;                    // null, or counters: interior tiles, rim tiles
   CasperStage stage[CASPER_MAX_STAGES];
-  int tap_off[CASPER_MAX_TAPS][3];
+  int tap_lin[2][CASPER_MAX_TAPS];   // tap offsets in buffer 0 / buffer 1
   int term_fac[CASPER_MAX_TERMS];    // first factor of each term
   int term_nf[CASPER_MAX_TERMS];     // factors per term (1..3)
-  int fac_axis[CASPER_MAX_FACS];
-  int fac_first[CASPER_MAX_FACS];    // first offset of each factor in foff
+  int fac_first[CASPER_MAX_FACS];    // first offset of each factor in foff_lin
   int fac_n[CASPER_MAX_FACS];
-  int foff[CASPER_MAX_FOFF];
+  int foff_lin[2][CASPER_MAX_FOFF];  // factor offsets along their axis, per buffer
   double tap_c[CASPER_MAX_TAPS];
-  double fc[CASPER_MAX_FOFF];    // factor coefficients, parallel to foff
+  double fc[CASPER_MAX_FOFF];    // factor coefficients, parallel to foff_lin
 };
+
+// The shared buffers: 0 holds the window, 1 the intermediates (from the
+// first, the window less stage 0's radius per side, the largest).  An
+// element at window coordinate (j0, j1, j2) sits at
+// j0 * plane[b] + j1 * row + j2 + base[b] of buffer b.  Rows are rounded
+// up to 16 bytes of storage (`vec` elements, 1 for bf16) and start at
+// column `lead`, so that an aligned chunk of a grid row lands on an
+// aligned chunk of the buffer when every tile's window starts at a
+// column congruent to -sweeps*H (mod vec).
+struct Layout {
+  int lead, row;
+  int plane[2], base[2], elems[2];
+};
+
+template <typename S>
+__host__ __device__ __forceinline__ Layout layout_of(const CasperArgs& a) {
+  const int vec = sizeof(S) >= 4 ? 16 / (int)sizeof(S) : 1;
+  const int* h = a.stage[0].halo;
+  int win[3];
+  for (int d = 0; d < 3; ++d) win[d] = a.tile[d] + 2 * a.sweeps * a.halo[d];
+  Layout l;
+  l.lead = (vec - (a.sweeps * a.halo[2]) % vec) % vec;
+  l.row = (l.lead + win[2] + vec - 1) / vec * vec;
+  l.plane[0] = win[1] * l.row;
+  l.plane[1] = (win[1] - 2 * h[1]) * l.row;
+  l.base[0] = l.lead;
+  l.base[1] = l.lead - h[0] * l.plane[1] - h[1] * l.row;
+  l.elems[0] = win[0] * l.plane[0];
+  l.elems[1] = a.sweeps * a.n_stages > 1 ? (win[0] - 2 * h[0]) * l.plane[1] : 0;
+  return l;
+}
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
@@ -149,20 +216,90 @@ __device__ __forceinline__ int reflect_index(int g, int n) {
   return m < n ? m : period - m;
 }
 
-// One application of stage `st` at point (p0,p1,p2) of the output extent;
-// x is the input buffer with row strides s0 (dim 0) and s1 (dim 1).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A thread's walk over the flat order of an n0 x n1 x n2 box (for rank R
+// the leading 3 - R extents are 1), CASPER_THREADS points per step: the
+// point is followed by adding per-stride deltas computed once per box
+// and carrying into the next dim, so no step divides.
+template <int R>
+struct BoxWalk {
+  int n1, n2, x0, x1, x2, d0, d1, d2;
+  __device__ __forceinline__ BoxWalk(int n1_, int n2_) : n1(n1_), n2(n2_) {
+    const int i = threadIdx.x;
+    x2 = R == 1 ? i : i % n2;
+    const int r = R == 1 ? 0 : i / n2;
+    x1 = R == 3 ? r % n1 : r;
+    x0 = R == 3 ? r / n1 : 0;
+    d2 = R == 1 ? CASPER_THREADS : CASPER_THREADS % n2;
+    const int dr = R == 1 ? 0 : CASPER_THREADS / n2;
+    d1 = R == 3 ? dr % n1 : dr;
+    d0 = R == 3 ? dr / n1 : 0;
+  }
+  __device__ __forceinline__ void next() {
+    x2 += d2;
+    if (R == 1) return;
+    x1 += d1;
+    x0 += d0;
+    if (x2 >= n2) {
+      x2 -= n2;
+      ++x1;
+    }
+    if (R == 3 && x1 >= n1) {
+      x1 -= n1;
+      ++x0;
+    }
+  }
+};
+
+// f(x0, x1, x2) on every point of an n0 x n1 x n2 box.
+template <int R, typename F>
+__device__ __forceinline__ void for_box(int n0, int n1, int n2, F&& f) {
+  const int n = n0 * n1 * n2;
+  BoxWalk<R> w(n1, n2);
+  for (int i = threadIdx.x; i < n; i += CASPER_THREADS) {
+    f(w.x0, w.x1, w.x2);
+    w.next();
+  }
+}
+
+// put(p, get(p)) on every point p of an n0 x n1 x n2 box, two points per
+// thread at a time, both values formed before either is stored (the
+// stores could alias the loads, so the compiler would not overlap them).
+template <int R, typename G, typename P>
+__device__ __forceinline__ void map_box(int n0, int n1, int n2, G&& get, P&& put) {
+  const int n = n0 * n1 * n2;
+  BoxWalk<R> w(n1, n2);
+  for (int i = threadIdx.x; i < n; i += 2 * CASPER_THREADS) {
+    const int a0 = w.x0, a1 = w.x1, a2 = w.x2;
+    w.next();
+    const int b0 = w.x0, b1 = w.x1, b2 = w.x2;
+    w.next();
+    const bool has_b = i + CASPER_THREADS < n;
+    const auto va = get(a0, a1, a2);
+    const auto vb = has_b ? get(b0, b1, b2) : va;
+    put(a0, a1, a2, va);
+    if (has_b) put(b0, b1, b2, vb);
+  }
+}
+
+// One application of stage `st` at position L of buffer x; b selects the
+// buffer's tap offsets.
 template <typename T>
-__device__ __forceinline__ T apply_point(const T* __restrict__ x, int s0, int s1,
-                                         int p0, int p1, int p2,
+__device__ __forceinline__ T apply_point(const T* __restrict__ x, int L, int b,
                                          const CasperArgs& a, const CasperStage& st) {
-  const T* __restrict__ c = x + (p0 + st.halo[0]) * s0 + (p1 + st.halo[1]) * s1 +
-                            (p2 + st.halo[2]);
+  const T* __restrict__ c = x + L;
   if (st.n_terms == 0) {
     T acc = T(0);
-    for (int k = st.tap_first; k < st.tap_first + st.n_taps; ++k) {
-      const T v = c[a.tap_off[k][0] * s0 + a.tap_off[k][1] * s1 + a.tap_off[k][2]];
-      acc = add_rn(acc, mul_rn(T(a.tap_c[k]), v));
-    }
+    for (int k = st.tap_first; k < st.tap_first + st.n_taps; ++k)
+      acc = add_rn(acc, mul_rn(T(a.tap_c[k]), c[a.tap_lin[b][k]]));
     return acc;
   }
   T total = T(0);
@@ -171,38 +308,34 @@ __device__ __forceinline__ T apply_point(const T* __restrict__ x, int s0, int s1
     // factors f0 (innermost, lowest axis) .. f0+nf-1 (outermost)
     const int f0 = a.term_fac[t];
     const int nf = a.term_nf[t];
-    int sd[3], b[3], n[3];
-    for (int f = 0; f < 3; ++f) {
-      const int ff = f0 + (f < nf ? f : 0);
-      const int ax = a.fac_axis[ff];
-      sd[f] = ax == 0 ? s0 : (ax == 1 ? s1 : 1);
-      b[f] = a.fac_first[ff];
-      n[f] = a.fac_n[ff];
-    }
+    const int b0 = a.fac_first[f0], n0 = a.fac_n[f0];
     T v = T(0);
     if (nf == 1) {
-      for (int j = 0; j < n[0]; ++j)
-        v = add_rn(v, mul_rn(T(a.fc[b[0] + j]), c[a.foff[b[0] + j] * sd[0]]));
+      for (int j = 0; j < n0; ++j)
+        v = add_rn(v, mul_rn(T(a.fc[b0 + j]), c[a.foff_lin[b][b0 + j]]));
     } else if (nf == 2) {
-      for (int j1 = 0; j1 < n[1]; ++j1) {
-        const T* __restrict__ c1 = c + a.foff[b[1] + j1] * sd[1];
+      const int b1 = a.fac_first[f0 + 1], n1 = a.fac_n[f0 + 1];
+      for (int j1 = 0; j1 < n1; ++j1) {
+        const T* __restrict__ c1 = c + a.foff_lin[b][b1 + j1];
         T u = T(0);
-        for (int j0 = 0; j0 < n[0]; ++j0)
-          u = add_rn(u, mul_rn(T(a.fc[b[0] + j0]), c1[a.foff[b[0] + j0] * sd[0]]));
-        v = add_rn(v, mul_rn(T(a.fc[b[1] + j1]), u));
+        for (int j0 = 0; j0 < n0; ++j0)
+          u = add_rn(u, mul_rn(T(a.fc[b0 + j0]), c1[a.foff_lin[b][b0 + j0]]));
+        v = add_rn(v, mul_rn(T(a.fc[b1 + j1]), u));
       }
     } else {
-      for (int j2 = 0; j2 < n[2]; ++j2) {
-        const T* __restrict__ c2 = c + a.foff[b[2] + j2] * sd[2];
+      const int b1 = a.fac_first[f0 + 1], n1 = a.fac_n[f0 + 1];
+      const int b2 = a.fac_first[f0 + 2], n2 = a.fac_n[f0 + 2];
+      for (int j2 = 0; j2 < n2; ++j2) {
+        const T* __restrict__ c2 = c + a.foff_lin[b][b2 + j2];
         T w = T(0);
-        for (int j1 = 0; j1 < n[1]; ++j1) {
-          const T* __restrict__ c1 = c2 + a.foff[b[1] + j1] * sd[1];
+        for (int j1 = 0; j1 < n1; ++j1) {
+          const T* __restrict__ c1 = c2 + a.foff_lin[b][b1 + j1];
           T u = T(0);
-          for (int j0 = 0; j0 < n[0]; ++j0)
-            u = add_rn(u, mul_rn(T(a.fc[b[0] + j0]), c1[a.foff[b[0] + j0] * sd[0]]));
-          w = add_rn(w, mul_rn(T(a.fc[b[1] + j1]), u));
+          for (int j0 = 0; j0 < n0; ++j0)
+            u = add_rn(u, mul_rn(T(a.fc[b0 + j0]), c1[a.foff_lin[b][b0 + j0]]));
+          w = add_rn(w, mul_rn(T(a.fc[b1 + j1]), u));
         }
-        v = add_rn(v, mul_rn(T(a.fc[b[2] + j2]), w));
+        v = add_rn(v, mul_rn(T(a.fc[b2 + j2]), w));
       }
     }
     if (st.n_terms == 1) {
@@ -214,13 +347,99 @@ __device__ __forceinline__ T apply_point(const T* __restrict__ x, int s0, int s1
   return st.n_terms == 1 ? single : total;
 }
 
-template <typename S>
-__global__ void __launch_bounds__(CASPER_THREADS)
+// A star or dense stage of NT taps, its offsets and coefficients held in
+// registers for the whole application (the paper stencils' 3, 5 and 7).
+template <typename T, int NT>
+struct FixedTaps {
+  int off[NT];
+  T c[NT];
+  __device__ __forceinline__ FixedTaps(const CasperArgs& a, const CasperStage& st, int b) {
+#pragma unroll
+    for (int k = 0; k < NT; ++k) {
+      off[k] = a.tap_lin[b][st.tap_first + k];
+      c[k] = T(a.tap_c[st.tap_first + k]);
+    }
+  }
+  __device__ __forceinline__ T operator()(const T* __restrict__ x, int L) const {
+    T acc = T(0);
+#pragma unroll
+    for (int k = 0; k < NT; ++k) acc = add_rn(acc, mul_rn(c[k], x[L + off[k]]));
+    return acc;
+  }
+};
+
+// Any other stage: taps or factored terms read from the argument block.
+template <typename T>
+struct AnyStage {
+  const CasperArgs& a;
+  const CasperStage& st;
+  int b;
+  __device__ __forceinline__ T operator()(const T* __restrict__ x, int L) const {
+    return apply_point(x, L, b, a, st);
+  }
+};
+
+// A radius-1 star stage of rank 2 (5 taps: center, row -1, row +1,
+// column -1, column +1) or rank 3 (7 taps: center, plane -1, plane +1,
+// row -1, row +1, column -1, column +1), each thread computing a strip of
+// M rows of one column: the center column is read once for the strip's
+// M + 2 rows and held in registers, so a point costs 3 (rank 2) or 5
+// (rank 3) shared-memory loads instead of 5 or 7.  Every point's sum is
+// formed in tap order, as FixedTaps forms it.
+template <int R, int M, typename T, typename Put>
+__device__ __forceinline__ void star_strips(const T* __restrict__ x, int pin, int row,
+                                            const int* cur, const int* c,
+                                            const CasperArgs& a, const CasperStage& st,
+                                            Put&& put) {
+  constexpr int NT = R == 2 ? 5 : 7;
+  T k[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) k[t] = T(a.tap_c[st.tap_first + t]);
+  const int strips = (cur[1] + M - 1) / M;
+  for_box<R>(cur[0], strips, cur[2], [&](int q0, int sq, int q2) {
+    const int q1 = sq * M;
+    const int rows = min(M, cur[1] - q1);
+    const T* __restrict__ p = x + (c[0] + q0) * pin + (c[1] + q1) * row + c[2] + q2;
+    T col[M + 2];
+#pragma unroll
+    for (int i = 0; i < M + 2; ++i) col[i] = i <= rows + 1 ? p[(i - 1) * row] : T(0);
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      if (m < rows) {
+        const T* __restrict__ pm = p + m * row;
+        T acc = T(0);
+        acc = add_rn(acc, mul_rn(k[0], col[m + 1]));
+        if (R == 2) {
+          acc = add_rn(acc, mul_rn(k[1], col[m]));
+          acc = add_rn(acc, mul_rn(k[2], col[m + 2]));
+          acc = add_rn(acc, mul_rn(k[3], pm[-1]));
+          acc = add_rn(acc, mul_rn(k[4], pm[1]));
+        } else {
+          acc = add_rn(acc, mul_rn(k[1], pm[-pin]));
+          acc = add_rn(acc, mul_rn(k[2], pm[pin]));
+          acc = add_rn(acc, mul_rn(k[3], col[m]));
+          acc = add_rn(acc, mul_rn(k[4], col[m + 2]));
+          acc = add_rn(acc, mul_rn(k[5 % NT], pm[-1]));
+          acc = add_rn(acc, mul_rn(k[6 % NT], pm[1]));
+        }
+        put(q0, q1 + m, q2, acc);
+      }
+    }
+  });
+}
+
+template <typename S, int R>
+__global__ void __launch_bounds__(CASPER_THREADS, CASPER_MIN_BLOCKS)
 casper_chain_kernel(const S* __restrict__ in, S* __restrict__ out,
                     const __grid_constant__ CasperArgs a) {
   typedef typename Acc<S>::T T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const buf_a = reinterpret_cast<T*>(smem_raw);
+  const Layout ly = layout_of<S>(a);
+  // Buffers are addressed as offsets from the shared array itself (no
+  // array of pointers), so the compiler keeps every access a 32-bit
+  // shared-memory one.
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int row = ly.row;
 
   // Which tile: blockIdx.x walks tiles with dim 2 fastest.
   int lin = blockIdx.x;
@@ -233,161 +452,237 @@ casper_chain_kernel(const S* __restrict__ in, S* __restrict__ out,
   base[0] = (lin / nt1) * a.tile[0];
 
   const int sweeps = a.sweeps;
-  int win[3], gorg[3], rem[3];
+  int win[3], gorg[3], full[3], rem[3];
+  bool interior = true;
+#pragma unroll
   for (int d = 0; d < 3; ++d) {
-    rem[d] = sweeps * a.halo[d];                         // ghost depth left
-    win[d] = a.tile[d] + 2 * rem[d];
-    gorg[d] = (a.padded ? a.origin[d] : 0) + base[d];   // global coord of tile origin
+    full[d] = sweeps * a.halo[d];
+    rem[d] = full[d];                                   // ghost depth left
+    win[d] = a.tile[d] + 2 * full[d];
+    gorg[d] = (a.padded ? a.origin[d] : 0) + base[d];  // global coord of tile origin
+    interior = interior && gorg[d] - full[d] >= 0 && gorg[d] + a.tile[d] + full[d] <= a.grid[d];
   }
-  const int n_win = win[0] * win[1] * win[2];
+  if (a.tiles != nullptr && threadIdx.x == 0) atomicAdd(a.tiles + (interior ? 0 : 1), 1);
   const CasperStage& first = a.stage[0];
   const T fill0 = first.mode == MODE_CONSTANT ? Acc<S>::rounded(first.value) : T(0);
 
-  // ---- load the window (stage 0's extension) ------------------------------
+  // ---- load the window (stage 0's extension) into buffer 0 ----------------
   const size_t src_elems = (size_t)a.src[0] * a.src[1] * a.src[2];
   const S* __restrict__ src = in + (size_t)blockIdx.y * src_elems;
-  for (int i = threadIdx.x; i < n_win; i += blockDim.x) {
-    const int j2 = i % win[2];
-    const int r = i / win[2];
-    const int j1 = r % win[1];
-    const int j0 = r / win[1];
-    int l[3] = {base[0] + j0, base[1] + j1, base[2] + j2};  // padded: local input index
-    T v;
-    if (a.padded) {
-      const bool inside = l[0] < a.src[0] && l[1] < a.src[1] && l[2] < a.src[2];
-      v = inside ? Acc<S>::load(src[((size_t)l[0] * a.src[1] + l[1]) * a.src[2] + l[2]])
-                 : T(0);
-    } else {
-      int g[3];
-      bool inside = true;
-      for (int d = 0; d < 3; ++d) {
-        g[d] = l[d] - rem[d];                               // global coordinate
-        inside = inside && g[d] >= 0 && g[d] < a.grid[d];
+  T* const w0 = sm + ly.base[0];
+  const int pl0 = ly.plane[0];
+  if (a.padded) {
+    for_box<R>(win[0], win[1], win[2], [&](int j0, int j1, int j2) {
+      const int l0 = base[0] + j0, l1 = base[1] + j1, l2 = base[2] + j2;
+      const bool inside = l0 < a.src[0] && l1 < a.src[1] && l2 < a.src[2];
+      w0[j0 * pl0 + j1 * row + j2] =
+          inside ? Acc<S>::load(src[((size_t)l0 * a.src[1] + l1) * a.src[2] + l2]) : T(0);
+    });
+  } else if (interior) {
+    const S* __restrict__ g = src + ((size_t)(gorg[0] - full[0]) * a.src[1] + (gorg[1] - full[1])) *
+                                        a.src[2] + (gorg[2] - full[2]);
+    bool copied = false;
+    if constexpr (sizeof(S) >= 4) {
+      if (a.async_load) {
+        // 16-byte chunks from the aligned column at or below the window's
+        // first; the row pitch leaves room for the chunks past either end
+        constexpr int vec = 16 / sizeof(S);
+        const int chunks = (ly.lead + win[2] + vec - 1) / vec;
+        const S* __restrict__ g16 = g - ly.lead;
+        T* const s16 = sm;
+        for_box<R>(win[0], win[1], chunks, [&](int j0, int j1, int ch) {
+          cp_async16(s16 + j0 * pl0 + j1 * row + ch * vec,
+                     g16 + (size_t)(j0 * a.src[1] + j1) * a.src[2] + ch * vec);
+        });
+        cp_async_wait_all();
+        copied = true;
       }
-      if (first.mode == MODE_PERIODIC) {
-        for (int d = 0; d < 3; ++d) g[d] = wrap_index(g[d], a.grid[d]);
-        inside = true;
-      } else if (first.mode == MODE_REFLECT) {
-        for (int d = 0; d < 3; ++d) g[d] = reflect_index(g[d], a.grid[d]);
-        inside = true;
-      }
-      v = inside ? Acc<S>::load(src[((size_t)g[0] * a.src[1] + g[1]) * a.src[2] + g[2]])
-                 : fill0;
     }
-    buf_a[i] = v;
+    if (!copied) {
+      for_box<R>(win[0], win[1], win[2], [&](int j0, int j1, int j2) {
+        w0[j0 * pl0 + j1 * row + j2] =
+            Acc<S>::load(g[(size_t)(j0 * a.src[1] + j1) * a.src[2] + j2]);
+      });
+    }
+  } else {
+    for_box<R>(win[0], win[1], win[2], [&](int j0, int j1, int j2) {
+      int gi[3] = {gorg[0] - full[0] + j0, gorg[1] - full[1] + j1, gorg[2] - full[2] + j2};
+      bool inside = true;
+#pragma unroll
+      for (int d = 3 - R; d < 3; ++d) {
+        if (first.mode == MODE_PERIODIC) {
+          gi[d] = wrap_index(gi[d], a.grid[d]);
+        } else if (first.mode == MODE_REFLECT) {
+          gi[d] = reflect_index(gi[d], a.grid[d]);
+        } else {
+          inside = inside && gi[d] >= 0 && gi[d] < a.grid[d];
+        }
+      }
+      w0[j0 * pl0 + j1 * row + j2] =
+          inside ? Acc<S>::load(src[((size_t)gi[0] * a.src[1] + gi[1]) * a.src[2] + gi[2]])
+                 : fill0;
+    });
   }
   __syncthreads();
 
   // ---- sweeps x n_stages fused applications, ping-pong in shared memory --
-  T* xin = buf_a;
-  T* const buf_b = buf_a + n_win;
-  int cin[3] = {win[0], win[1], win[2]};
   const int total = sweeps * a.n_stages;
   int step = 0;
   for (int s = 0; s < sweeps; ++s) {
     for (int k = 0; k < a.n_stages; ++k) {
       const CasperStage& st = a.stage[k];
-      int cur[3], g0[3];
+      const int bi = step & 1;                 // input buffer
+      const T* const xin = sm + (bi ? ly.elems[0] + ly.base[1] : ly.base[0]);
+      const int pin = bi ? ly.plane[1] : ly.plane[0];
+      int cur[3], c[3], g0[3];
+#pragma unroll
       for (int d = 0; d < 3; ++d) {
         rem[d] -= st.halo[d];                  // ghost depth left after this one
         cur[d] = a.tile[d] + 2 * rem[d];
+        c[d] = full[d] - rem[d];               // window coordinate of cur's origin
         g0[d] = gorg[d] - rem[d];
       }
-      const int s1 = cin[2], s0 = cin[1] * cin[2];
-      const int n_cur = cur[0] * cur[1] * cur[2];
-      if (++step == total) {
-        S* __restrict__ dst =
-            out + (size_t)blockIdx.y * ((size_t)a.out[0] * a.out[1] * a.out[2]);
-        for (int i = threadIdx.x; i < n_cur; i += blockDim.x) {
-          const int p2 = i % cur[2];
-          const int r = i / cur[2];
-          const int p1 = r % cur[1];
-          const int p0 = r / cur[1];
-          const int o0 = base[0] + p0, o1 = base[1] + p1, o2 = base[2] + p2;
-          if (o0 >= a.out[0] || o1 >= a.out[1] || o2 >= a.out[2]) continue;
-          dst[((size_t)o0 * a.out[1] + o1) * a.out[2] + o2] =
-              Acc<S>::store(apply_point(xin, s0, s1, p0, p1, p2, a, st));
-        }
-        return;
-      }
+      const bool last = ++step == total;
       // ghosts of this intermediate take the extension of the next stage
       const CasperStage& nx = a.stage[(k + 1) % a.n_stages];
-      T* const xout = (xin == buf_a) ? buf_b : buf_a;
-      const bool fill_mode = nx.mode == MODE_ZERO || nx.mode == MODE_CONSTANT;
+      const int bo = bi ^ 1;
+      T* const xout = sm + (bo ? ly.elems[0] + ly.base[1] : ly.base[0]);
+      const int pout = bo ? ly.plane[1] : ly.plane[0];
+      const bool fill_rim = !interior && (nx.mode == MODE_ZERO || nx.mode == MODE_CONSTANT);
       const T fill = nx.mode == MODE_CONSTANT ? T(nx.value) : T(0);
-      for (int i = threadIdx.x; i < n_cur; i += blockDim.x) {
-        const int p2 = i % cur[2];
-        const int r = i / cur[2];
-        const int p1 = r % cur[1];
-        const int p0 = r / cur[1];
-        T v = apply_point(xin, s0, s1, p0, p1, p2, a, st);
-        if (fill_mode) {
-          const int ga = g0[0] + p0, gb = g0[1] + p1, gc = g0[2] + p2;
-          const bool inside = ga >= 0 && ga < a.grid[0] && gb >= 0 && gb < a.grid[1] &&
-                              gc >= 0 && gc < a.grid[2];
-          if (!inside) v = fill;
+      S* __restrict__ dst = out + (size_t)blockIdx.y * ((size_t)a.out[0] * a.out[1] * a.out[2]);
+      // where a value goes: the tile in global memory after the last
+      // application; else the other buffer, a rim tile's out-of-grid
+      // positions taking the fill of a zero/constant next stage
+      auto put_last = [&](int q0, int q1, int q2, T v) {
+        const int o0 = base[0] + q0, o1 = base[1] + q1, o2 = base[2] + q2;
+        if (o0 < a.out[0] && o1 < a.out[1] && o2 < a.out[2])
+          dst[((size_t)o0 * a.out[1] + o1) * a.out[2] + o2] = Acc<S>::store(v);
+      };
+      auto put_fill = [&](int q0, int q1, int q2, T v) {
+        const int ga = g0[0] + q0, gb = g0[1] + q1, gc = g0[2] + q2;
+        const bool inside = ga >= 0 && ga < a.grid[0] && gb >= 0 && gb < a.grid[1] &&
+                            gc >= 0 && gc < a.grid[2];
+        xout[(c[0] + q0) * pout + (c[1] + q1) * row + c[2] + q2] = inside ? v : fill;
+      };
+      auto put_keep = [&](int q0, int q1, int q2, T v) {
+        xout[(c[0] + q0) * pout + (c[1] + q1) * row + c[2] + q2] = v;
+      };
+      auto apply = [&](auto&& put) {
+        auto run = [&](const auto& pt) {
+          map_box<R>(cur[0], cur[1], cur[2], [&](int q0, int q1, int q2) {
+            return pt(xin, (c[0] + q0) * pin + (c[1] + q1) * row + c[2] + q2);
+          }, put);
+        };
+        if (R >= 2 && st.star == R) {
+          star_strips<R, CASPER_STRIP>(xin, pin, row, cur, c, a, st, put);
+        } else if (st.n_terms == 0 && st.n_taps == 5) {
+          run(FixedTaps<T, 5>(a, st, bi));
+        } else if (st.n_terms == 0 && st.n_taps == 3) {
+          run(FixedTaps<T, 3>(a, st, bi));
+        } else if (st.n_terms == 0 && st.n_taps == 7) {
+          run(FixedTaps<T, 7>(a, st, bi));
+        } else {
+          run(AnyStage<T>{a, st, bi});
         }
-        xout[i] = v;
+      };
+      if (last) {
+        apply(put_last);
+      } else if (fill_rim) {
+        apply(put_fill);
+      } else {
+        apply(put_keep);
       }
+      if (last) return;
       __syncthreads();
-      if (nx.mode == MODE_REFLECT) {
+      if (!interior && nx.mode == MODE_REFLECT) {
         // One axis at a time, as reflect_gather: a ghost along `d` copies
         // the element at the fold of its coordinate (clipped into the
         // buffer; the clip only matters where no in-grid output reads).
-        const int sd[3] = {cur[1] * cur[2], cur[2], 1};
-        for (int d = 0; d < 3; ++d) {
-          for (int i = threadIdx.x; i < n_cur; i += blockDim.x) {
-            const int p2 = i % cur[2];
-            const int r = i / cur[2];
-            const int p1 = r % cur[1];
-            const int p0 = r / cur[1];
-            const int pd = d == 0 ? p0 : (d == 1 ? p1 : p2);
-            const int g = g0[d] + pd;
-            if (g >= 0 && g < a.grid[d]) continue;
-            int srcd = reflect_index(g, a.grid[d]) - g0[d];
-            srcd = srcd < 0 ? 0 : (srcd > cur[d] - 1 ? cur[d] - 1 : srcd);
-            xout[i] = xout[i + (srcd - pd) * sd[d]];
-          }
+        // Only the two ghost slabs along `d` are visited; their sources
+        // lie inside the grid along `d`, so no pass reads what it writes.
+#pragma unroll
+        for (int d = 3 - R; d < 3; ++d) {
+          const int lo = min(max(-g0[d], 0), cur[d]);
+          const int hi = min(max(g0[d] + cur[d] - a.grid[d], 0), cur[d] - lo);
+          if (lo + hi == 0) continue;
+          int box[3] = {cur[0], cur[1], cur[2]};
+          box[d] = lo + hi;
+          for_box<R>(box[0], box[1], box[2], [&](int q0, int q1, int q2) {
+            int q[3] = {q0, q1, q2};
+            const int qd = q[d] < lo ? q[d] : cur[d] - hi + (q[d] - lo);
+            int from = reflect_index(g0[d] + qd, a.grid[d]) - g0[d];
+            from = from < 0 ? 0 : (from > cur[d] - 1 ? cur[d] - 1 : from);
+            q[d] = qd;
+            const int to = (c[0] + q[0]) * pout + (c[1] + q[1]) * row + c[2] + q[2];
+            const int stride = d == 0 ? pout : (d == 1 ? row : 1);
+            xout[to] = xout[to + (from - qd) * stride];
+          });
           __syncthreads();
         }
       }
-      xin = xout;
-      cin[0] = cur[0];
-      cin[1] = cur[1];
-      cin[2] = cur[2];
     }
   }
+}
+
+// Dynamic shared memory of one CTA: both buffers in the accumulator type.
+template <typename S>
+static size_t smem_bytes(const CasperArgs* a) {
+  typedef typename Acc<S>::T T;
+  const Layout l = layout_of<S>(*a);
+  return ((size_t)l.elems[0] + (size_t)l.elems[1]) * sizeof(T);
+}
+
+template <typename S, int R>
+static int launch_rank(const void* in, void* out, const CasperArgs* a, size_t smem,
+                       void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(casper_chain_kernel<S, R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  unsigned int tiles = 1;
+  for (int d = 0; d < 3; ++d) tiles *= (unsigned int)((a->out[d] + a->tile[d] - 1) / a->tile[d]);
+  dim3 grid(tiles, (unsigned int)a->batch);
+  casper_chain_kernel<S, R><<<grid, CASPER_THREADS, smem, (cudaStream_t)stream>>>(
+      static_cast<const S*>(in), static_cast<S*>(out), *a);
+  return (int)cudaGetLastError();
 }
 
 template <typename S>
 static int launch(int device, const void* in, void* out, const CasperArgs* a,
                   void* stream) {
-  typedef typename Acc<S>::T T;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  // the window, plus the first intermediate (the window less stage 0's
-  // radius per side, the largest one) when more than one application runs
-  size_t win = 1, inner = 1;
-  for (int d = 0; d < 3; ++d) {
-    const int w = a->tile[d] + 2 * a->sweeps * a->halo[d];
-    win *= (size_t)w;
-    inner *= (size_t)(w - 2 * a->stage[0].halo[d]);
+  // the host's rule for the cp.async path, checked: a window that does
+  // not start on the layout's lead, or a row or base not 16-byte aligned
+  const int vec = sizeof(S) >= 4 ? 16 / (int)sizeof(S) : 1;
+  if (a->async_load && (sizeof(S) < 4 || a->padded || a->tile[2] % vec ||
+                        (a->src[2] * sizeof(S)) % 16 || (uintptr_t)in % 16))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<S>(a);
+  switch (a->rank) {
+    case 1: return launch_rank<S, 1>(in, out, a, smem, stream);
+    case 2: return launch_rank<S, 2>(in, out, a, smem, stream);
+    case 3: return launch_rank<S, 3>(in, out, a, smem, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = (win + (a->sweeps * a->n_stages > 1 ? inner : 0)) * sizeof(T);
-  err = cudaFuncSetAttribute(casper_chain_kernel<S>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  unsigned int tiles = 1;
-  for (int d = 0; d < 3; ++d) tiles *= (unsigned int)((a->out[d] + a->tile[d] - 1) / a->tile[d]);
-  dim3 grid(tiles, (unsigned int)a->batch);
-  casper_chain_kernel<S><<<grid, CASPER_THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const S*>(in), static_cast<S*>(out), *a);
-  return (int)cudaGetLastError();
 }
 
 extern "C" {
 
 int casper_args_size(void) { return (int)sizeof(CasperArgs); }
+
+// The dynamic shared memory a launch with `args` asks for, by storage
+// itemsize (2: bf16, 4: f32, 8: f64).
+long long casper_smem_bytes(const void* args, int itemsize) {
+  const CasperArgs* a = static_cast<const CasperArgs*>(args);
+  switch (itemsize) {
+    case 8: return (long long)smem_bytes<double>(a);
+    case 4: return (long long)smem_bytes<float>(a);
+    case 2: return (long long)smem_bytes<__nv_bfloat16>(a);
+    default: return -1;
+  }
+}
 
 int casper_stencil_f32(int device, const void* in, void* out, const void* args,
                        void* stream) {

@@ -5,9 +5,10 @@ CUDA kernel template (``csrc/stencil.cu``) replaces the reference's four
 Pallas kernels; it runs ``sweeps`` fused applications of a chain of 1-4
 stages, one stage for a :class:`StencilSpec`:
 
-* **K1** — :func:`stencil_sweep`, pad-free: each window element is
-  loaded from the unpadded grid through the boundary index map of its
-  global coordinate (replaces ``_padfree_kernel``);
+* **K1** — :func:`stencil_sweep`, pad-free: each window is read from
+  the unpadded grid, a plain copy for an interior tile (its window inside
+  the grid) and through the boundary index map of each element's global
+  coordinate for a rim tile (replaces ``_padfree_kernel``);
 * **K2** — :func:`stencil_window_sweep`, padded window: windows are read
   from an input that already carries ``sweeps*halo`` ghosts, with an
   ``origin`` that places it in the global grid (replaces ``_kernel``);
@@ -53,6 +54,11 @@ LAUNCHES: dict[str, int] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 #: The CUDA source that holds K1-K4.
 SOURCE = "stencil.cu"
 
+#: Launch records kept while :func:`count_tiles` is on: per K1-K4 launch,
+#: the kernel, its load path, a device counter of the interior and rim
+#: tiles it ran, and the shared memory it asked for beside the plan's.
+_TILE_RECORDS: list | None = None
+
 # Argument pools (taps and factored terms are pooled across the stages).
 _MAX_STAGES, _MAX_TAPS, _MAX_TERMS, _MAX_FACS, _MAX_FOFF = 4, 96, 16, 24, 96
 _MODES = {"zero": 0, "constant": 1, "periodic": 2, "reflect": 3}
@@ -84,24 +90,25 @@ class CasperStage(ctypes.Structure):
         ("halo", _I3), ("mode", ctypes.c_int),
         ("tap_first", ctypes.c_int), ("n_taps", ctypes.c_int),
         ("term_first", ctypes.c_int), ("n_terms", ctypes.c_int),
-        ("value", ctypes.c_double),
+        ("star", ctypes.c_int), ("value", ctypes.c_double),
     ]
 
 
 class CasperArgs(ctypes.Structure):
     _fields_ = [
-        ("padded", ctypes.c_int), ("sweeps", ctypes.c_int),
-        ("batch", ctypes.c_int), ("n_stages", ctypes.c_int),
+        ("padded", ctypes.c_int), ("rank", ctypes.c_int),
+        ("sweeps", ctypes.c_int), ("batch", ctypes.c_int),
+        ("n_stages", ctypes.c_int), ("async_load", ctypes.c_int),
         ("grid", _I3), ("tile", _I3), ("halo", _I3), ("src", _I3),
         ("out", _I3), ("origin", _I3),
+        ("tiles", ctypes.c_void_p),
         ("stage", CasperStage * _MAX_STAGES),
-        ("tap_off", _I3 * _MAX_TAPS),
+        ("tap_lin", (ctypes.c_int * _MAX_TAPS) * 2),
         ("term_fac", ctypes.c_int * _MAX_TERMS),
         ("term_nf", ctypes.c_int * _MAX_TERMS),
-        ("fac_axis", ctypes.c_int * _MAX_FACS),
         ("fac_first", ctypes.c_int * _MAX_FACS),
         ("fac_n", ctypes.c_int * _MAX_FACS),
-        ("foff", ctypes.c_int * _MAX_FOFF),
+        ("foff_lin", (ctypes.c_int * _MAX_FOFF) * 2),
         ("tap_c", ctypes.c_double * _MAX_TAPS),
         ("fc", ctypes.c_double * _MAX_FOFF),
     ]
@@ -117,6 +124,8 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.casper_args_size.argtypes = []
         lib.casper_args_size.restype = ctypes.c_int
+        lib.casper_smem_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.casper_smem_bytes.restype = ctypes.c_longlong
         lib.casper_error_string.argtypes = [ctypes.c_int]
         lib.casper_error_string.restype = ctypes.c_char_p
         if lib.casper_args_size() != ctypes.sizeof(CasperArgs):
@@ -131,10 +140,12 @@ def _rank3(v: Sequence[int], pad: int, fill: int) -> tuple[int, ...]:
     return (fill,) * pad + tuple(int(x) for x in v)
 
 
-def _pack_stages(a: CasperArgs, spec) -> None:
+def _pack_stages(a: CasperArgs, spec, layout=None) -> None:
     """Fill the stage table and the pooled tap/term tables of ``a`` for
-    ``spec`` (a spec: one stage; a pipeline: its stages).  Raises
-    ``ValueError`` when the chain exceeds the pools."""
+    ``spec`` (a spec: one stage; a pipeline: its stages), with tap and
+    factor offsets made linear on ``layout``'s two buffers
+    (:func:`repro_torch.core.plan.kernel_layout`; ``None`` leaves them 0).
+    Raises ``ValueError`` when the chain exceeds the pools."""
     stages = as_stages(spec)
     if len(stages) > _MAX_STAGES:
         raise ValueError(f"{spec.name}: {len(stages)} stages exceed the CUDA "
@@ -152,12 +163,15 @@ def _pack_stages(a: CasperArgs, spec) -> None:
                              "all stages")
         s.tap_first, s.n_taps = ntap, st.n_taps
         for off, c in st.taps:
-            a.tap_off[ntap][:] = _rank3(off, pad, 0)
+            if layout is not None:
+                for b in range(2):
+                    a.tap_lin[b][ntap] = layout.offset(b, _rank3(off, pad, 0))
             a.tap_c[ntap] = c
             ntap += 1
         terms = (None if st.structure == "dense"
                  else _classify(nd, st.taps).compute_terms) or ()
         s.term_first, s.n_terms = nterm, len(terms)
+        s.star = nd if not terms and _is_unit_star(st) else 0
         for term in terms:
             if nterm >= _MAX_TERMS or nfac + len(term.factors) > _MAX_FACS:
                 raise ValueError(f"{spec.name}: too many factored terms")
@@ -166,12 +180,31 @@ def _pack_stages(a: CasperArgs, spec) -> None:
             for f in term.factors:
                 if noff + len(f.offsets) > _MAX_FOFF:
                     raise ValueError(f"{spec.name}: too many factor offsets")
-                a.fac_axis[nfac] = f.axis + pad
                 a.fac_first[nfac], a.fac_n[nfac] = noff, len(f.offsets)
                 for o, c in zip(f.offsets, f.coeffs):
-                    a.foff[noff], a.fc[noff] = o, c
+                    if layout is not None:
+                        off3 = [0, 0, 0]
+                        off3[f.axis + pad] = o
+                        for b in range(2):
+                            a.foff_lin[b][noff] = layout.offset(b, off3)
+                    a.fc[noff] = c
                     noff += 1
                 nfac += 1
+
+
+def _is_unit_star(st: StencilSpec) -> bool:
+    """Whether ``st``'s taps are the radius-1 star of rank 2 or 3 in the
+    paper stencils' order (center, then -1 and +1 along each axis in
+    turn): the kernel runs those in strips along the rows."""
+    if st.ndim not in (2, 3):
+        return False
+    want = [(0,) * st.ndim]
+    for d in range(st.ndim):
+        for sgn in (-1, 1):
+            off = [0] * st.ndim
+            off[d] = sgn
+            want.append(tuple(off))
+    return [tuple(off) for off, _ in st.taps] == want
 
 
 @functools.lru_cache(maxsize=256)
@@ -184,20 +217,21 @@ def check_kernel_args(spec) -> None:
 @functools.lru_cache(maxsize=1024)
 def _args(spec, padded: bool, sweeps: int, batch: int,
           grid_shape: tuple, tile: tuple, src: tuple, out: tuple,
-          origin: tuple) -> CasperArgs:
+          origin: tuple, itemsize: int, async_load: bool) -> CasperArgs:
     """Pack one launch's arguments; every rank is carried as rank 3."""
     if max(grid_shape + src + out) >= 2 ** 31:
         raise ValueError("the CUDA kernels take extents below 2**31 per dim")
     pad = 3 - spec.ndim
     a = CasperArgs()
-    a.padded, a.sweeps, a.batch = int(padded), sweeps, batch
+    a.padded, a.rank, a.sweeps, a.batch = int(padded), spec.ndim, sweeps, batch
+    a.async_load = int(async_load)
     a.grid[:] = _rank3(grid_shape, pad, 1)
     a.tile[:] = _rank3(tile, pad, 1)
     a.halo[:] = _rank3(spec.halo, pad, 0)
     a.src[:] = _rank3(src, pad, 1)
     a.out[:] = _rank3(out, pad, 1)
     a.origin[:] = _rank3(origin, pad, 0)
-    _pack_stages(a, spec)
+    _pack_stages(a, spec, _plan.kernel_layout(tile, spec, sweeps, itemsize))
     return a
 
 
@@ -205,10 +239,22 @@ def _launch(kernel: str, spec, src: torch.Tensor, out: torch.Tensor, *,
             sweeps: int, tile: tuple, grid_shape: tuple, out_shape: tuple,
             origin: tuple) -> None:
     """Launch ``kernel`` (K1-K4: padded for K2/K4) on the current
-    stream."""
+    stream.  A pad-free launch loads its interior windows on the path
+    :func:`repro_torch.core.plan.load_path` fixes from the shape, tile,
+    dtype and alignment; padded windows load element by element."""
     lib = _lib()
-    a = _args(spec, kernel in ("K2", "K4"), sweeps, src.shape[0],
-              grid_shape, tile, tuple(src.shape[1:]), out_shape, origin)
+    padded = kernel in ("K2", "K4")
+    itemsize = src.element_size()
+    path = "plain" if padded else _plan.load_path(grid_shape, tile, itemsize,
+                                                  src.data_ptr())
+    a = _args(spec, padded, sweeps, src.shape[0], grid_shape, tile,
+              tuple(src.shape[1:]), out_shape, origin, itemsize,
+              path == "async")
+    counter = None
+    if _TILE_RECORDS is not None:
+        a = CasperArgs.from_buffer_copy(a)
+        counter = torch.zeros(2, dtype=torch.int32, device=src.device)
+        a.tiles = counter.data_ptr()
     fn = getattr(lib, _ENTRY[src.dtype])
     stream = torch.cuda.current_stream(src.device).cuda_stream
     err = fn(src.device.index, src.data_ptr(), out.data_ptr(),
@@ -217,6 +263,32 @@ def _launch(kernel: str, spec, src: torch.Tensor, out: torch.Tensor, *,
         raise RuntimeError(f"{kernel} launch failed: "
                            f"{lib.casper_error_string(err).decode()}")
     LAUNCHES[kernel] += 1
+    if counter is not None:
+        _TILE_RECORDS.append({
+            "kernel": kernel, "path": path, "tiles": counter,
+            "smem_launch": lib.casper_smem_bytes(ctypes.addressof(a),
+                                                 itemsize),
+            "smem_plan": _plan.smem_bytes(tile, spec, sweeps, itemsize)})
+
+
+def count_tiles(on: bool = True) -> None:
+    """Start (clearing what was kept) or stop keeping a record of every
+    K1-K4 launch: its kernel, load path, the interior and rim tiles it
+    ran (device counters, read by :func:`tile_records`) and its shared
+    memory beside :func:`repro_torch.core.plan.smem_bytes`."""
+    global _TILE_RECORDS
+    _TILE_RECORDS = [] if on else None
+
+
+def tile_records() -> list[dict]:
+    """The launches recorded since :func:`count_tiles`, with their tile
+    counters read back (``interior``, ``rim``)."""
+    out = []
+    for r in _TILE_RECORDS or ():
+        interior, rim = r["tiles"].tolist()
+        out.append({k: v for k, v in r.items() if k != "tiles"}
+                   | {"interior": interior, "rim": rim})
+    return out
 
 
 def _check_cuda_input(x: torch.Tensor, what: str) -> None:

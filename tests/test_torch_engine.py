@@ -313,7 +313,7 @@ def test_kernel_arguments_reject_extents_past_int32():
     spec = _port(J_SPECS["jacobi1d"])
     big = (2 ** 31,)
     with pytest.raises(ValueError, match="below 2"):
-        teng._args(spec, False, 1, 1, big, (4096,), big, big, (0,))
+        teng._args(spec, False, 1, 1, big, (4096,), big, big, (0,), 8, False)
 
 
 def test_hbm_traffic_matches_reference_model():

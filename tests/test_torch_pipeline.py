@@ -236,14 +236,16 @@ def test_pipeline_plan_fields_match_reference(label, ref):
 
 def test_shared_memory_sizing_counts_the_stage_chain():
     rd = spec_from_reference(J_PIPES["reaction_diffusion2d"])
-    # window 48x144 plus the first intermediate 46x142, in f64: 107 KB
-    assert tplan.smem_bytes((32, 128), rd, 4, 8) == (48 * 144 + 46 * 142) * 8
-    assert tplan.default_tile(rd, 4, 8) == (32, 128)
+    # window 48x144 plus the first intermediate's 46 rows on the window's
+    # row pitch, in f64: 106 KB
+    assert tplan.smem_bytes((32, 128), rd, 4, 8) == (48 * 144 + 46 * 144) * 8
+    assert tplan.default_tile(rd, 4, 8) == (64, 64)
     # one sweep of a two-stage chain still needs the second buffer
-    assert tplan.smem_bytes((32, 128), rd, 1, 8) == (36 * 132 + 34 * 130) * 8
-    # a single spec at sweeps=1 does not
+    assert tplan.smem_bytes((32, 128), rd, 1, 8) == (36 * 132 + 34 * 132) * 8
+    # a single spec at sweeps=1 does not; its 130-column window starts at
+    # lead column 1 of a row rounded up to 16 bytes
     j2 = rd.stages[0]
-    assert tplan.smem_bytes((32, 128), j2, 1, 8) == 34 * 130 * 8
+    assert tplan.smem_bytes((32, 128), j2, 1, 8) == 34 * 132 * 8
     # bf16 is computed in f32 in shared memory
     for spec in (rd, j2):
         assert tplan.smem_bytes((32, 128), spec, 4, 2) == \
@@ -398,7 +400,7 @@ def test_hbm_pipeline_traffic_matches_reference_model():
                 assert got == want
     rd = spec_from_reference(J_PIPES["reaction_diffusion2d"])
     assert teng.hbm_pipeline_traffic(rd, (64, 256), sweeps=4, itemsize=8) \
-        == teng.hbm_pipeline_traffic(rd, (64, 256), (32, 128), 4, 8)
+        == teng.hbm_pipeline_traffic(rd, (64, 256), (64, 64), 4, 8)
 
 
 # ---------------------------------------------------------------------------
