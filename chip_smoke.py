@@ -15,47 +15,59 @@ three at once, into ``build/repro_torch/``), then:
    (K1/K2 for a spec, K3/K4 for a pipeline): f64 bitwise, f32 within
    1e-5, bf16 equal or within one bf16 ulp; plus the fuzz regression
    corpus's chains (ranks 1-3), a mixed zero/constant/reflect chain, tiny
-   grids, a periodic grid above the whole-grid budget and batched grids;
-   every K1-K4 launch counts its interior and rim tiles on the card, and
-   the phase fails unless each kernel ran both kinds and K1 and K3 ran
-   interior tiles on both load paths (16-byte ``cp.async`` and element
-   by element), or unless ``plan.smem_bytes`` equals the shared memory
-   each launch asked for (``casper_smem_bytes``); and K5 (sliding-window
-   attention) against its plain version on a seeded subset of the
-   reference tests' matrix, every head dim K5 is built for and tq
-   {32, 64, 128} among them, plus 8 cases at softcap <= 2, where
-   |s / softcap| passes 0.55 (f32 within 2e-5; bf16 within one ulp or
-   4e-6, whichever is larger, of the plain version and of the f32
-   CUDA-core kernel on the widened inputs);
+   grids, a 2048^2 periodic grid, batched grids and a batch of 70,000 f32
+   8x8 grids (past gridDim.y's 65,535); rank-3 specs run the streamed
+   kernel (planes along dim 0) on both entries; every K1-K4 launch counts
+   its interior and rim tiles on the card, and the phase fails unless
+   each kernel, and each entry of the streamed kernel, ran both kinds,
+   and K1, K3 and the streamed K1 ran interior tiles on both load paths
+   (16-byte ``cp.async`` and element by element), or unless
+   ``plan.smem_bytes`` equals the shared memory each launch asked for
+   (``casper_smem_bytes``); and K5 (sliding-window attention) against its
+   plain version on a seeded subset of the reference tests' matrix, every
+   head dim K5 is built for and tq {32, 64, 128} among them, plus 8 cases
+   at softcap <= 2, where |s / softcap| passes 0.55, and head dims 112
+   and 192, groups of 24 and 32 query heads per KV head and float16
+   (f32 within 2e-5; bf16 within one ulp or 4e-6, whichever is larger, of
+   the plain version and of the f32 CUDA-core kernel on the widened
+   inputs; f16 within one f16 ulp or 4e-6);
 2. runs the engine — ``CasperEngine(spec, backend="cuda",
    sweeps=4).run(grid, iters=10)``, all f64, each bitwise equal to
    ``backend="ref"`` on the card, on two main paths, each with the launch
    counts reset just before it and read just after:
    (a) single specs at each paper stencil's Table 3 DRAM shape (zero and
-   periodic boundary) and at jacobi2d 8192^2 and heat3d 512x512x256
-   (K1, K2); (b) pipelines: reaction_diffusion2d at 2048^2 and 8192^2,
-   advect_diffuse2d at 1024^2 and 2048^2 (above the periodic whole-grid
-   budget), the mixed chain at 2048^2 (K3, K4) and a chain that cannot
-   fuse at 2048^2 (staged: K1 per stage); (c) sliding-window attention,
+   periodic boundary, K1; periodic again with the plan's strategy forced
+   to the padded window, K2 and its host pad: a forced row runs its plan
+   through ``run_plan`` for 8 iterations, two whole blocks, so that every
+   block is the kernel it names) and at jacobi2d 8192^2 and
+   heat3d 512x512x256; (b) pipelines: reaction_diffusion2d at 2048^2 and
+   8192^2, advect_diffuse2d at 1024^2 and 2048^2 (K3; 2048^2 again forced
+   to the padded window, K4), the mixed chain at 2048^2 and a chain that
+   cannot fuse at 2048^2 (staged: K1 per stage); (c) sliding-window attention,
    ``kernels.ops.swa`` at gemma2-27b's local-layer width (bf16 at 8192
    and 8000 tokens, f32 at 8192; K5), each result held against K5's plain
    version and the dense oracle ``swa_ref``;
 3. times one fused block per phase-2 case with CUDA events (median),
-   beside its bytes bound, the plain version, chained ``F.conv`` (the
-   yardstick, never used by the port) and, for pipelines, the staged
-   chain of the port's own K1 launches; and K5 at the 8192-token bf16
-   shape beside its operation bounds, its plain version and
-   ``F.scaled_dot_product_attention`` with the same band mask (the
-   yardstick, never used by the port), and the f32 CUDA-core K5 at the
-   same width (logged).
+   beside its bound (the larger of one read and one write of the grid at
+   the HBM rate and the f64 operations the contract fixes per point and
+   application, ``structured_flops_per_point``, at the f64 rate without
+   FMA), the plain version, chained ``F.conv``
+   (the yardstick, never used by the port) and, for pipelines, the
+   staged chain of the port's own K1 launches; and K5 at the 8192-token
+   bf16 and f32 shapes beside their operation bounds, their plain
+   versions and ``F.scaled_dot_product_attention`` with the same band
+   mask (the yardstick, never used by the port; f32 with TF32 off).
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
-before the last line, which is ``{"ok": true, "device": {...}}``.  Full
+(one entry per kernel and route: K1/K2 of 1-D/2-D specs on the window
+kernel, K1/K2 of 3-D specs on the streamed kernel, K3, K4, K5 bf16 and
+f32) before the last line, which is ``{"ok": true, "device": {...}}``.  Full
 results go to ``build/chip_smoke.json``.  Exits non-zero, printing
 no result, when CUDA is missing or any check fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import itertools
 import json
@@ -84,10 +96,18 @@ REPLACES = {                                      # the TPU kernels
     "K4": "src/repro/kernels/engine.py:434",      # _pipeline_kernel
     "K5": "src/repro/kernels/swa.py:53",          # _kernel
 }
+# K1/K2 of a 3-D spec run the streamed kernel (casper_stream_kernel),
+# those of 1-D/2-D specs the window kernel (casper_chain_kernel): an
+# entry each in the kernels line
+REPLACES["K1 rank 3"] = REPLACES["K1"]
+REPLACES["K2 rank 3"] = REPLACES["K2"]
+REPLACES["K1 rank 3 (heat3d)"] = REPLACES["K1"]
 SOURCES = {k: "src/repro_torch/kernels/csrc/stencil.cu" for k in REPLACES}
-# K5's entry in the kernels line is the bf16 call (tensor cores); f32 runs
-# on the CUDA cores in csrc/swa.cu and is logged beside it
+# K5's bf16 calls run on the tensor cores (swa_wgmma.cu), its f32 and f16
+# calls on the CUDA cores (swa.cu): two entries of the kernels line
 SOURCES["K5"] = "src/repro_torch/kernels/csrc/swa_wgmma.cu"
+REPLACES["K5 f32"] = REPLACES["K5"]
+SOURCES["K5 f32"] = "src/repro_torch/kernels/csrc/swa.cu"
 
 # Data-sheet rates by card (NVIDIA H100 and H200 data sheets, dense rates
 # without sparsity): HBM bytes/s, f64 and f32 FLOP/s outside the tensor
@@ -120,6 +140,19 @@ SWA_F32_ATOL = 2e-5     # K5 vs plain in f32: tests/test_kernels.py's bound
 SWA_BF16_FLOOR = 4e-6
 SWA_REF_BF16_ATOL = 0.08  # bf16 vs the f32 oracle: tests/test_kernels.py
 SWA_CASES = 400         # phase-1 K5 cases drawn from the matrix below
+# (b, hkv, g, s, d, w, softcap, tq): head dims 112 and 192, groups of 24
+# and 32 query heads per KV head; each in f32, bf16 and f16
+SWA_WIDE = ((1, 1, 2, 100, 112, 32, 50.0, 64),
+            (1, 1, 12, 96, 192, 40, None, 32),
+            (1, 2, 32, 64, 64, 16, 50.0, 32), (1, 1, 24, 40, 16, 8, 50.0, 32),
+            (2, 1, 4, 128, 112, 128, None, 128),
+            (1, 1, 2, 64, 192, 1, 1.0, 64))
+# float16 at the built head dims
+SWA_MATRIX_F16 = ((1, 2, 2, 100, 16, 32, 50.0, 32),
+                  (2, 1, 4, 96, 32, 64, None, 64),
+                  (1, 2, 1, 128, 64, 8, 50.0, 128),
+                  (1, 1, 2, 100, 128, 100, 2.0, 64),
+                  (1, 2, 2, 64, 256, 32, None, 32))
 SWA_MATRIX = {"b": (1, 2), "hkv": (1, 2), "g": (1, 2, 4),
               "s": (64, 96, 128, 100), "d": (16, 32, 64, 128, 256),
               "w": (1, 8, 32, 64, None), "softcap": (None, 50.0),
@@ -159,12 +192,14 @@ def randn(shape, dtype, gen):
                        generator=gen).to(dtype)
 
 
-def within_bf16_ulp(got, want, floor: float = 0.0) -> bool:
+def within_bf16_ulp(got, want, floor: float = 0.0, bits: int = 7) -> bool:
     """Every element equal, or one bf16 ulp of ``want`` (or ``floor``,
-    where that is larger) apart."""
+    where that is larger) apart; ``bits=10`` holds float16 to one f16
+    ulp by the same rule (its subnormals, below 2**-14, one ulp of
+    2**-24)."""
     g, w = got.double(), want.double()
-    mag = w.abs().clamp_min(2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    mag = w.abs().clamp_min(2.0 ** (-126 if bits == 7 else -14))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - bits)
     return bool(((g - w).abs() <= ulp.clamp_min(floor)).all())
 
 
@@ -277,6 +312,15 @@ def main() -> int:
     if len(chain_budget) != 9:
         raise SystemExit(f"setup: {len(chain_budget)} stencil kernel "
                          "instances in the build log, expected 9")
+    stream_budget = ptxas_table(
+        _build.BUILD_LOGS.get("stencil.cu", ""),
+        r"casper_stream_kernelI(d|f|13__nv_bfloat16)E",
+        lambda m: f"{storage[m.group(1)]} rank 3 streamed")
+    for key, budget in stream_budget.items():
+        log(f"  stencil.cu casper_stream_kernel {key}: {budget}")
+    if len(stream_budget) != 3:
+        raise SystemExit(f"setup: {len(stream_budget)} streamed stencil "
+                         "kernel instances in the build log, expected 3")
     tc_budget = ptxas_table(_build.BUILD_LOGS.get("swa_wgmma.cu", ""),
                             r"swa_tc_kernelILi(\d+)E",
                             lambda m: int(m.group(1)))
@@ -288,7 +332,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     max_err = {k: 0.0 for k in REPLACES}
-    swa_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    swa_err = {torch.float32: 0.0, torch.bfloat16: 0.0, torch.float16: 0.0}
     failures = []
 
     def is_pipe(spec):
@@ -306,6 +350,8 @@ def main() -> int:
             ok = torch.equal(got, want)
         elif dtype == torch.float32:
             ok = err <= (SWA_F32_ATOL if kernel == "K5" else F32_ATOL)
+        elif dtype == torch.float16:
+            ok = within_bf16_ulp(got, want, floor, bits=10)
         else:
             ok = within_bf16_ulp(got, want, floor)
         if not (ok and got.shape == want.shape and got.dtype == want.dtype
@@ -340,13 +386,17 @@ def main() -> int:
         if len(ran) != 1:
             failures.append(f"{label}: launched {ran}")
             return None
-        tile = tplan.default_tile(spec, sweeps, grid.element_size())
+        tile = tplan.normalize_tile(spec, None, sweeps, grid.element_size(),
+                                    grid.shape[-spec.ndim:])
         if strategy is None:
             strategy = tplan.ghost_strategy_for(
                 spec, grid.shape[-spec.ndim:], grid.element_size(), sweeps,
                 tile)
-        compare(ran[0], got, plain_block(spec, grid, tile, sweeps,
-                                         strategy)(), dtype, label)
+        err = compare(ran[0], got, plain_block(spec, grid, tile, sweeps,
+                                               strategy)(), dtype, label)
+        if tplan.streams(spec):
+            key = f"{ran[0]} rank 3"
+            max_err[key] = max(max_err[key], err)
         return ran[0]
 
     # ---- phase 1: each kernel vs its plain version ----------------------
@@ -357,11 +407,16 @@ def main() -> int:
     # paper stencil and pipeline at every sweeps (the cp.async path for
     # f32/f64)
     odd = {1: (10007,), 2: (77, 301), 3: (37, 45, 101)}
-    aligned = {1: (20480,), 2: (160, 512), 3: (24, 48, 96)}
+    # rank 3: deep enough for interior tiles of the streamed kernel's
+    # 32-plane chunks at sweeps=4
+    aligned = {1: (20480,), 2: (160, 512), 3: (72, 80, 96)}
     keng.count_tiles(True)
     specs = [(n, s) for n, s in PAPER_STENCILS.items()]
     specs += [(f"{n}-dense", PAPER_STENCILS[n].with_structure("dense"))
               for n in ("blur2d", "star33_3d")]
+    # rank-3 separable specs beside star33_3d: factored terms of three,
+    # two and one factors on the streamed kernel's offset tables
+    specs += [(s.name, s) for s in pipeline_cases.separable_3d_specs()]
     specs += [(n, p) for n, p in PAPER_PIPELINES.items()]
     n_cases = 0
     keng.reset_launches()
@@ -403,7 +458,7 @@ def main() -> int:
         for n in ("7pt1d", "blur2d", "star33_3d") for b in BOUNDARIES]
     extra += [(f"tiny {n}", p.with_boundary(b), tiny[2], 1, 4)
               for n, p in PAPER_PIPELINES.items() for b in BOUNDARIES]
-    extra.append(("periodic over budget jacobi2d",
+    extra.append(("periodic jacobi2d past the old 12.5 MB budget",
                   PAPER_STENCILS["jacobi2d"].with_boundary("periodic"),
                   (2048, 2048), 1, 4))
     extra += [(f"batched {n}", PAPER_STENCILS[n].with_boundary("reflect"),
@@ -411,7 +466,9 @@ def main() -> int:
               for n in ("jacobi1d", "jacobi2d", "heat3d")]
     extra += [("batched mixed_rd", mixed, odd[2], 3, 4),
               ("batched advect_diffuse2d", PAPER_PIPELINES[
-                  "advect_diffuse2d"], odd[2], 3, 4)]
+                  "advect_diffuse2d"], odd[2], 3, 4),
+              ("batched star33_3d", PAPER_STENCILS["star33_3d"].with_boundary(
+                  "periodic"), odd[3], 2, 4)]
     for label, spec, shape, batch, sweeps in extra:
         shape = (batch,) + shape if batch > 1 else shape
         g = randn(shape, torch.float64, gen)
@@ -419,18 +476,30 @@ def main() -> int:
         log(f"  {label} {shape} s{sweeps}: plan chose "
             f"{kernel}, equal to plain: "
             f"{not any(f.startswith(label) for f in failures)}")
+    # a batch past gridDim.y's 65,535: 70,000 f32 grids of 8x8, one launch
+    label = "batch of 70000"
+    g = randn((70000, 8, 8), torch.float32, gen)
+    for strategy in ("pad-free", "padded-window"):
+        kernel = run_kernel(
+            PAPER_STENCILS["jacobi2d"].with_boundary("reflect"), g, 4,
+            strategy, label, torch.float32)
+        log(f"  {label} (8, 8) f32 s4 {strategy}: {kernel}, within "
+            f"{F32_ATOL} of plain: "
+            f"{not any(f.startswith(label) for f in failures)}")
+    del g
     # every launch so far: its tiles by kind, its load path, and its
     # shared memory (the C library's) against plan.smem_bytes
-    tiles = {}
+    tiles, stream_tiles = {}, {}
     smem_bad = []
     records = keng.tile_records()
     keng.count_tiles(False)
     for r in records:
-        t = tiles.setdefault(r["kernel"], {}).setdefault(
-            r["path"], {"launches": 0, "interior": 0, "rim": 0})
-        t["launches"] += 1
-        t["interior"] += r["interior"]
-        t["rim"] += r["rim"]
+        for table in (tiles, stream_tiles) if r["stream"] else (tiles,):
+            t = table.setdefault(r["kernel"], {}).setdefault(
+                r["path"], {"launches": 0, "interior": 0, "rim": 0})
+            t["launches"] += 1
+            t["interior"] += r["interior"]
+            t["rim"] += r["rim"]
         if r["smem_launch"] != r["smem_plan"]:
             smem_bad.append(r)
     for kernel in ("K1", "K2", "K3", "K4"):
@@ -445,6 +514,21 @@ def main() -> int:
                 t["interior"] for t in tiles[kernel].values()):
             failures.append(f"phase 1 {kernel}: interior tiles did not run "
                             f"on both load paths: {tiles.get(kernel)}")
+    # the streamed rank-3 kernel: both entries, interior and rim tiles,
+    # and K1's interior planes on both load paths
+    for kernel in ("K1", "K2"):
+        log(f"  {kernel} streamed (rank 3) tiles by load path: "
+            f"{stream_tiles.get(kernel)}")
+        kinds = stream_tiles.get(kernel, {}).values()
+        if not (sum(t["interior"] for t in kinds)
+                and sum(t["rim"] for t in kinds)):
+            failures.append(f"phase 1 {kernel} streamed: never ran an "
+                            f"interior and a rim tile: "
+                            f"{stream_tiles.get(kernel)}")
+    if set(stream_tiles.get("K1", {})) != {"async", "plain"} or not all(
+            t["interior"] for t in stream_tiles["K1"].values()):
+        failures.append(f"phase 1 K1 streamed: interior tiles did not run "
+                        f"on both load paths: {stream_tiles.get('K1')}")
     log(f"  shared memory: {len(records)} launches, plan.smem_bytes equal to "
         f"the launch's (casper_smem_bytes) in {len(records) - len(smem_bad)}")
     if smem_bad:
@@ -501,46 +585,81 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             swa_case(1, 2, 2, 100, d, 32, softcap, 64, dtype)
             n_swa += 1
+    # what the card used to refuse: head dims 112 (zamba2_7b) and 192
+    # (nemotron4_340b, 12 query heads per KV head), 24 and 32 query heads
+    # per KV head (the tensor-core kernel splits the group over CTAs), and
+    # float16 (the CUDA-core kernel on f16 storage)
+    for case in SWA_WIDE:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            swa_case(*case, dtype)
+            n_swa += 1
+    for case in SWA_MATRIX_F16:
+        swa_case(*case, torch.float16)
+        n_swa += 1
     for key, values in drawn.items():
         if values != set(SWA_MATRIX[key]):
             failures.append(f"phase 1 K5: {key} drew {sorted(values)} of "
                             f"{SWA_MATRIX[key]}")
-    log(f"phase 1: {n_swa} K5-vs-plain cases ({SWA_CASES} of {len(matrix)} "
-        f"and 8 at softcap <= 2; head dims "
+    log(f"phase 1: {n_swa} K5-vs-plain cases ({SWA_CASES} of {len(matrix)}, "
+        f"8 at softcap <= 2, {3 * len(SWA_WIDE)} at head dims 112/192 and "
+        f"G = 24/32, {len(SWA_MATRIX_F16)} more in f16; head dims "
         f"{sorted(drawn['d'])}, tq {sorted(drawn['tq'])}), max |err| f32 "
         f"{swa_err[torch.float32]} (limit {SWA_F32_ATOL}), bf16 "
         f"{swa_err[torch.bfloat16]} (one ulp, at least {SWA_BF16_FLOOR}), "
+        f"f16 {swa_err[torch.float16]} (one f16 ulp, at least "
+        f"{SWA_BF16_FLOOR}), "
         f"bf16 tensor-core vs f32 CUDA-core K5 {cross_err[0]} "
         f"({time.time() - t0:.1f}s)")
     if failures:
         raise SystemExit("phase 1 failed:\n" + "\n".join(failures[:40]))
 
     # ---- phase 2: the engine, counted per main path -----------------------
+    def plan_of(eng, case, g):
+        """The engine's plan for a case; a case that names a strategy
+        (``padded-window``: K2/K4 on a row the plan now sends to K1/K3)
+        runs the same plan with that strategy."""
+        plan = eng.plan_for(tuple(g.shape), g.dtype)
+        if len(case) > 4:
+            plan = dataclasses.replace(plan, ghost_strategy=case[4])
+        return plan
+
+    def iters_of(case):
+        """10 through ``CasperEngine.run`` (two blocks of 4 and one of
+        2); a forced row runs 8, two whole blocks of its forced plan, so
+        that no remainder block re-lowers to the default strategy."""
+        return 8 if len(case) > 4 else 10
+
     def drive(cases, label):
-        """Run each case's engine once with the counts reset just before
-        and read just after; then hold each result against
+        """Run each case once with the counts reset just before and read
+        just after: through ``CasperEngine.run``, or a forced row's plan
+        through ``run_plan``; then hold each result against
         ``backend="ref"`` on the card."""
-        grids = [randn(shape, torch.float64, gen) for _, _, shape, _ in cases]
-        engines = [CasperEngine(spec, backend="cuda", sweeps=4)
-                   for _, spec, _, _ in cases]
+        grids = [randn(c[2], torch.float64, gen) for c in cases]
+        engines = [CasperEngine(c[1], backend="cuda", sweeps=4)
+                   for c in cases]
+        plans = [plan_of(eng, c, g) for eng, c, g in zip(engines, cases,
+                                                         grids)]
         torch.cuda.synchronize()
         t0 = time.time()
         keng.reset_launches()
         outs, per_run = [], []
-        for eng, g in zip(engines, grids):
+        for c, eng, g, plan in zip(cases, engines, grids, plans):
             before = dict(keng.LAUNCHES)
-            outs.append(eng.run(g, iters=10))
+            outs.append(tplan.run_plan(plan, g, iters_of(c)) if len(c) > 4
+                        else eng.run(g, iters=iters_of(c)))
             per_run.append({k: keng.LAUNCHES[k] - before[k]
                             for k in keng.LAUNCHES
                             if keng.LAUNCHES[k] != before[k]})
         torch.cuda.synchronize()
         launches = dict(keng.LAUNCHES)
         log(f"phase 2{label}: engine.run(iters=10, sweeps=4) on {len(cases)} "
-            f"grids in {time.time() - t0:.2f}s; launches {launches}")
+            f"grids (forced rows: their plan, iters=8) in "
+            f"{time.time() - t0:.2f}s; launches {launches}")
         results = []
-        for (n, spec, shape, level), g, out, k in zip(cases, grids, outs,
-                                                      per_run):
-            want = CasperEngine(spec, backend="ref").run(g, iters=10)
+        for c, g, out, k, eng in zip(cases, grids, outs, per_run, engines):
+            n, spec, shape, level = c[:4]
+            want = CasperEngine(spec, backend="ref").run(g,
+                                                         iters=iters_of(c))
             equal = torch.equal(out, want)
             finite = bool(torch.isfinite(out).all())
             boundary = getattr(spec, "boundary", None) or "+".join(
@@ -550,24 +669,39 @@ def main() -> int:
                                 f"equal {equal} finite {finite}")
             results.append({"stencil": n, "boundary": boundary,
                             "shape": list(shape), "level": level,
+                            "kernel": kernel_of(plan_of(eng, c, g)),
+                            "iters": iters_of(c),
                             "bitwise_equal_ref": equal,
                             "launches_per_run": k})
             del want
         del outs
         log(f"phase 2{label}: {sum(r['bitwise_equal_ref'] for r in results)}"
             f"/{len(results)} bitwise equal to backend='ref' on the card")
-        return grids, engines, results, launches
+        return grids, plans, results, launches
 
+    def kernel_of(plan):
+        if not plan.fused:
+            return "staged"
+        return {(False, "pad-free"): "K1", (False, "padded-window"): "K2",
+                (True, "pad-free"): "K3", (True, "padded-window"): "K4"}[
+                    (plan.is_pipeline, plan.ghost_strategy)]
+
+    # every paper stencil at its Table 3 DRAM shape: zero (K1), periodic
+    # (K1: no host pad), and periodic forced to the padded
+    # window (K2 with its pad_boundary gather), which tiny grids, shards
+    # and slabs still need
     cases = []
     for n, spec in PAPER_STENCILS.items():
         shape = DOMAIN_SIZES["DRAM"][spec.ndim]
         cases.append((n, spec, shape, "DRAM"))
         cases.append((n, spec.with_boundary("periodic"), shape, "DRAM"))
+        cases.append((n, spec.with_boundary("periodic"), shape, "DRAM",
+                      "padded-window"))
     cases.append(("jacobi2d", PAPER_STENCILS["jacobi2d"], (8192, 8192),
                   "HBM"))
     cases.append(("heat3d", PAPER_STENCILS["heat3d"], (512, 512, 256),
                   "HBM"))
-    grids, engines, results, launches = drive(cases, "a")
+    grids, plans, results, launches = drive(cases, "a")
     if min(launches[k] for k in ("K1", "K2")) < 1:
         raise SystemExit(f"phase 2a: a kernel of the path never ran: "
                          f"{launches}")
@@ -577,10 +711,11 @@ def main() -> int:
     pcases = [("reaction_diffusion2d", rd, (2048, 2048), "DRAM"),
               ("reaction_diffusion2d", rd, (8192, 8192), "HBM"),
               ("advect_diffuse2d", ad, (2048, 2048), "DRAM"),
+              ("advect_diffuse2d", ad, (2048, 2048), "DRAM", "padded-window"),
               ("advect_diffuse2d", ad, (1024, 1024), "L3"),
               ("mixed_rd", mixed, (2048, 2048), "DRAM"),
               ("advect_react", nonfusable, (2048, 2048), "DRAM")]
-    pgrids, pengines, presults, plaunches = drive(pcases, "b")
+    pgrids, pplans, presults, plaunches = drive(pcases, "b")
     if min(plaunches[k] for k in ("K1", "K3", "K4")) < 1:
         raise SystemExit(f"phase 2b: a kernel of the path never ran: "
                          f"{plaunches}")
@@ -666,22 +801,24 @@ def main() -> int:
         raise SystemExit("phase 2c failed:\n" + "\n".join(failures))
 
     # ---- phase 3: times ---------------------------------------------------
-    def kernel_of(plan):
-        if not plan.fused:
-            return "staged"
-        return {(False, "pad-free"): "K1", (False, "padded-window"): "K2",
-                (True, "pad-free"): "K3", (True, "padded-window"): "K4"}[
-                    (plan.is_pipeline, plan.ghost_strategy)]
+    def op_bound_ms(spec, shape, sweeps=4):
+        """Operations over the f64 rate without FMA (half the data
+        sheet's, which counts an FMA as two): the arithmetic the f64
+        contract fixes per point and application, a product and an add
+        per tap (per factor tap, plus the term sums, for a separable
+        spec's factored order; summed over a pipeline's stages)."""
+        per_point = sweeps * spec.structured_flops_per_point()
+        ops = math.prod(shape) * per_point
+        return ops / (peak_f64 / 2) * 1e3, per_point
 
     log("phase 3: one fused block (sweeps=4) per case, median of CUDA "
         f"events | card {smi}")
     log(f"  {'stencil':20s} {'shape':16s} {'kern':6s} {'ms':>8s} "
-        f"{'GB/s':>7s} {'bound':>7s} {'plain':>8s} {'conv':>8s} "
+        f"{'GB/s':>7s} {'bound':>7s} {'by':4s} {'plain':>8s} {'conv':>8s} "
         f"{'staged':>8s}")
-    for r, (n, spec, shape, level), g, eng in (
-            list(zip(results, cases, grids, engines))
-            + list(zip(presults, pcases, pgrids, pengines))):
-        plan = eng.plan_for(shape, g.dtype)
+    for r, c, g, plan in (list(zip(results, cases, grids, plans))
+                          + list(zip(presults, pcases, pgrids, pplans))):
+        n, spec, shape, level = c[:4]
         kernel = kernel_of(plan)
         reps = 20 if level == "HBM" else 50
         ms = time_ms(lambda: tplan.execute(plan, g), reps)
@@ -689,8 +826,10 @@ def main() -> int:
             traffic = keng.hbm_pipeline_traffic(spec, shape, plan.tile, 4, 8)
         else:
             traffic = keng.hbm_traffic(spec, shape, plan.tile, 4, 8)
-        bound = 2 * math.prod(shape) * 8 / hbm_bw * 1e3
-        ops = math.prod(shape) * 4 * spec.structured_flops_per_point()
+        bytes_ms = 2 * math.prod(shape) * 8 / hbm_bw * 1e3
+        ops_ms, ops_pt = op_bound_ms(spec, shape)
+        bound = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         lib = time_ms(lambda: conv_chain(spec, 4)(g),
                       5 if level == "HBM" else 10)
         staged_ms = None
@@ -722,21 +861,22 @@ def main() -> int:
                  else list(plan.tile), ms=ms,
                  gbps=traffic["fused_bytes"] / ms / 1e6,
                  fused_bytes=traffic["fused_bytes"], bound_ms=bound,
-                 ops_ms=ops / peak_f64 * 1e3, plain_ms=plain_ms,
+                 bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                 ops_per_point=ops_pt, plain_ms=plain_ms,
                  library_ms=lib, staged_ms=staged_ms)
         log(f"  {n + ' ' + r['boundary'][:9]:20s} {str(tuple(shape)):16s} "
             f"{kernel:6s} {ms:8.4f} {r['gbps']:7.1f} {bound:7.4f} "
-            f"{plain_ms:8.2f} {lib:8.3f} "
+            f"{bound_by[:4]:4s} {plain_ms:8.2f} {lib:8.3f} "
             f"{'' if staged_ms is None else f'{staged_ms:8.4f}'}")
     if failures:
         raise SystemExit("phase 3 failed:\n" + "\n".join(failures))
 
     # ---- the kernels line: one representative main-path case each ------
-    def kernel_entry(kname, spec, g, window_call, count):
+    def kernel_entry(kname, spec, g, window_call, launches, launches_of):
         nd = spec.ndim
         shape = tuple(g.shape)
         sweeps = 4
-        tile = tplan.default_tile(spec, sweeps, 8)
+        tile = tplan.normalize_tile(spec, None, sweeps, 8, shape)
         wide = tuple(sweeps * h for h in spec.halo)
         if window_call:
             src = tref.pad_boundary(g, wide, spec.boundary_mode,
@@ -760,14 +900,15 @@ def main() -> int:
 
             plain = plain_block(spec, g, tile, sweeps, "pad-free")
         nbytes = (src.numel() + g.numel()) * 8
-        ops = g.numel() * sweeps * spec.structured_flops_per_point()
-        t_bytes, t_ops = nbytes / hbm_bw * 1e3, ops / peak_f64 * 1e3
+        t_bytes = nbytes / hbm_bw * 1e3
+        t_ops, ops_pt = op_bound_ms(spec, shape, sweeps)
         compare(kname, kern(), plain(), torch.float64, f"kernels {kname}")
         lib = conv_chain(spec, sweeps)
         entry = {
             "name": kname, "route": "cuda", "source": SOURCES[kname],
-            "replaces": REPLACES[kname], "launches": count[kname],
-            "max_abs_err": max_err[kname],
+            "replaces": REPLACES[kname], "launches": launches,
+            "launches_of": launches_of,
+            "max_abs_err": max_err[kname.split(" (")[0]],
             "ms": time_ms(kern, 20),
             "plain_ms": time_ms(plain, 3, warmup=1),
             "bound_ms": max(t_bytes, t_ops),
@@ -777,29 +918,116 @@ def main() -> int:
             "boundary": getattr(spec, "boundary", None)
             or "+".join(s.boundary for s in spec.stages),
             "sweeps": sweeps, "dtype": "float64",
+            "ops_per_point": ops_pt,
         }
         torch.cuda.empty_cache()
         return entry
 
     def grid_of(gs, cs, n, boundary, shape):
         return gs[[i for i, c in enumerate(cs)
-                   if c[0] == n and tuple(c[2]) == shape
+                   if c[0] == n and tuple(c[2]) == shape and len(c) == 4
                    and getattr(c[1], "boundary_mode", None) == boundary][0]]
 
+    def launches_where(res, cs, kname, pred):
+        """Launches of ``kname`` in the main path's run (phase 2a or 2b)
+        over the cases ``pred`` keeps."""
+        return sum(r["launches_per_run"].get(kname, 0)
+                   for r, c in zip(res, cs) if pred(c))
+
+    def flat(c):
+        return c[1].ndim < 3
+
+    def named(n):
+        return lambda c: c[0] == n
+
+    star_cube = tuple(DOMAIN_SIZES["DRAM"][3])
     kernels = [
         kernel_entry("K1", PAPER_STENCILS["jacobi2d"],
                      grid_of(grids, cases, "jacobi2d", "zero", (8192, 8192)),
-                     False, launches),
+                     False, launches_where(results, cases, "K1", flat),
+                     "phase 2a, 1-D and 2-D specs"),
         kernel_entry("K2", PAPER_STENCILS["jacobi2d"].with_boundary(
             "periodic"), grid_of(grids, cases, "jacobi2d", "periodic",
-                                 (2048, 2048)), True, launches),
+                                 (2048, 2048)), True,
+            launches_where(results, cases, "K2", flat),
+            "phase 2a, 1-D and 2-D specs"),
+        kernel_entry("K1 rank 3", PAPER_STENCILS["star33_3d"],
+                     grid_of(grids, cases, "star33_3d", "zero", star_cube),
+                     False, launches_where(results, cases, "K1",
+                                           named("star33_3d")),
+                     "phase 2a, star33_3d"),
+        kernel_entry("K1 rank 3 (heat3d)", PAPER_STENCILS["heat3d"],
+                     grid_of(grids, cases, "heat3d", "zero", (512, 512, 256)),
+                     False, launches_where(results, cases, "K1",
+                                           named("heat3d")),
+                     "phase 2a, heat3d"),
+        kernel_entry("K2 rank 3", PAPER_STENCILS["star33_3d"].with_boundary(
+            "periodic"), grid_of(grids, cases, "star33_3d", "periodic",
+                                 star_cube), True,
+            launches_where(results, cases, "K2", lambda c: not flat(c)),
+            "phase 2a, 3-D specs"),
         kernel_entry("K3", rd, grid_of(pgrids, pcases, "reaction_diffusion2d",
                                        "reflect", (8192, 8192)),
-                     False, plaunches),
+                     False, plaunches["K3"], "phase 2b"),
         kernel_entry("K4", ad, grid_of(pgrids, pcases, "advect_diffuse2d",
                                        "periodic", (2048, 2048)),
-                     True, plaunches),
+                     True, plaunches["K4"], "phase 2b"),
     ]
+    for e in kernels:
+        log(f"  kernels line {e['name']:18s} {e['spec']:20s} "
+            f"{str(tuple(e['shape'])):16s} {e['ms']:8.4f} ms | bound "
+            f"{e['bound_ms']:.4f} ({e['bound_by']}, {e['ops_per_point']} "
+            f"ops/pt) | plain {e['plain_ms']:.2f} | library "
+            f"{e['library_ms']:.3f} | launches {e['launches']} "
+            f"({e['launches_of']})")
+
+    def swa_f32_entry(q, k, v, count):
+        """K5 f32 (CUDA cores) at the phase-2c shape beside its bound
+        (f32 FLOP outside the tensor cores, or bytes), its plain version
+        and SDPA in f32 with the same band mask (TF32 off)."""
+        b, hq, s, d = q.shape
+        w, tq, softcap = cfg["window"], cfg["tq"], cfg["softcap"]
+        keys = sum(min(p + 1, w) for p in range(s))
+        flop = 4 * b * hq * d * keys
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        t_bytes, t_f32 = nbytes / hbm_bw * 1e3, flop / peak_f32 * 1e3
+        g = hq // k.shape[1]
+        kk, vv = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+        pos = torch.arange(s, device="cuda")
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                                 > pos[:, None] - w)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, kk, vv, attn_mask=band)
+
+        def kern(cap=softcap):
+            return kswa.sliding_window_attention(q, k, v, w, tq, cap)
+        lib_diff = (sdpa() - kern(None)).abs().max().item()
+        entry = {
+            "name": "K5 f32", "route": "cuda", "source": SOURCES["K5 f32"],
+            "replaces": REPLACES["K5 f32"], "launches": count,
+            "max_abs_err": swa_err[torch.float32],
+            "ms": time_ms(kern, 5),
+            "plain_ms": time_ms(lambda: kswa.sliding_window_attention_plain(
+                q, k, v, w, tq, softcap), 3, warmup=1),
+            "bound_ms": max(t_bytes, t_f32),
+            "bound_by": "bytes" if t_bytes >= t_f32 else "operations",
+            "library_ms": time_ms(sdpa, 5),
+            "shape": {"q": list(q.shape), "kv": list(k.shape)},
+            "dtype": "float32", "window": w, "tq": tq, "softcap": softcap,
+            "ms_no_softcap": time_ms(lambda: kern(None), 5),
+            "library": "F.scaled_dot_product_attention, f32, bool band "
+                       "mask, TF32 off, softcap=None",
+            "library_max_abs_diff_no_softcap": lib_diff,
+        }
+        log(f"  K5 f32 {entry['shape']}: {entry['ms']:.3f} ms (softcap off "
+            f"{entry['ms_no_softcap']:.3f}) | bound {t_f32:.3f} ms (f32 "
+            f"FLOP outside the tensor cores) | plain {entry['plain_ms']:.2f}"
+            f" ms | SDPA f32 {entry['library_ms']:.3f} ms (max |diff| vs "
+            f"K5 {lib_diff:.3g}) | card {smi}")
+        del kk, vv, band
+        torch.cuda.empty_cache()
+        return entry
 
     def swa_entry(q, k, v, count, f32_in):
         """K5 at the phase-2c shape: times beside the operation bounds,
@@ -896,8 +1124,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         return entry, details
 
-    k5_entry, k5_details = swa_entry(*swa_in[0], alaunches, swa_in[2])
+    by_dtype = {dt: sum(k.get("K5", 0) for (_, d), k in zip(swa_runs,
+                                                            swa_per_run)
+                        if d == dt) for dt in (torch.bfloat16, torch.float32)}
+    k5_entry, k5_details = swa_entry(*swa_in[0], {
+        "K5": by_dtype[torch.bfloat16]}, swa_in[2])
     kernels.append(k5_entry)
+    kernels.append(swa_f32_entry(*swa_in[2], by_dtype[torch.float32]))
     if failures:
         raise SystemExit("kernels line failed:\n" + "\n".join(failures))
 

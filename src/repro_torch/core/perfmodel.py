@@ -25,12 +25,16 @@ H100_L2_BYTES = 50 * 10 ** 6
 #: capability 9.0).  The fused kernels' two window buffers must fit it.
 H100_SMEM_PER_BLOCK = 232448
 
-#: Whole-grid budget of the periodic pad-free decision.  The reference
-#: sized it as a quarter of the fast memory the grid must sit in
-#: (``perfmodel.py:248``: L2 // 4 on the GPU path); the port keeps that
-#: rule with the H100's 50 MB L2.  Periodic grids above it take the
-#: padded-window kernel (K2).
-PERIODIC_WHOLE_GRID_BYTES = H100_L2_BYTES // 4
+#: Whole-grid budget of the periodic pad-free decision: periodic grids
+#: above it take the padded-window kernel (K2) and its host pad.  The
+#: reference sized it as a quarter of the fast memory the grid must sit
+#: in (``perfmodel.py:248``: L2 // 4 on the GPU path), because a Pallas
+#: block held the whole grid.  K1 reads periodic ghosts from device
+#: memory through the boundary index map, so no such limit binds it, and
+#: on the H100 K1 beat K2 plus the pad at every periodic size measured
+#: (``tools/rank3_probe.py``; PERF.md): the budget is the whole device
+#: memory, above which the plan streams from the host anyway.
+PERIODIC_WHOLE_GRID_BYTES = H100_HBM_BYTES
 
 #: Environment override for the slab budget (bytes); part of the plan
 #: cache key, as in the reference.

@@ -59,10 +59,10 @@ KERNEL_BACKENDS = ("cuda",)
 #: ``"pad"`` (oracle: re-extend before every application),
 #: ``"pad-free"`` (K1/K3: windows loaded straight from the unpadded grid
 #: through the boundary index map), ``"padded-window"`` (K2/K4: windows
-#: read from one ``pad_boundary`` copy — tiny grids, and periodic grids
-#: past the whole-grid budget) and ``"staged"`` (non-fusable pipelines:
-#: the chain runs stage by stage through cached single-sweep stage
-#: plans, each choosing its own strategy).
+#: read from one ``pad_boundary`` copy — grids smaller than one window,
+#: and periodic grids past the whole-grid budget) and ``"staged"``
+#: (non-fusable pipelines: the chain runs stage by stage through cached
+#: single-sweep stage plans, each choosing its own strategy).
 GHOST_STRATEGIES = ("pad", "pad-free", "padded-window", "staged")
 
 #: Candidate kernel tiles per rank, largest first.  One CTA owns one
@@ -71,12 +71,22 @@ GHOST_STRATEGIES = ("pad", "pad-free", "padded-window", "staged")
 #: one block's shared memory at the plan's ``sweeps`` and itemsize.  The
 #: square 64x64 leads in 2-D: it recomputes less halo than 32x128 (9.9
 #: against 10.3 points per output for reaction_diffusion2d at sweeps=4)
-#: and still leaves room for two CTAs per SM in f64.
+#: and still leaves room for two CTAs per SM in f64.  In 3-D a tile is a
+#: chunk of ``tile[0]`` planes of an xy tile: a one-stage spec streams
+#: the chunk plane by plane (:func:`stream_layout`, whose rings do not
+#: depend on ``tile[0]``), so its candidates are the 32-plane chunks
+#: first; 32 planes keep the window of a 64-deep grid inside the grid up
+#: to ``sweeps*halo = 16`` (the pad-free rule of
+#: :func:`ghost_strategy_for`), and a shallower grid gets a shorter chunk
+#: (:func:`normalize_tile` with its ``shape``).  A pipeline keeps its 3-D
+#: window in shared memory and takes the first of the small boxes that
+#: fits.
 HOPPER_TILES: dict[int, tuple[tuple[int, ...], ...]] = {
     1: ((4096,), (2048,), (1024,), (512,), (256,), (128,), (32,)),
     2: ((64, 64), (32, 128), (32, 64), (16, 64), (16, 32), (8, 32), (4, 32),
         (1, 32)),
-    3: ((8, 16, 32), (8, 8, 32), (4, 8, 32), (4, 4, 32), (2, 4, 32),
+    3: ((32, 32, 32), (32, 16, 32), (32, 16, 16), (32, 8, 16), (32, 8, 8),
+        (8, 16, 32), (8, 8, 32), (4, 8, 32), (4, 4, 32), (2, 4, 32),
         (2, 2, 32), (1, 2, 32), (1, 1, 32)),
 }
 
@@ -135,6 +145,13 @@ def kernel_layout(tile: Sequence[int], spec, sweeps: int,
                   itemsize: int) -> KernelLayout:
     """The :class:`KernelLayout` of ``spec`` (a spec or a pipeline) at
     ``tile``, ``sweeps`` and the grid's ``itemsize``."""
+    return _kernel_layout(tuple(tile), spec, sweeps, itemsize)
+
+
+# the layouts and the default tile are asked for on every launch: cached,
+# so that a short block does not wait on the host
+@functools.lru_cache(maxsize=1024)
+def _kernel_layout(tile, spec, sweeps, itemsize) -> KernelLayout:
     stages = as_stages(spec)
     pad = 3 - spec.ndim
     t3 = (1,) * pad + tuple(tile)
@@ -152,16 +169,120 @@ def kernel_layout(tile: Sequence[int], spec, sweeps: int,
     return KernelLayout(lead, row, plane, base, elems)
 
 
+#: Planes the streamed rank-3 kernel loads ahead of use
+#: (``CASPER_STREAM_AHEAD``).
+STREAM_AHEAD = 2
+
+
+def streams(spec) -> bool:
+    """Whether K1/K2 run ``spec`` streamed along dim 0 (a rank-3
+    :class:`StencilSpec`; pipelines keep the 3-D window)."""
+    return spec.ndim == 3 and not isinstance(spec, StencilPipeline)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamLayout:
+    """The shared memory of one CTA of the streamed rank-3 kernel, as
+    ``stream_geom`` and ``stream_smem_bytes`` in ``csrc/stencil.cu`` lay
+    it out.  Level ``l`` (0 the window, ``sweeps - 1`` the last
+    intermediate) is a ring of ``depth0`` (level 0: the ``2*h0 + 1``
+    planes read, plus :data:`STREAM_AHEAD` in flight) or ``depth``
+    (``2*h0 + 2``: the planes read and the one formed meanwhile) planes of
+    ``planes[l]`` elements from element ``level_off[l]``; a plane holds
+    the level's ``(tile[1] + 2*(sweeps-l)*h1) x row`` box, its first column
+    at ``lead``; every level keeps the window's row pitch ``row``, so a
+    tap is one in-plane offset ``dy*row + dx`` plus its plane's offset.
+    The offset tables follow the rings, 16-byte aligned, for two steps in
+    turn: those of stages without register-held taps,
+    ``2 * sweeps * (n_taps + n_foff)`` ints, then each level's plane
+    offsets, ``2 * sweeps * (2*h0 + 2)`` ints; last, each level's ring
+    offset and plane size, ``2 * sweeps`` ints."""
+
+    lead: int
+    row: int
+    depth0: int
+    depth: int
+    planes: tuple[int, ...]
+    level_off: tuple[int, ...]
+    table_bytes: int
+    smem: int
+
+    def offset(self, b: int, off3: Sequence[int]) -> int:
+        """The in-plane offset of a tap's dims 1 and 2 (dim 0 goes by
+        plane; ``b`` is unused)."""
+        return off3[1] * self.row + off3[2]
+
+
+def n_factor_offsets(spec) -> int:
+    """Factor offsets over ``spec``'s stages' factored terms."""
+    total = 0
+    for st in as_stages(spec):
+        terms = (None if st.structure == "dense"
+                 else st.factorization.compute_terms)
+        for term in terms or ():
+            total += sum(len(f.offsets) for f in term.factors)
+    return total
+
+
+def stream_layout(tile: Sequence[int], spec, sweeps: int,
+                  itemsize: int) -> StreamLayout:
+    """The :class:`StreamLayout` of a rank-3 spec at ``tile``, ``sweeps``
+    and the grid's ``itemsize``."""
+    return _stream_layout(tuple(tile), spec, sweeps, itemsize)
+
+
+@functools.lru_cache(maxsize=1024)
+def _stream_layout(tile, spec, sweeps, itemsize) -> StreamLayout:
+    h = spec.halo
+    vec = _chunk(itemsize)
+    lead = -(sweeps * h[2]) % vec
+    row = -(-(lead + tile[2] + 2 * sweeps * h[2]) // vec) * vec
+    depth = 2 * h[0] + 2
+    planes = tuple((tile[1] + 2 * (sweeps - lvl) * h[1]) * row
+                   for lvl in range(sweeps))
+    offs = [0]
+    for lvl, pl in enumerate(planes):
+        offs.append(offs[-1] + (depth - 1 + STREAM_AHEAD if lvl == 0
+                                else depth) * pl)
+    table_bytes = -(-offs[-1] * max(itemsize, 4) // 16) * 16
+    smem = table_bytes + 8 * sweeps * (spec.n_taps + n_factor_offsets(spec)
+                                       + depth + 1)
+    return StreamLayout(lead, row, depth - 1 + STREAM_AHEAD, depth, planes,
+                        tuple(offs[:-1]), table_bytes, smem)
+
+
 def smem_bytes(tile: Sequence[int], spec, sweeps: int,
                itemsize: int) -> int:
     """Shared memory one CTA of K1-K4 needs for ``spec`` (a spec or a
-    pipeline): the two buffers of :func:`kernel_layout` — the fetched
-    window ``tile + 2*sweeps*H`` (``H`` the sum of the stage radii) and,
-    when ``sweeps * n_stages > 1``, the intermediate buffer, both on the
+    pipeline): for a rank-3 spec, the streamed kernel's rings and tables
+    (:func:`stream_layout`); else the two buffers of
+    :func:`kernel_layout` — the fetched window ``tile + 2*sweeps*H``
+    (``H`` the sum of the stage radii) and, when
+    ``sweeps * n_stages > 1``, the intermediate buffer, both on the
     window's 16-byte-rounded row pitch.  Both hold the accumulator type:
     an element of a grid narrower than f32 takes 4 bytes there."""
+    if streams(spec):
+        return stream_layout(tile, spec, sweeps, itemsize).smem
     return sum(kernel_layout(tile, spec, sweeps, itemsize).elems) \
         * max(itemsize, 4)
+
+
+#: Largest ``gridDim.x`` of a launch.
+MAX_BLOCKS = 2 ** 31 - 1
+
+
+def launch_blocks(out_shape: Sequence[int], tile: Sequence[int],
+                  batch: int) -> int:
+    """CTAs of one K1-K4 launch, as ``launch_blocks`` in
+    ``csrc/stencil.cu`` counts them: every tile of every batch element,
+    all on ``gridDim.x``, so a batch is not held to ``gridDim.y``'s
+    65,535.  Raises ``ValueError`` past :data:`MAX_BLOCKS`."""
+    blocks = batch * math.prod(-(-n // t) for n, t in zip(out_shape, tile))
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"{blocks} CTAs (batch {batch} x tiles of "
+                         f"{tuple(out_shape)} by {tuple(tile)}) exceed one "
+                         f"launch's {MAX_BLOCKS}")
+    return blocks
 
 
 def load_path(shape: Sequence[int], tile: Sequence[int], itemsize: int,
@@ -179,6 +300,7 @@ def load_path(shape: Sequence[int], tile: Sequence[int], itemsize: int,
     return "async"
 
 
+@functools.lru_cache(maxsize=1024)
 def default_tile(spec, sweeps: int = 1, itemsize: int = 4
                  ) -> tuple[int, ...]:
     """The first :data:`HOPPER_TILES` entry whose working set
@@ -194,10 +316,20 @@ def default_tile(spec, sweeps: int = 1, itemsize: int = 4
 
 
 def normalize_tile(spec: StencilSpec, tile: Sequence[int] | int | None,
-                   sweeps: int = 1, itemsize: int = 4) -> tuple[int, ...]:
-    """Default / int-promote / validate a kernel tile for ``spec``."""
+                   sweeps: int = 1, itemsize: int = 4,
+                   shape: Sequence[int] | None = None) -> tuple[int, ...]:
+    """Default / int-promote / validate a kernel tile for ``spec``.  The
+    default tile of a streamed spec on a grid of ``shape`` has its chunk
+    ``tile[0]`` cut to the grid's depth less the window's
+    ``2*sweeps*halo[0]`` planes (when that leaves at least one), so the
+    window stays inside a shallow grid and the grid pad-free."""
     if tile is None:
-        return default_tile(spec, sweeps, itemsize)
+        tile = default_tile(spec, sweeps, itemsize)
+        if shape is not None and streams(spec):
+            fit = shape[-3] - 2 * sweeps * spec.halo[0]
+            if 1 <= fit < tile[0]:
+                tile = (fit,) + tile[1:]
+        return tile
     if tile == "auto":
         raise not_ported("auto")
     if isinstance(tile, int):
@@ -230,12 +362,13 @@ def ghost_strategy_for(spec: StencilSpec, shape: Sequence[int],
     ``repro.core.plan.ghost_strategy_for``: a grid smaller than one fetch
     window in any dim takes the padded window; a periodic grid takes it
     when its bytes exceed ``periodic_budget_bytes`` (default
-    :data:`repro_torch.core.perfmodel.PERIODIC_WHOLE_GRID_BYTES`, a
-    quarter of the H100's L2).  A fusable pipeline takes the same rule:
+    :data:`repro_torch.core.perfmodel.PERIODIC_WHOLE_GRID_BYTES`, the
+    device memory: K1 takes every periodic grid).  A fusable pipeline
+    takes the same rule:
     its ``halo`` is the sum of the stage radii and its mode is periodic
     only when every stage is."""
-    tile = normalize_tile(spec, tile, sweeps, itemsize)
     shape = tuple(shape)
+    tile = normalize_tile(spec, tile, sweeps, itemsize, shape)
     wide = tuple(sweeps * h for h in spec.halo)
     win = tuple(t + 2 * w for t, w in zip(tile, wide))
     if spec.boundary_mode == "periodic":
@@ -489,7 +622,8 @@ def _lower_uncached(spec, shape, dtype, backend, sweeps, tile_req,
     resolved_tile = None
     ghost = "pad" if fused else "staged"        # oracle default
     if backend in KERNEL_BACKENDS and fused:
-        resolved_tile = normalize_tile(spec, tile_req, sweeps, itemsize)
+        resolved_tile = normalize_tile(spec, tile_req, sweeps, itemsize,
+                                       shape)
         _check_tile_fits(spec, resolved_tile, sweeps, itemsize)
         from ..kernels import engine as _keng
         _keng.check_kernel_args(spec)

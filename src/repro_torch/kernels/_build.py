@@ -64,6 +64,11 @@ def _lib_path(source: str) -> Path:
 def _start(source: str):
     out = _lib_path(source)
     if out.exists():
+        # a library built earlier: its nvcc output (ptxas's register
+        # counts) was kept beside it
+        log = out.with_suffix(".log")
+        if log.exists():
+            BUILD_LOGS[source] = log.read_text()
         return out, None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -88,6 +93,7 @@ def build_all() -> dict[str, Path]:
                 raise RuntimeError(
                     f"nvcc failed for {source} (exit {proc.returncode}):\n"
                     f"{' '.join(cmd)}\n{log}")
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
         paths[source] = out
     return paths

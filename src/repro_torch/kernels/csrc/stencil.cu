@@ -9,7 +9,10 @@
 // All four are one kernel template, instantiated per storage type and per
 // rank (1, 2, 3): `sweeps` fused applications of a chain of 1..4 stencil
 // stages (one stage for K1/K2, a StencilPipeline's stages for K3/K4) on
-// one output tile per CTA (blockIdx.x = tile, blockIdx.y = batch element).
+// one output tile per CTA (blockIdx.x = batch element * tiles + tile, so
+// a batch is not held to gridDim.y's 65,535).  A rank-3 spec (K1/K2 of
+// one stage) runs instead in casper_stream_kernel below, which streams
+// its tile plane by plane along dim 0 rather than holding a 3-D window.
 // The window tile + 2*sweeps*H, where H is the per-dim sum of the stage
 // radii, is staged in shared memory; each stage application writes the
 // next intermediate, narrower by that stage's radius per side, into the
@@ -52,9 +55,9 @@
 //
 // Compute: a stage of 3, 5 or 7 taps holds its offsets and coefficients in
 // registers for the whole application (FixedTaps); a radius-1 star of rank
-// 2 or 3 in the paper stencils' tap order runs in strips of CASPER_STRIP
-// rows per thread, the center column read once per strip (star_strips);
-// other stages read their taps per point.  Each thread forms two points
+// 2 in the paper stencils' tap order runs in strips of CASPER_STRIP rows
+// per thread, the center column read once per strip (star_strips); other
+// stages read their taps per point.  Each thread forms two points
 // before it stores either, so their loads overlap.
 //
 // Loads: an interior tile of a pad-free f32/f64 launch whose grid rows
@@ -77,12 +80,15 @@
 // loaded into f32, computed in f32 in shared memory, and rounded to bf16
 // once, at the store (the reference's f32 accumulation).
 //
-// Bound on this card: each tile reads its window once from device memory
-// (or L2) and writes its tile once, so the least traffic is one read and
-// one write of the grid: 2 * prod(shape) * itemsize bytes over the
-// 3.35 TB/s of an H100 SXM.  For the paper stencils and pipelines the
-// operations per byte stay below the f64 ridge point (about 10 flop/byte),
-// so the kernels are bound by bytes; what keeps them from it is the
+// Bound on this card: the larger of one read and one write of the grid
+// (2 * prod(shape) * itemsize bytes over the 3.35 TB/s of an H100 SXM)
+// and the f64 operations without fused multiply-add (the arithmetic the
+// f64 contract fixes per point and application: a product and an add per
+// tap, or per factor tap plus the term sums in a separable spec's
+// factored order; over 17e12 per second, half the data sheet's 34
+// TFLOP/s, which counts an FMA as two).  Most paper stencils are bound by
+// bytes; star33_3d at sweeps = 4 by operations (132 per point, 33 per
+// application).  What keeps the kernels from the bound is the
 // instructions each point costs (shared-memory loads, index arithmetic)
 // and the halo each window recomputes.
 #include <cuda_bf16.h>
@@ -97,6 +103,9 @@
 #define CASPER_THREADS 256       // threads per CTA
 #define CASPER_STRIP 4           // rows per thread in a star stage's strip
 #define CASPER_MIN_BLOCKS 2      // CTAs per SM the register budget leaves room for
+#define CASPER_STREAM_THREADS 384  // threads per CTA of the streamed rank-3 kernel
+#define CASPER_STREAM_AHEAD 2    // planes the streamed kernel loads ahead of use
+#define CASPER_CORE27 27         // CasperStage.star of a 3x3x3-core-plus-arms stage
 
 enum { MODE_ZERO = 0, MODE_CONSTANT = 1, MODE_PERIODIC = 2, MODE_REFLECT = 3 };
 
@@ -110,7 +119,9 @@ struct CasperStage {
   int term_first;
   int n_terms;                   // 0: tap chain; else factored terms
   int star;                      // 2 or 3: the radius-1 star of that rank, in
-                                 // the paper stencils' tap order; else 0
+                                 // the paper stencils' tap order; CASPER_CORE27:
+                                 // a separable 3x3x3 core, then distance-2 arms
+                                 // along dims 0, 1, 2 (star33_3d); else 0
   double value;                  // constant(c) fill
 };
 
@@ -126,6 +137,8 @@ struct CasperArgs {
   int batch;
   int n_stages;
   int async_load;                // 1: interior windows by 16-byte cp.async
+  int stream;                    // 1: rank 3, one stage, streamed along dim 0
+  int n_foff;                    // factor offsets in use (foff_lin, foff_dz)
   int grid[3];                   // global grid extents (ghost restoration)
   int tile[3];
   int halo[3];                   // sum of the stage radii
@@ -140,6 +153,8 @@ struct CasperArgs {
   int fac_first[CASPER_MAX_FACS];    // first offset of each factor in foff_lin
   int fac_n[CASPER_MAX_FACS];
   int foff_lin[2][CASPER_MAX_FOFF];  // factor offsets along their axis, per buffer
+  int tap_dz[CASPER_MAX_TAPS];       // streamed: each tap's dim-0 offset
+  int foff_dz[CASPER_MAX_FOFF];      // streamed: each factor offset's dim-0 part
   double tap_c[CASPER_MAX_TAPS];
   double fc[CASPER_MAX_FOFF];    // factor coefficients, parallel to foff_lin
 };
@@ -229,17 +244,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // the leading 3 - R extents are 1), CASPER_THREADS points per step: the
 // point is followed by adding per-stride deltas computed once per box
 // and carrying into the next dim, so no step divides.
-template <int R>
+template <int R, int NTH = CASPER_THREADS>
 struct BoxWalk {
   int n1, n2, x0, x1, x2, d0, d1, d2;
+  // a walk whose start and steps are already known (rank 2)
+  __device__ __forceinline__ BoxWalk(int n1_, int n2_, int x1_, int x2_, int d1_, int d2_)
+      : n1(n1_), n2(n2_), x0(0), x1(x1_), x2(x2_), d0(0), d1(d1_), d2(d2_) {}
   __device__ __forceinline__ BoxWalk(int n1_, int n2_) : n1(n1_), n2(n2_) {
     const int i = threadIdx.x;
     x2 = R == 1 ? i : i % n2;
     const int r = R == 1 ? 0 : i / n2;
     x1 = R == 3 ? r % n1 : r;
     x0 = R == 3 ? r / n1 : 0;
-    d2 = R == 1 ? CASPER_THREADS : CASPER_THREADS % n2;
-    const int dr = R == 1 ? 0 : CASPER_THREADS / n2;
+    d2 = R == 1 ? NTH : NTH % n2;
+    const int dr = R == 1 ? 0 : NTH / n2;
     d1 = R == 3 ? dr % n1 : dr;
     d0 = R == 3 ? dr / n1 : 0;
   }
@@ -259,30 +277,57 @@ struct BoxWalk {
   }
 };
 
-// f(x0, x1, x2) on every point of an n0 x n1 x n2 box.
-template <int R, typename F>
+// f(x0, x1, x2) on every point of an n0 x n1 x n2 box, NTH threads.
+template <int R, int NTH = CASPER_THREADS, typename F>
 __device__ __forceinline__ void for_box(int n0, int n1, int n2, F&& f) {
   const int n = n0 * n1 * n2;
-  BoxWalk<R> w(n1, n2);
-  for (int i = threadIdx.x; i < n; i += CASPER_THREADS) {
+  BoxWalk<R, NTH> w(n1, n2);
+  for (int i = threadIdx.x; i < n; i += NTH) {
     f(w.x0, w.x1, w.x2);
     w.next();
+  }
+}
+
+// floor(i / n) for 0 <= i < 2**16 and 1 <= n < 2**13 by a float reciprocal:
+// (i + 0.5) / n lies at least 0.5 / n from an integer, far above the
+// reciprocal's error, so truncation gives the quotient.
+__device__ __forceinline__ int small_div(int i, int n) {
+  return __float2int_rz(((float)i + 0.5f) * __frcp_rn((float)n));
+}
+
+// map_box on an n1 x n2 plane, its walk started without an integer
+// division (the streamed kernel maps a plane per level and step).
+template <int NTH, typename G, typename P>
+__device__ __forceinline__ void map_plane(int n1, int n2, G&& get, P&& put) {
+  const int n = n1 * n2;
+  const int x1 = small_div(threadIdx.x, n2), d1 = small_div(NTH, n2);
+  BoxWalk<2, NTH> w(1, n2, x1, threadIdx.x - x1 * n2, d1, NTH - d1 * n2);
+  for (int i = threadIdx.x; i < n; i += 2 * NTH) {
+    const int a1 = w.x1, a2 = w.x2;
+    w.next();
+    const int b1 = w.x1, b2 = w.x2;
+    w.next();
+    const bool has_b = i + NTH < n;
+    const auto va = get(0, a1, a2);
+    const auto vb = has_b ? get(0, b1, b2) : va;
+    put(0, a1, a2, va);
+    if (has_b) put(0, b1, b2, vb);
   }
 }
 
 // put(p, get(p)) on every point p of an n0 x n1 x n2 box, two points per
 // thread at a time, both values formed before either is stored (the
 // stores could alias the loads, so the compiler would not overlap them).
-template <int R, typename G, typename P>
+template <int R, int NTH = CASPER_THREADS, typename G, typename P>
 __device__ __forceinline__ void map_box(int n0, int n1, int n2, G&& get, P&& put) {
   const int n = n0 * n1 * n2;
-  BoxWalk<R> w(n1, n2);
-  for (int i = threadIdx.x; i < n; i += 2 * CASPER_THREADS) {
+  BoxWalk<R, NTH> w(n1, n2);
+  for (int i = threadIdx.x; i < n; i += 2 * NTH) {
     const int a0 = w.x0, a1 = w.x1, a2 = w.x2;
     w.next();
     const int b0 = w.x0, b1 = w.x1, b2 = w.x2;
     w.next();
-    const bool has_b = i + CASPER_THREADS < n;
+    const bool has_b = i + NTH < n;
     const auto va = get(a0, a1, a2);
     const auto vb = has_b ? get(b0, b1, b2) : va;
     put(a0, a1, a2, va);
@@ -290,16 +335,16 @@ __device__ __forceinline__ void map_box(int n0, int n1, int n2, G&& get, P&& put
   }
 }
 
-// One application of stage `st` at position L of buffer x; b selects the
-// buffer's tap offsets.
-template <typename T>
-__device__ __forceinline__ T apply_point(const T* __restrict__ x, int L, int b,
+// One application of stage `st` at position L of buffer x; tap(k) and
+// fo(j) give the linear offsets of tap k and of factor offset j.
+template <typename T, typename Tap, typename Fo>
+__device__ __forceinline__ T apply_point(const T* __restrict__ x, int L, Tap&& tap, Fo&& fo,
                                          const CasperArgs& a, const CasperStage& st) {
   const T* __restrict__ c = x + L;
   if (st.n_terms == 0) {
     T acc = T(0);
     for (int k = st.tap_first; k < st.tap_first + st.n_taps; ++k)
-      acc = add_rn(acc, mul_rn(T(a.tap_c[k]), c[a.tap_lin[b][k]]));
+      acc = add_rn(acc, mul_rn(T(a.tap_c[k]), c[tap(k)]));
     return acc;
   }
   T total = T(0);
@@ -312,27 +357,27 @@ __device__ __forceinline__ T apply_point(const T* __restrict__ x, int L, int b,
     T v = T(0);
     if (nf == 1) {
       for (int j = 0; j < n0; ++j)
-        v = add_rn(v, mul_rn(T(a.fc[b0 + j]), c[a.foff_lin[b][b0 + j]]));
+        v = add_rn(v, mul_rn(T(a.fc[b0 + j]), c[fo(b0 + j)]));
     } else if (nf == 2) {
       const int b1 = a.fac_first[f0 + 1], n1 = a.fac_n[f0 + 1];
       for (int j1 = 0; j1 < n1; ++j1) {
-        const T* __restrict__ c1 = c + a.foff_lin[b][b1 + j1];
+        const T* __restrict__ c1 = c + fo(b1 + j1);
         T u = T(0);
         for (int j0 = 0; j0 < n0; ++j0)
-          u = add_rn(u, mul_rn(T(a.fc[b0 + j0]), c1[a.foff_lin[b][b0 + j0]]));
+          u = add_rn(u, mul_rn(T(a.fc[b0 + j0]), c1[fo(b0 + j0)]));
         v = add_rn(v, mul_rn(T(a.fc[b1 + j1]), u));
       }
     } else {
       const int b1 = a.fac_first[f0 + 1], n1 = a.fac_n[f0 + 1];
       const int b2 = a.fac_first[f0 + 2], n2 = a.fac_n[f0 + 2];
       for (int j2 = 0; j2 < n2; ++j2) {
-        const T* __restrict__ c2 = c + a.foff_lin[b][b2 + j2];
+        const T* __restrict__ c2 = c + fo(b2 + j2);
         T w = T(0);
         for (int j1 = 0; j1 < n1; ++j1) {
-          const T* __restrict__ c1 = c2 + a.foff_lin[b][b1 + j1];
+          const T* __restrict__ c1 = c2 + fo(b1 + j1);
           T u = T(0);
           for (int j0 = 0; j0 < n0; ++j0)
-            u = add_rn(u, mul_rn(T(a.fc[b0 + j0]), c1[a.foff_lin[b][b0 + j0]]));
+            u = add_rn(u, mul_rn(T(a.fc[b0 + j0]), c1[fo(b0 + j0)]));
           w = add_rn(w, mul_rn(T(a.fc[b1 + j1]), u));
         }
         v = add_rn(v, mul_rn(T(a.fc[b2 + j2]), w));
@@ -375,31 +420,30 @@ struct AnyStage {
   const CasperStage& st;
   int b;
   __device__ __forceinline__ T operator()(const T* __restrict__ x, int L) const {
-    return apply_point(x, L, b, a, st);
+    return apply_point(
+        x, L, [&](int k) { return a.tap_lin[b][k]; }, [&](int j) { return a.foff_lin[b][j]; },
+        a, st);
   }
 };
 
 // A radius-1 star stage of rank 2 (5 taps: center, row -1, row +1,
-// column -1, column +1) or rank 3 (7 taps: center, plane -1, plane +1,
-// row -1, row +1, column -1, column +1), each thread computing a strip of
-// M rows of one column: the center column is read once for the strip's
-// M + 2 rows and held in registers, so a point costs 3 (rank 2) or 5
-// (rank 3) shared-memory loads instead of 5 or 7.  Every point's sum is
-// formed in tap order, as FixedTaps forms it.
-template <int R, int M, typename T, typename Put>
-__device__ __forceinline__ void star_strips(const T* __restrict__ x, int pin, int row,
-                                            const int* cur, const int* c,
-                                            const CasperArgs& a, const CasperStage& st,
-                                            Put&& put) {
-  constexpr int NT = R == 2 ? 5 : 7;
-  T k[NT];
+// column -1, column +1), each thread computing a strip of M rows of one
+// column: the center column is read once for the strip's M + 2 rows and
+// held in registers, so a point costs 3 shared-memory loads instead of 5.
+// Every point's sum is formed in tap order, as FixedTaps forms it.  (The
+// streamed rank-3 kernel runs rank 3's seven taps so: Star7Op.)
+template <int M, typename T, typename Put>
+__device__ __forceinline__ void star_strips(const T* __restrict__ x, int row, const int* cur,
+                                            const int* c, const CasperArgs& a,
+                                            const CasperStage& st, Put&& put) {
+  T k[5];
 #pragma unroll
-  for (int t = 0; t < NT; ++t) k[t] = T(a.tap_c[st.tap_first + t]);
+  for (int t = 0; t < 5; ++t) k[t] = T(a.tap_c[st.tap_first + t]);
   const int strips = (cur[1] + M - 1) / M;
-  for_box<R>(cur[0], strips, cur[2], [&](int q0, int sq, int q2) {
+  for_box<2>(1, strips, cur[2], [&](int, int sq, int q2) {
     const int q1 = sq * M;
     const int rows = min(M, cur[1] - q1);
-    const T* __restrict__ p = x + (c[0] + q0) * pin + (c[1] + q1) * row + c[2] + q2;
+    const T* __restrict__ p = x + (c[1] + q1) * row + c[2] + q2;
     T col[M + 2];
 #pragma unroll
     for (int i = 0; i < M + 2; ++i) col[i] = i <= rows + 1 ? p[(i - 1) * row] : T(0);
@@ -409,20 +453,11 @@ __device__ __forceinline__ void star_strips(const T* __restrict__ x, int pin, in
         const T* __restrict__ pm = p + m * row;
         T acc = T(0);
         acc = add_rn(acc, mul_rn(k[0], col[m + 1]));
-        if (R == 2) {
-          acc = add_rn(acc, mul_rn(k[1], col[m]));
-          acc = add_rn(acc, mul_rn(k[2], col[m + 2]));
-          acc = add_rn(acc, mul_rn(k[3], pm[-1]));
-          acc = add_rn(acc, mul_rn(k[4], pm[1]));
-        } else {
-          acc = add_rn(acc, mul_rn(k[1], pm[-pin]));
-          acc = add_rn(acc, mul_rn(k[2], pm[pin]));
-          acc = add_rn(acc, mul_rn(k[3], col[m]));
-          acc = add_rn(acc, mul_rn(k[4], col[m + 2]));
-          acc = add_rn(acc, mul_rn(k[5 % NT], pm[-1]));
-          acc = add_rn(acc, mul_rn(k[6 % NT], pm[1]));
-        }
-        put(q0, q1 + m, q2, acc);
+        acc = add_rn(acc, mul_rn(k[1], col[m]));
+        acc = add_rn(acc, mul_rn(k[2], col[m + 2]));
+        acc = add_rn(acc, mul_rn(k[3], pm[-1]));
+        acc = add_rn(acc, mul_rn(k[4], pm[1]));
+        put(0, q1 + m, q2, acc);
       }
     }
   });
@@ -441,10 +476,13 @@ casper_chain_kernel(const S* __restrict__ in, S* __restrict__ out,
   T* const sm = reinterpret_cast<T*>(smem_raw);
   const int row = ly.row;
 
-  // Which tile: blockIdx.x walks tiles with dim 2 fastest.
-  int lin = blockIdx.x;
+  // Which tile: blockIdx.x = batch element * tiles + tile, tiles with
+  // dim 2 fastest.
   const int nt2 = (a.out[2] + a.tile[2] - 1) / a.tile[2];
   const int nt1 = (a.out[1] + a.tile[1] - 1) / a.tile[1];
+  const int ntiles = nt1 * nt2 * ((a.out[0] + a.tile[0] - 1) / a.tile[0]);
+  const int item = blockIdx.x / ntiles;
+  int lin = blockIdx.x % ntiles;
   int base[3];
   base[2] = (lin % nt2) * a.tile[2];
   lin /= nt2;
@@ -468,7 +506,7 @@ casper_chain_kernel(const S* __restrict__ in, S* __restrict__ out,
 
   // ---- load the window (stage 0's extension) into buffer 0 ----------------
   const size_t src_elems = (size_t)a.src[0] * a.src[1] * a.src[2];
-  const S* __restrict__ src = in + (size_t)blockIdx.y * src_elems;
+  const S* __restrict__ src = in + (size_t)item * src_elems;
   T* const w0 = sm + ly.base[0];
   const int pl0 = ly.plane[0];
   if (a.padded) {
@@ -550,7 +588,7 @@ casper_chain_kernel(const S* __restrict__ in, S* __restrict__ out,
       const int pout = bo ? ly.plane[1] : ly.plane[0];
       const bool fill_rim = !interior && (nx.mode == MODE_ZERO || nx.mode == MODE_CONSTANT);
       const T fill = nx.mode == MODE_CONSTANT ? T(nx.value) : T(0);
-      S* __restrict__ dst = out + (size_t)blockIdx.y * ((size_t)a.out[0] * a.out[1] * a.out[2]);
+      S* __restrict__ dst = out + (size_t)item * ((size_t)a.out[0] * a.out[1] * a.out[2]);
       // where a value goes: the tile in global memory after the last
       // application; else the other buffer, a rim tile's out-of-grid
       // positions taking the fill of a zero/constant next stage
@@ -574,8 +612,8 @@ casper_chain_kernel(const S* __restrict__ in, S* __restrict__ out,
             return pt(xin, (c[0] + q0) * pin + (c[1] + q1) * row + c[2] + q2);
           }, put);
         };
-        if (R >= 2 && st.star == R) {
-          star_strips<R, CASPER_STRIP>(xin, pin, row, cur, c, a, st, put);
+        if (R == 2 && st.star == 2) {
+          star_strips<CASPER_STRIP>(xin, row, cur, c, a, st, put);
         } else if (st.n_terms == 0 && st.n_taps == 5) {
           run(FixedTaps<T, 5>(a, st, bi));
         } else if (st.n_terms == 0 && st.n_taps == 3) {
@@ -625,25 +663,583 @@ casper_chain_kernel(const S* __restrict__ in, S* __restrict__ out,
   }
 }
 
-// Dynamic shared memory of one CTA: both buffers in the accumulator type.
+// ---------------------------------------------------------------------------
+// Rank 3, one stage (K1/K2 of a 3-D spec): planes streamed along dim 0
+// ---------------------------------------------------------------------------
+// A CTA owns an xy tile and a chunk of tile[0] output planes (the tile's
+// extent along dim 0).  It walks the chunk's window one plane of dim 0 at
+// a time (2.5-D temporal blocking): a step loads one plane of the window
+// into level 0's ring (CASPER_STREAM_AHEAD steps before it is read) and
+// advances every application by one plane, the last application writing
+// its plane of the tile straight to global memory.  Application 1 forms
+// the plane h0 behind the newest window plane, from the 2*h0 + 1 planes
+// around it; every later application lags its predecessor by h0 + 1, so
+// that a step reads only planes formed at earlier steps and every level
+// runs between the same two barriers (one barrier per step; a reflect rim
+// tile adds two for its in-plane restoration).  Level l < sweeps keeps a
+// ring of the 2*h0 + 2 planes: the 2*h0 + 1 the next application reads
+// and the one it forms meanwhile (level 0: 2*h0 + 1 and the planes in
+// flight); each plane is narrowed in xy by the radius the remaining
+// applications consume: tile + 2*(sweeps - l)*h per side.  A chunk
+// recomputes sweeps*h0 lead-in planes at each end, read through the
+// boundary index map (wrapped for periodic), so no intermediate crosses
+// CTAs and the only other recompute is the xy halo: at sweeps = 4,
+// star33_3d's 16x16 tile forms 1.97 points per output (2.45 with the
+// lead-in planes of a 32-plane chunk) and heat3d's 32x32 1.20 (1.32),
+// against 16.3 for the 2x4x32 3-D window that star33_3d had.
+//
+// Ghosts of an intermediate, by global coordinate as _restore_ghosts
+// places them: an out-of-grid plane is filled (zero/constant), formed
+// like any other (periodic), or never formed (reflect): a read of it
+// goes to its mirror plane, which the ring holds for every in-grid
+// reader (the reads of an in-grid plane w lie in [w - h0, w + h0], and so
+// do the mirrors of its out-of-grid ones).  Within an in-grid plane the
+// ghosts of a rim tile are filled, or re-mirrored along dim 1 then dim 2
+// as the window kernel does.  Composed, that is _restore_ghosts' axis by
+// axis mirror, for every value an output reads.
+//
+// Taps: a stage's tap offsets are linear in one row pitch shared by every
+// level (tap_lin[0]) plus a plane offset per dim-0 offset (tap_dz), which
+// depends on the ring slot and is resolved per step and level (zslots).
+// The stage's evaluator is built once per CTA (stream_body's Op): heat3d's
+// radius-1 star holds its seven coefficients in registers and runs in row
+// strips (Star7Op); star33_3d's separable 3x3x3 core with its arms holds
+// fifteen (Core27Op); any other stage reads its taps per point from the
+// argument block, their offsets from a table in shared memory built per
+// step (TabledOp).  Sums keep tap or factored order, as everywhere in this
+// file.
+struct StreamGeom {
+  int lead, row;      // first column and row pitch, shared by every level
+  int depth0, depth;  // ring depth of level 0 and of levels 1..sweeps-1
+};
+
+template <typename S>
+__host__ __device__ __forceinline__ StreamGeom stream_geom(const CasperArgs& a) {
+  const int vec = sizeof(S) >= 4 ? 16 / (int)sizeof(S) : 1;
+  StreamGeom g;
+  g.lead = (vec - (a.sweeps * a.halo[2]) % vec) % vec;
+  g.row = (g.lead + a.tile[2] + 2 * a.sweeps * a.halo[2] + vec - 1) / vec * vec;
+  g.depth = 2 * a.halo[0] + 2;
+  g.depth0 = 2 * a.halo[0] + 1 + CASPER_STREAM_AHEAD;
+  return g;
+}
+
+// Elements of one plane of level l, and the offset of level l's ring.
+__host__ __device__ __forceinline__ int stream_plane(const CasperArgs& a, const StreamGeom& g,
+                                                     int l) {
+  return (a.tile[1] + 2 * (a.sweeps - l) * a.halo[1]) * g.row;
+}
+__host__ __device__ __forceinline__ int stream_level_off(const CasperArgs& a,
+                                                         const StreamGeom& g, int l) {
+  int off = 0;
+  for (int k = 0; k < l; ++k) off += (k ? g.depth : g.depth0) * stream_plane(a, g, k);
+  return off;
+}
+
+// After the rings (16-byte aligned), for two steps in turn: the offset
+// tables of the Tabled path, per level n_taps + n_foff ints; then per
+// level the plane offsets of the 2*h0 + 1 planes it reads and of the one
+// it writes (stream_zslots); last, per level its ring's offset and plane
+// size.
+template <typename S>
+__host__ __device__ __forceinline__ size_t stream_table_byte(const CasperArgs& a) {
+  typedef typename Acc<S>::T T;
+  const StreamGeom g = stream_geom<S>(a);
+  return ((size_t)stream_level_off(a, g, a.sweeps) * sizeof(T) + 15) / 16 * 16;
+}
+
+__host__ __device__ __forceinline__ int stream_zslots(const CasperArgs& a) {
+  return 2 * a.halo[0] + 2;
+}
+
+template <typename S>
+static size_t stream_smem_bytes(const CasperArgs* a) {
+  return stream_table_byte<S>(*a) +
+         (size_t)2 * a->sweeps * (a->stage[0].n_taps + a->n_foff + stream_zslots(*a) + 1) *
+             sizeof(int);
+}
+
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// an asynchronous copy of one 4- or 8-byte element
+template <int N>
+__device__ __forceinline__ void cp_async_elem(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(N)
+               : "memory");
+}
+
+// f(x1, x2) on every point of an n1 x n2 plane, NTH threads, the walk
+// started without an integer division
+template <int NTH, typename F>
+__device__ __forceinline__ void for_plane(int n1, int n2, F&& f) {
+  const int n = n1 * n2;
+  const int x1 = small_div(threadIdx.x, n2), d1 = small_div(NTH, n2);
+  BoxWalk<2, NTH> w(1, n2, x1, threadIdx.x - x1 * n2, d1, NTH - d1 * n2);
+  for (int i = threadIdx.x; i < n; i += NTH) {
+    f(w.x1, w.x2);
+    w.next();
+  }
+}
+
+// wait until at most CASPER_STREAM_AHEAD - 1 committed groups are pending
+__device__ __forceinline__ void cp_async_wait_ahead() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(CASPER_STREAM_AHEAD - 1) : "memory");
+}
+
+// The stage evaluators of the streamed kernel.  Each is built once per
+// CTA, its coefficients (and tap offsets within a plane) in registers for
+// the whole chunk; plane() forms one plane of an application, cy x cx
+// points, reading the planes of the level below through zs (zs[dz + h0]:
+// the offset of the plane at dim-0 offset dz) and handing each value to
+// put(0, q1, q2, v).  Sums keep tap or factored order.
+
+// A radius-1 star of rank 3 in the paper stencils' tap order (heat3d's
+// seven taps: center, dim-0 -1/+1, dim-1 -1/+1, dim-2 -1/+1), each thread
+// forming a strip of CASPER_STRIP rows of one column: the column of the
+// center plane is read once for the strip's rows and held in registers,
+// so a point costs 5 shared-memory loads instead of 7 (star_strips'
+// order).
+template <typename T>
+struct Star7Op {
+  static constexpr bool kTabled = false;
+  T k[7];
+  __device__ __forceinline__ Star7Op(const CasperArgs& a, const CasperStage& st) {
+#pragma unroll
+    for (int t = 0; t < 7; ++t) k[t] = T(a.tap_c[st.tap_first + t]);
+  }
+  template <int NTH, typename Put>
+  __device__ __forceinline__ void plane(const T* __restrict__ x, const int* zs, int L0, int cy,
+                                        int cx, int row, const int*, Put&& put) const {
+    constexpr int M = CASPER_STRIP;
+    const T* __restrict__ lo = x + zs[0];
+    const T* __restrict__ mid = x + zs[1];
+    const T* __restrict__ hi = x + zs[2];
+    for_plane<NTH>((cy + M - 1) / M, cx, [&](int sq, int q2) {
+      const int q1 = sq * M;
+      const int rows = min(M, cy - q1);
+      const int L = L0 + q1 * row + q2;
+      T col[M + 2];
+#pragma unroll
+      for (int i = 0; i < M + 2; ++i) col[i] = i <= rows + 1 ? mid[L + (i - 1) * row] : T(0);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        if (m < rows) {
+          const int p = L + m * row;
+          T acc = T(0);
+          acc = add_rn(acc, mul_rn(k[0], col[m + 1]));
+          acc = add_rn(acc, mul_rn(k[1], lo[p]));
+          acc = add_rn(acc, mul_rn(k[2], hi[p]));
+          acc = add_rn(acc, mul_rn(k[3], col[m]));
+          acc = add_rn(acc, mul_rn(k[4], col[m + 2]));
+          acc = add_rn(acc, mul_rn(k[5], mid[p - 1]));
+          acc = add_rn(acc, mul_rn(k[6], mid[p + 1]));
+          put(0, q1 + m, q2, acc);
+        }
+      }
+    });
+  }
+};
+
+// star33_3d's stage as factored: a separable term of three 3-point
+// factors (dim 0 innermost, dim 2 outermost), then one 2-point term of
+// offsets -2, +2 along each of dims 0, 1 and 2; summed from zero in
+// term order.  The host flags only that exact structure (CASPER_CORE27).
+template <typename T>
+struct Core27Op {
+  static constexpr bool kTabled = false;
+  T c0[3], c1[3], c2[3], arm[3][2];
+  __device__ __forceinline__ Core27Op(const CasperArgs& a, const CasperStage& st) {
+    const int f0 = a.term_fac[st.term_first];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      c0[j] = T(a.fc[a.fac_first[f0] + j]);
+      c1[j] = T(a.fc[a.fac_first[f0 + 1] + j]);
+      c2[j] = T(a.fc[a.fac_first[f0 + 2] + j]);
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int b = a.fac_first[a.term_fac[st.term_first + 1 + d]];
+      arm[d][0] = T(a.fc[b]);
+      arm[d][1] = T(a.fc[b + 1]);
+    }
+  }
+  template <int NTH, typename Put>
+  __device__ __forceinline__ void plane(const T* __restrict__ x, const int* zs, int L0, int cy,
+                                        int cx, int row, const int*, Put&& put) const {
+    int zb[5];  // h0 = 2
+#pragma unroll
+    for (int i = 0; i < 5; ++i) zb[i] = zs[i];
+    map_plane<NTH>(cy, cx, [&](int, int q1, int q2) {
+      const int L = L0 + q1 * row + q2;
+      T core = T(0);
+#pragma unroll
+      for (int j2 = 0; j2 < 3; ++j2) {
+        T w = T(0);
+#pragma unroll
+        for (int j1 = 0; j1 < 3; ++j1) {
+          const int p = L + (j1 - 1) * row + (j2 - 1);
+          T u = T(0);
+#pragma unroll
+          for (int j0 = 0; j0 < 3; ++j0) u = add_rn(u, mul_rn(c0[j0], x[p + zb[j0 + 1]]));
+          w = add_rn(w, mul_rn(c1[j1], u));
+        }
+        core = add_rn(core, mul_rn(c2[j2], w));
+      }
+      const int c = L + zb[2];
+      T total = add_rn(T(0), core);
+      T v = add_rn(T(0), mul_rn(arm[0][0], x[L + zb[0]]));
+      total = add_rn(total, add_rn(v, mul_rn(arm[0][1], x[L + zb[4]])));
+      v = add_rn(T(0), mul_rn(arm[1][0], x[c - 2 * row]));
+      total = add_rn(total, add_rn(v, mul_rn(arm[1][1], x[c + 2 * row])));
+      v = add_rn(T(0), mul_rn(arm[2][0], x[c - 2]));
+      return add_rn(total, add_rn(v, mul_rn(arm[2][1], x[c + 2])));
+    }, put);
+  }
+};
+
+// Any other stage: taps or factored terms read from the argument block
+// per point, their offsets for this plane from a table in shared memory
+// (n_taps tap offsets, then n_foff factor offsets).
+template <typename T>
+struct TabledOp {
+  static constexpr bool kTabled = true;
+  const CasperArgs& a;
+  const CasperStage& st;
+  template <int NTH, typename Put>
+  __device__ __forceinline__ void plane(const T* __restrict__ x, const int*, int L0, int cy,
+                                        int cx, int row, const int* tab, Put&& put) const {
+    map_plane<NTH>(cy, cx, [&](int, int q1, int q2) {
+      return apply_point(
+          x, L0 + q1 * row + q2, [&](int k) { return tab[k]; },
+          [&](int j) { return tab[st.n_taps + j]; }, a, st);
+    }, put);
+  }
+};
+
+template <typename S, typename Op>
+__device__ __forceinline__ void stream_body(const S* __restrict__ in, S* __restrict__ out,
+                                            const CasperArgs& a, const Op& op) {
+  typedef typename Acc<S>::T T;
+  constexpr int NTH = CASPER_STREAM_THREADS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  int* const tables = reinterpret_cast<int*>(smem_raw + stream_table_byte<S>(a));
+  const int nzs = stream_zslots(a);
+  int* const zslots = tables + 2 * a.sweeps * (a.stage[0].n_taps + a.n_foff);
+  int* const levels_at = zslots + 2 * a.sweeps * stream_zslots(a);
+  const StreamGeom geo = stream_geom<S>(a);
+  const int row = geo.row, lead = geo.lead;
+  const CasperStage& st = a.stage[0];
+  const int sw = a.sweeps;
+  const int hz = a.halo[0], hy = a.halo[1], hx = a.halo[2];
+  // loop invariants, in registers rather than re-read from the argument
+  // block (a constant bank whose cache the ~3 KB block overflows)
+  const int t1 = a.tile[1], t2 = a.tile[2], n0 = a.grid[0], n1 = a.grid[1], n2 = a.grid[2];
+  const int o1 = a.out[1], o2 = a.out[2], s0 = a.src[0], s1 = a.src[1], s2 = a.src[2];
+
+  // blockIdx.x = batch element * tiles + tile, tiles with dim 2 fastest
+  const int nt2 = (a.out[2] + t2 - 1) / t2;
+  const int nt1 = (a.out[1] + t1 - 1) / t1;
+  const int nt0 = (a.out[0] + a.tile[0] - 1) / a.tile[0];
+  const int ntiles = nt0 * nt1 * nt2;
+  const int item = blockIdx.x / ntiles;
+  int lin = blockIdx.x % ntiles;
+  const int base2 = (lin % nt2) * t2;
+  lin /= nt2;
+  const int base1 = (lin % nt1) * t1;
+  const int base0 = (lin / nt1) * a.tile[0];
+  const int org0 = a.padded ? a.origin[0] : 0, org1 = a.padded ? a.origin[1] : 0,
+            org2 = a.padded ? a.origin[2] : 0;
+  const int gz0 = org0 + base0, gy0 = org1 + base1, gx0 = org2 + base2;
+  const int nz = min(a.tile[0], a.out[0] - base0);
+  const int fz = sw * hz, fy = sw * hy, fx = sw * hx;
+  const int e0y = t1 + 2 * fy, e0x = t2 + 2 * fx;
+  const bool xy_in = gy0 - fy >= 0 && gy0 + t1 + fy <= n1 && gx0 - fx >= 0 &&
+                     gx0 + t2 + fx <= n2;
+  const bool interior = xy_in && gz0 - fz >= 0 && gz0 + nz + fz <= n0;
+  if (a.tiles != nullptr && threadIdx.x == 0) atomicAdd(a.tiles + (interior ? 0 : 1), 1);
+  const int mode = st.mode;
+  const T fill0 = mode == MODE_CONSTANT ? Acc<S>::rounded(st.value) : T(0);
+  const T fill = mode == MODE_CONSTANT ? T(st.value) : T(0);
+  const S* __restrict__ src = in + (size_t)item * ((size_t)s0 * s1 * s2);
+  S* __restrict__ dst = out + (size_t)item * ((size_t)a.out[0] * a.out[1] * a.out[2]);
+
+  // where plane z of level l sits; a reflect intermediate's out-of-grid
+  // plane is read from its mirror
+  // each level's ring offset and plane size, once per CTA
+  for (int l = threadIdx.x; l < sw; l += NTH) {
+    levels_at[2 * l] = stream_level_off(a, geo, l);
+    levels_at[2 * l + 1] = stream_plane(a, geo, l);
+  }
+  __syncthreads();
+  auto slot = [&](int l, int z) {
+    if (l > 0 && mode == MODE_REFLECT && (z < 0 || z >= n0))
+      z = reflect_index(z, n0);
+    return levels_at[2 * l] + wrap_index(z, l ? geo.depth : geo.depth0) * levels_at[2 * l + 1];
+  };
+  // one element of the window: a 4- or 8-byte cp.async from the grid, or
+  // the fill (bf16 widens on a plain load)
+  auto put_elem = [&](T* d, const S* g, bool inside, T f) {
+    if constexpr (sizeof(S) >= 4) {
+      if (inside) {
+        cp_async_elem<sizeof(S)>(d, g);
+      } else {
+        *d = f;
+      }
+    } else {
+      *d = inside ? Acc<S>::load(*g) : f;
+    }
+  };
+
+  // level 0's plane z: a plain copy (16-byte cp.async where the host
+  // allows it) inside the grid, else through the boundary index map (K1)
+  // or from the pre-padded window, zero past its end (K2)
+  auto load_plane = [&](int z) {
+    T* const p = sm + slot(0, z) + lead;
+    if (a.padded) {
+      const int l0 = z - org0 + fz;
+      for_plane<NTH>(e0y, e0x, [&](int j1, int j2) {
+        const int l1 = base1 + j1, l2 = base2 + j2;
+        const bool inside = l0 < s0 && l1 < s1 && l2 < s2;
+        put_elem(p + j1 * row + j2, src + ((size_t)l0 * s1 + l1) * s2 + l2, inside,
+                 T(0));
+      });
+      return;
+    }
+    if (xy_in && z >= 0 && z < n0) {
+      const S* __restrict__ g =
+          src + ((size_t)z * s1 + (gy0 - fy)) * s2 + (gx0 - fx);
+      if constexpr (sizeof(S) >= 4) {
+        if (a.async_load) {
+          constexpr int vec = 16 / sizeof(S);
+          const int chunks = (lead + e0x + vec - 1) / vec;
+          T* const s16 = p - lead;
+          const S* __restrict__ g16 = g - lead;
+          for_plane<NTH>(e0y, chunks, [&](int j1, int ch) {
+            cp_async16(s16 + j1 * row + ch * vec, g16 + (size_t)j1 * s2 + ch * vec);
+          });
+          return;
+        }
+      }
+      for_plane<NTH>(e0y, e0x, [&](int j1, int j2) {
+        put_elem(p + j1 * row + j2, g + (size_t)j1 * s2 + j2, true, T(0));
+      });
+      return;
+    }
+    int zz = z;
+    bool zin = true;
+    if (mode == MODE_PERIODIC) {
+      zz = wrap_index(z, n0);
+    } else if (mode == MODE_REFLECT) {
+      zz = reflect_index(z, n0);
+    } else {
+      zin = z >= 0 && z < n0;
+    }
+    for_plane<NTH>(e0y, e0x, [&](int j1, int j2) {
+      int gi1 = gy0 - fy + j1, gi2 = gx0 - fx + j2;
+      bool inside = zin;
+      if (mode == MODE_PERIODIC) {
+        gi1 = wrap_index(gi1, n1);
+        gi2 = wrap_index(gi2, n2);
+      } else if (mode == MODE_REFLECT) {
+        gi1 = reflect_index(gi1, n1);
+        gi2 = reflect_index(gi2, n2);
+      } else {
+        inside = inside && gi1 >= 0 && gi1 < n1 && gi2 >= 0 && gi2 < n2;
+      }
+      put_elem(p + j1 * row + j2, src + ((size_t)zz * s1 + gi1) * s2 + gi2, inside,
+               fill0);
+    });
+  };
+
+  const int n_tab = st.n_taps + a.n_foff;
+  const int L0 = hy * row + hx + lead;  // a plane's first point in the level below
+  const int planes0 = nz + 2 * fz;        // window planes loaded
+  const int steps = planes0 + sw - 1;     // the last application lags sw - 1 more
+  const int z_first = gz0 - fz;
+  // the plane application l forms at step j, and whether it has one:
+  // level 1 lags the load by h0, every later level its predecessor by
+  // h0 + 1, so that a step reads only planes formed at earlier steps
+  auto plane_of = [&](int l, int jj) { return z_first + jj - l * (hz + 1) + 1; };
+  auto active = [&](int l, int jj) {
+    return jj >= 2 * l * hz + l - 1 && jj < planes0 + l - 1;
+  };
+  // whether factor offset j belongs to the innermost factor of its term:
+  // apply_point adds the offsets of a term's factors, so only the
+  // innermost (the lowest axis, dim 0 where the term has it) carries the
+  // plane's ring slot
+  auto innermost = [&](int j) {
+    for (int t = st.term_first; t < st.term_first + st.n_terms; ++t) {
+      const int b = a.fac_first[a.term_fac[t]];
+      if (j >= b && j < b + a.fac_n[a.term_fac[t]]) return true;
+    }
+    return false;
+  };
+  // step jj's tables, in buffer jj & 1: per level the plane offsets of the
+  // 2*h0 + 1 planes it reads and of the plane it writes, then (Tabled)
+  // every tap's full offset and every factor offset's (its in-plane part
+  // alone on an outer factor)
+  auto build_tables = [&](int jj) {
+    int* const zs = zslots + (jj & 1) * sw * nzs;
+    for (int i = threadIdx.x; i < sw * nzs; i += NTH) {
+      const int l = 1 + i / nzs, k = i % nzs;
+      const int zl = plane_of(l, jj);
+      zs[i] = k + 1 < nzs ? slot(l - 1, zl + k - hz) : (l < sw ? slot(l, zl) : 0);
+    }
+    if (!Op::kTabled) return;
+    int* const tab = tables + (jj & 1) * sw * n_tab;
+    for (int i = threadIdx.x; i < sw * n_tab; i += NTH) {
+      const int l = 1 + i / n_tab, k = i % n_tab;
+      const int zl = plane_of(l, jj);
+      const int j = k - st.n_taps;
+      tab[i] = k < st.n_taps  ? slot(l - 1, zl + a.tap_dz[k]) + a.tap_lin[0][k]
+               : innermost(j) ? slot(l - 1, zl + a.foff_dz[j]) + a.foff_lin[0][j]
+                              : a.foff_lin[0][j];
+    }
+  };
+  build_tables(0);
+  // one commit group per plane, empty for a plain or rim load, so that
+  // waiting for all but the newest CASPER_STREAM_AHEAD - 1 groups waits
+  // for this step's plane
+  for (int p = 0; p < CASPER_STREAM_AHEAD; ++p) {
+    if (p < planes0) load_plane(z_first + p);
+    cp_async_commit();
+  }
+  for (int j = 0; j < steps; ++j) {
+    cp_async_wait_ahead();
+    __syncthreads();  // plane z_first + j, step j's tables and step j - 1's planes are in
+    // into a slot no level reads now: depth0 = 2*h0 + 1 + AHEAD
+    if (j + CASPER_STREAM_AHEAD < planes0) load_plane(z_first + j + CASPER_STREAM_AHEAD);
+    cp_async_commit();
+    if (j + 1 < steps) build_tables(j + 1);
+    const int* const zs_step = zslots + (j & 1) * sw * nzs;
+    const int* const tab_step = tables + (j & 1) * sw * n_tab;
+    bool restore = false;
+    // every application forms its plane; none reads what this step writes
+    for (int l = 1; l <= sw; ++l) {
+      if (!active(l, j)) continue;
+      const int zl = plane_of(l, j);
+      const int rem = sw - l;
+      const int cy = t1 + 2 * rem * hy, cx = t2 + 2 * rem * hx;
+      const bool last = l == sw;
+      const bool z_out = zl < 0 || zl >= n0;
+      const int* const zs = zs_step + (l - 1) * nzs;
+      T* const po = last ? nullptr : sm + zs[nzs - 1] + lead;
+      if (!last && z_out && mode != MODE_PERIODIC) {
+        if (mode == MODE_REFLECT) continue;  // never formed: read from the mirror
+        for_plane<NTH>(cy, cx, [&](int q1, int q2) { po[q1 * row + q2] = fill; });
+        continue;
+      }
+      const int g0y = gy0 - rem * hy, g0x = gx0 - rem * hx;
+      const int* const tab = tab_step + (l - 1) * n_tab;
+      if (last) {
+        S* __restrict__ d = dst + (size_t)(zl - org0) * o1 * o2;
+        op.template plane<NTH>(sm, zs, L0, cy, cx, row, tab, [&](int, int q1, int q2, T v) {
+          const int r1 = base1 + q1, r2 = base2 + q2;
+          if (r1 < o1 && r2 < o2) d[(size_t)r1 * o2 + r2] = Acc<S>::store(v);
+        });
+      } else if (!xy_in && (mode == MODE_ZERO || mode == MODE_CONSTANT)) {
+        op.template plane<NTH>(sm, zs, L0, cy, cx, row, tab, [&](int, int q1, int q2, T v) {
+          const int gb = g0y + q1, gc = g0x + q2;
+          const bool inside = gb >= 0 && gb < n1 && gc >= 0 && gc < n2;
+          po[q1 * row + q2] = inside ? v : fill;
+        });
+      } else {
+        op.template plane<NTH>(sm, zs, L0, cy, cx, row, tab,
+                               [&](int, int q1, int q2, T v) { po[q1 * row + q2] = v; });
+        restore = restore || (!xy_in && mode == MODE_REFLECT);
+      }
+    }
+    if (!restore) continue;
+    // a reflect rim tile re-mirrors the ghosts of the planes just formed,
+    // along dim 1, then dim 2
+#pragma unroll
+    for (int d = 1; d < 3; ++d) {
+      __syncthreads();
+      for (int l = 1; l < sw; ++l) {
+        const int zl = plane_of(l, j);
+        if (!active(l, j) || zl < 0 || zl >= n0) continue;
+        const int rem = sw - l;
+        const int cy = t1 + 2 * rem * hy, cx = t2 + 2 * rem * hx;
+        T* const po = sm + zs_step[(l - 1) * nzs + nzs - 1] + lead;
+        const int g0 = d == 1 ? gy0 - rem * hy : gx0 - rem * hx, c = d == 1 ? cy : cx;
+        const int n = d == 1 ? n1 : n2;
+        const int lo = min(max(-g0, 0), c);
+        const int hi = min(max(g0 + c - n, 0), c - lo);
+        if (lo + hi == 0) continue;
+        const int stride = d == 1 ? row : 1;
+        for_box<2, NTH>(1, d == 1 ? lo + hi : cy, d == 1 ? cx : lo + hi,
+                        [&](int, int q1, int q2) {
+          int q[2] = {q1, q2};
+          const int qd = q[d - 1] < lo ? q[d - 1] : c - hi + (q[d - 1] - lo);
+          int from = reflect_index(g0 + qd, n) - g0;
+          from = from < 0 ? 0 : (from > c - 1 ? c - 1 : from);
+          q[d - 1] = qd;
+          const int to = q[0] * row + q[1];
+          po[to] = po[to + (from - qd) * stride];
+        });
+      }
+    }
+  }
+}
+
+// K1/K2 of a rank-3 spec: the stage's evaluator, built once per CTA.
+template <typename S>
+__global__ void __launch_bounds__(CASPER_STREAM_THREADS, 1)
+casper_stream_kernel(const S* __restrict__ in, S* __restrict__ out,
+                     const __grid_constant__ CasperArgs a) {
+  typedef typename Acc<S>::T T;
+  const CasperStage& st = a.stage[0];
+  if (st.star == CASPER_CORE27) {
+    stream_body(in, out, a, Core27Op<T>(a, st));
+  } else if (st.star == 3) {
+    stream_body(in, out, a, Star7Op<T>(a, st));
+  } else {
+    stream_body(in, out, a, TabledOp<T>{a, st});
+  }
+}
+
+// Dynamic shared memory of one CTA: both buffers in the accumulator type
+// (the streamed kernel: its rings and offset tables).
 template <typename S>
 static size_t smem_bytes(const CasperArgs* a) {
   typedef typename Acc<S>::T T;
+  if (a->stream) return stream_smem_bytes<S>(a);
   const Layout l = layout_of<S>(*a);
   return ((size_t)l.elems[0] + (size_t)l.elems[1]) * sizeof(T);
+}
+
+// CTAs of a launch: every tile of every batch element, all on gridDim.x
+// (at most 2**31 - 1; repro_torch.core.plan.launch_blocks mirrors this),
+// so a batch is not held to gridDim.y's 65,535.  0 when it does not fit.
+static unsigned int launch_blocks(const CasperArgs* a) {
+  long long blocks = a->batch;
+  for (int d = 0; d < 3; ++d) blocks *= (a->out[d] + a->tile[d] - 1) / a->tile[d];
+  return blocks < (1LL << 31) ? (unsigned int)blocks : 0u;
 }
 
 template <typename S, int R>
 static int launch_rank(const void* in, void* out, const CasperArgs* a, size_t smem,
                        void* stream) {
+  const unsigned int blocks = launch_blocks(a);
+  if (blocks == 0) return (int)cudaErrorInvalidConfiguration;
+  if (R == 3 && a->stream) {
+    cudaError_t err = cudaFuncSetAttribute(casper_stream_kernel<S>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    casper_stream_kernel<S><<<blocks, CASPER_STREAM_THREADS, smem, (cudaStream_t)stream>>>(
+        static_cast<const S*>(in), static_cast<S*>(out), *a);
+    return (int)cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(casper_chain_kernel<S, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  unsigned int tiles = 1;
-  for (int d = 0; d < 3; ++d) tiles *= (unsigned int)((a->out[d] + a->tile[d] - 1) / a->tile[d]);
-  dim3 grid(tiles, (unsigned int)a->batch);
-  casper_chain_kernel<S, R><<<grid, CASPER_THREADS, smem, (cudaStream_t)stream>>>(
+  casper_chain_kernel<S, R><<<blocks, CASPER_THREADS, smem, (cudaStream_t)stream>>>(
       static_cast<const S*>(in), static_cast<S*>(out), *a);
   return (int)cudaGetLastError();
 }
@@ -659,6 +1255,7 @@ static int launch(int device, const void* in, void* out, const CasperArgs* a,
   if (a->async_load && (sizeof(S) < 4 || a->padded || a->tile[2] % vec ||
                         (a->src[2] * sizeof(S)) % 16 || (uintptr_t)in % 16))
     return (int)cudaErrorInvalidValue;
+  if (a->stream && (a->rank != 3 || a->n_stages != 1)) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<S>(a);
   switch (a->rank) {
     case 1: return launch_rank<S, 1>(in, out, a, smem, stream);

@@ -1,9 +1,12 @@
-// Sliding-window attention kernel K5, float32 path, on the CUDA cores
-// (sm_90a).  bfloat16 runs on the tensor cores in swa_wgmma.cu.
+// Sliding-window attention kernel K5, float32 and float16 paths, on the
+// CUDA cores (sm_90a).  bfloat16 runs on the tensor cores in swa_wgmma.cu.
 //
 // Replaces (TPU/Pallas kernel of the reference package):
 //   K5  src/repro/kernels/swa.py  _kernel  (sliding_window_attention, ops.swa)
-// for float32 q/k/v.
+// for float32 and float16 q/k/v.  float16 is the f32 kernel on another
+// storage type: q/k/v are widened to f32 on load and the output rounded
+// once to f16 at the store, the reference's own arithmetic (it widens
+// q/k/v to f32).
 //
 // What it computes: windowed-causal GQA attention.  q is (B, Hq, S, D),
 // k/v are (B, Hkv, S, D) with G = Hq / Hkv query heads per KV head; query
@@ -40,6 +43,12 @@
 //   l > 0 for every real row.
 // * Built with -fmad=false; the products that should fuse are written
 //   as fmaf.
+// * Head dims: instances at D = 16, 32, 64, 128, 256.  A head dim d that
+//   is a multiple of 16 below an instance's D (zamba2_7b's 112 on 128,
+//   nemotron4_340b's 192 on 256) runs on it: columns d..D-1 load as zero
+//   (they add exact zeros to every dot product), rows are d apart in
+//   device memory, and only the d columns are stored; the scale is
+//   1/sqrt(d).
 //
 // Bound on this card: operations.  At gemma2-27b's local layer
 // (B=1, Hq=32, Hkv=16, D=128, S=8192, W=4096) the useful work is
@@ -53,6 +62,7 @@
 // ctypes.Structure (SwaArgs in kernels/swa.py); casper_swa_args_size()
 // lets the loader check the layout.
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -62,7 +72,7 @@ struct SwaArgs {
   int hq;           // query heads
   int hkv;          // key/value heads, hq % hkv == 0
   int seq;          // S
-  int head_dim;     // D (one of the instantiated head dims)
+  int head_dim;     // d, a multiple of 16 up to the instance's D
   int window;       // W, clamped to S by the caller
   int tq;           // query tile (positions), clamped to S by the caller
   int has_softcap;  // 0 or 1
@@ -74,11 +84,19 @@ struct SwaArgs {
 #define SWA_RB 64  // query rows per CTA
 #define SWA_KC 64  // keys per chunk
 
+// four consecutive elements widened to f32, and one rounded store
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__half* p, float x) { *p = __float2half_rn(x); }
 
 template <int D>
 constexpr size_t swa_smem_bytes() {
@@ -86,16 +104,18 @@ constexpr size_t swa_smem_bytes() {
          sizeof(float);
 }
 
-template <int D>
+template <int D, typename S>
 __global__ void __launch_bounds__(SWA_THREADS)
-swa_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, float* __restrict__ out,
+swa_kernel(const S* __restrict__ q, const S* __restrict__ k,
+           const S* __restrict__ v, S* __restrict__ out,
            const __grid_constant__ SwaArgs a) {
   constexpr int DP = D + 4;        // padded row of q/k/v in shared memory
   constexpr int RBP = SWA_RB + 4;  // padded row of the transposed P block
   constexpr int D4 = D / 4;
   constexpr int TN = D / 16;       // output columns per thread
   constexpr int VEC = TN < 4 ? TN : 4;
+  const int dd = a.head_dim;       // the true head dim: row pitch, stored columns
+  const int d4 = dd / 4;
   extern __shared__ __align__(16) float smem[];
   float* const qs = smem;                 // [RB][DP]
   float* const ks = qs + SWA_RB * DP;     // [KC][DP]
@@ -131,8 +151,8 @@ swa_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = r0 + lr;
     const int p = tile * a.tq + r / G;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < r1 && p < a.seq)
-      x = load4(q + (((long long)bh * G + r % G) * a.seq + p) * D + c4 * 4);
+    if (r < r1 && p < a.seq && c4 < d4)
+      x = load4(q + (((long long)bh * G + r % G) * a.seq + p) * dd + c4 * 4);
     *reinterpret_cast<float4*>(qs + lr * DP + c4 * 4) = x;
   }
 
@@ -157,8 +177,8 @@ swa_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int j = idx / D4, c4 = idx % D4;
       const int key = c0 + j;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (key <= p_hi) {
-        const long long off = (kv_base + key) * D + c4 * 4;
+      if (key <= p_hi && c4 < d4) {
+        const long long off = (kv_base + key) * dd + c4 * 4;
         kx = load4(k + off);
         vx = load4(v + off);
       }
@@ -263,20 +283,22 @@ swa_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     if (!live[i]) continue;
     const int r = r0 + tr * 4 + i;
-    float* const dst = out + (((long long)bh * G + r % G) * a.seq + pos[i]) * D;
+    S* const dst = out + (((long long)bh * G + r % G) * a.seq + pos[i]) * dd;
 #pragma unroll
     for (int u = 0; u < TN / VEC; ++u)
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        store1(dst + u * 16 * VEC + tc * VEC + e, acc[i][u * VEC + e] / l[i]);
+      for (int e = 0; e < VEC; ++e) {
+        const int col = u * 16 * VEC + tc * VEC + e;
+        if (col < dd) store1(dst + col, acc[i][u * VEC + e] / l[i]);
+      }
   }
 }
 
-template <int D>
-static cudaError_t launch_d(const float* q, const float* k, const float* v, float* out,
+template <int D, typename S>
+static cudaError_t launch_d(const S* q, const S* k, const S* v, S* out,
                             const SwaArgs* a, cudaStream_t stream) {
   const size_t smem = swa_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(swa_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(swa_kernel<D, S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long rows = (long long)(a->hq / a->hkv) * a->tq;
@@ -284,22 +306,29 @@ static cudaError_t launch_d(const float* q, const float* k, const float* v, floa
                            ((rows + SWA_RB - 1) / SWA_RB) *
                            ((a->seq + a->tq - 1) / a->tq);
   if (rows >= (1LL << 31) || blocks >= (1LL << 31)) return cudaErrorInvalidConfiguration;
-  swa_kernel<D><<<(unsigned int)blocks, SWA_THREADS, smem, stream>>>(q, k, v, out, *a);
+  swa_kernel<D, S><<<(unsigned int)blocks, SWA_THREADS, smem, stream>>>(q, k, v, out, *a);
   return cudaGetLastError();
 }
 
+// the built head dim serving d (the smallest instance at least d), or 0
+static int instance_dim(int d) {
+  if (d % 16 || d < 16 || d > 256) return 0;
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+
+template <typename S>
 static int launch(int device, const void* q, const void* k, const void* v, void* out,
                   const SwaArgs* a, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (a->hkv < 1 || a->hq % a->hkv || a->seq < 1 || a->window < 1 || a->tq < 1)
     return (int)cudaErrorInvalidValue;
-  const float* qp = static_cast<const float*>(q);
-  const float* kp = static_cast<const float*>(k);
-  const float* vp = static_cast<const float*>(v);
-  float* op = static_cast<float*>(out);
+  const S* qp = static_cast<const S*>(q);
+  const S* kp = static_cast<const S*>(k);
+  const S* vp = static_cast<const S*>(v);
+  S* op = static_cast<S*>(out);
   cudaStream_t st = (cudaStream_t)stream;
-  switch (a->head_dim) {
+  switch (instance_dim(a->head_dim)) {
     case 16: err = launch_d<16>(qp, kp, vp, op, a, st); break;
     case 32: err = launch_d<32>(qp, kp, vp, op, a, st); break;
     case 64: err = launch_d<64>(qp, kp, vp, op, a, st); break;
@@ -316,7 +345,12 @@ int casper_swa_args_size(void) { return (int)sizeof(SwaArgs); }
 
 int casper_swa_f32(int device, const void* q, const void* k, const void* v, void* out,
                    const void* args, void* stream) {
-  return launch(device, q, k, v, out, static_cast<const SwaArgs*>(args), stream);
+  return launch<float>(device, q, k, v, out, static_cast<const SwaArgs*>(args), stream);
+}
+
+int casper_swa_f16(int device, const void* q, const void* k, const void* v, void* out,
+                   const void* args, void* stream) {
+  return launch<__half>(device, q, k, v, out, static_cast<const SwaArgs*>(args), stream);
 }
 
 const char* casper_swa_error_string(int err) {

@@ -27,7 +27,17 @@
 //   position p0 + t, so each head's rows are one TMA box of q.
 //   P = floor(128 / G) rounded down to a multiple of 8 (a box must start
 //   on a swizzle atom of 8 rows); the rows past G*P are spare, never
-//   stored.  G = 2: P = 64.  G > 16 is refused.
+//   stored.  G = 2: P = 64.  Past 16 query heads per KV head the group
+//   is split over ceil(G / 16) CTAs of GC = ceil(G / split) heads each
+//   (one more grid axis), each with P = positions for GC heads and its
+//   own K/V reads (G = 32: two CTAs of 16 heads, P = 8); K/V are never
+//   copied.
+// * Head dims: instances at D = 16, 32, 64, 128, 256.  A head dim d that
+//   is a multiple of 16 below an instance's D (zamba2_7b's 112 on 128,
+//   nemotron4_340b's 192 on 256) runs on it: the tensor maps are d wide,
+//   so TMA fills the box columns d..D-1 with zeros (they add exact zeros
+//   to Q.K^T and give zero output columns, never stored); the scale is
+//   1/sqrt(d), set by the host.
 // * The block walks only its key range [max(0, p0 - W + 1), p_hi] of the
 //   unpadded K/V in chunks of KC keys (128, or 64 at D = 256).  A box that
 //   reaches past S reads zeros; those keys are masked anyway.
@@ -99,9 +109,10 @@ struct SwaTcArgs {
   int hq;           // query heads
   int hkv;          // key/value heads, hq % hkv == 0
   int seq;          // S
-  int head_dim;     // D (one of the instantiated head dims)
+  int head_dim;     // d, a multiple of 16 up to the instance's D
   int window;       // W, clamped to S by the caller
-  int positions;    // P, query positions per CTA (multiple of 8, G*P <= 128)
+  int positions;    // P, query positions per CTA (multiple of 8, heads*P <= 128)
+  int heads;        // GC, query heads per CTA (all G, or a share of a split group)
   int has_softcap;  // 0 or 1
   float scale;      // 1/sqrt(D) in f32
   float softcap;
@@ -417,10 +428,17 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
 
   const int G = a.hq / a.hkv;
   const int P = a.positions;
+  const int dd = a.head_dim;  // true head dim: row pitch of the output, stored columns
   const int n_pb = (a.seq + P - 1) / P;
   const int n_bh = a.batch * a.hkv;
+  const int n_split = (G + a.heads - 1) / a.heads;
+  // blockIdx.x: (batch, KV head) fastest, then the group's split, then
+  // position blocks from the last down
   const int bh = (int)(blockIdx.x % (unsigned)n_bh);
-  const int pb = n_pb - 1 - (int)(blockIdx.x / (unsigned)n_bh);
+  const int rest = (int)(blockIdx.x / (unsigned)n_bh);
+  const int g_base = (rest % n_split) * a.heads;     // first query head of the CTA
+  const int GL = min(a.heads, G - g_base);           // query heads in the CTA
+  const int pb = n_pb - 1 - rest / n_split;
   const int b = bh / a.hkv, h = bh % a.hkv;
   const int p0 = pb * P;
   const int p_hi = min(a.seq - 1, p0 + P - 1);
@@ -441,11 +459,11 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
     // ---- producer warpgroup: every TMA copy, from one thread --------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == TC_CONSUMERS) {
-      mbar_expect_tx(bar_q, G * P * D * 2);
-      for (int g = 0; g < G; ++g)
+      mbar_expect_tx(bar_q, GL * P * D * 2);
+      for (int g = 0; g < GL; ++g)
         for (int pn = 0; pn < C::NP; ++pn)
           tma_load_3d(q_s + pn * TC_ROWS * SW + g * P * SW, &tm_q, bar_q, pn * PE, p0,
-                      (b * a.hkv + h) * G + g);
+                      (b * a.hkv + h) * G + g_base + g);
       for (int j = 0; j < n_chunks; ++j) {
         const int st = j % TC_STAGES;
         mbar_wait(bar_empty + 8 * st, ((j / TC_STAGES) & 1) ^ 1);
@@ -477,8 +495,9 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
       const int r = wg * 64 + warp * 16 + (lane >> 2) + 8 * i;
       const int g = r / P;
       pos[i] = p0 + (r - g * P);
-      live[i] = g < G && pos[i] < a.seq;
-      out_off[i] = live[i] ? (((long long)(b * a.hkv + h) * G + g) * a.seq + pos[i]) * D : 0;
+      live[i] = g < GL && pos[i] < a.seq;
+      out_off[i] =
+          live[i] ? (((long long)(b * a.hkv + h) * G + g_base + g) * a.seq + pos[i]) * dd : 0;
     }
 
     float o[D / 2];
@@ -623,8 +642,9 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
       __nv_bfloat16* dst = out + out_off[i] + 2 * quad;
 #pragma unroll
       for (int jn = 0; jn < D / 8; ++jn)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jn) = __floats2bfloat162_rn(
-            o[4 * jn + 2 * i] / l[i], o[4 * jn + 2 * i + 1] / l[i]);
+        if (8 * jn + 2 * quad < dd)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jn) = __floats2bfloat162_rn(
+              o[4 * jn + 2 * i] / l[i], o[4 * jn + 2 * i + 1] / l[i]);
     }
   }
 }
@@ -654,7 +674,8 @@ static EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// (B*H, S, D) bf16 rows, boxes of PE columns x `rows` positions x 1 head
+// (B*H, S, d) bf16 rows, boxes of PE columns x `rows` positions x 1 head;
+// box columns past d read as zero
 static bool encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int heads, int seq, int d,
                    int pe, int rows, int swizzle_bytes) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq, (cuuint64_t)heads};
@@ -676,15 +697,17 @@ static int launch_d(const void* q, const void* k, const void* v, void* out, cons
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return TC_ERR_ENTRY;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode(fn, &tm_q, q, a->batch * a->hq, a->seq, D, C::PE, a->positions, C::SW) ||
-      !encode(fn, &tm_k, k, a->batch * a->hkv, a->seq, D, C::PE, C::KC, C::SW) ||
-      !encode(fn, &tm_v, v, a->batch * a->hkv, a->seq, D, C::PE, C::KC, C::SW))
+  const int d = a->head_dim;
+  if (!encode(fn, &tm_q, q, a->batch * a->hq, a->seq, d, C::PE, a->positions, C::SW) ||
+      !encode(fn, &tm_k, k, a->batch * a->hkv, a->seq, d, C::PE, C::KC, C::SW) ||
+      !encode(fn, &tm_v, v, a->batch * a->hkv, a->seq, d, C::PE, C::KC, C::SW))
     return TC_ERR_ENCODE;
   cudaError_t err = cudaFuncSetAttribute(swa_tc_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks =
-      (long long)a->batch * a->hkv * ((a->seq + a->positions - 1) / a->positions);
+  const long long split = (a->hq / a->hkv + a->heads - 1) / a->heads;
+  const long long blocks = (long long)a->batch * a->hkv * split *
+                           ((a->seq + a->positions - 1) / a->positions);
   if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidConfiguration;
   swa_tc_kernel<D><<<(unsigned int)blocks, TC_THREADS, C::SMEM, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), *a);
@@ -713,10 +736,13 @@ int casper_swa_tc_bf16(int device, const void* q, const void* k, const void* v, 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (a->hkv < 1 || a->hq % a->hkv || a->seq < 1 || a->window < 1 || a->positions < 8 ||
-      a->positions % 8 || (a->hq / a->hkv) * a->positions > TC_ROWS)
+      a->positions % 8 || a->heads < 1 || a->heads > a->hq / a->hkv ||
+      a->heads * a->positions > TC_ROWS || a->head_dim % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (a->head_dim) {
+  const int d = a->head_dim;
+  switch (d < 16 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128
+                   : d <= 256 ? 256 : 0) {
     case 16: return launch_d<16>(q, k, v, out, a, st);
     case 32: return launch_d<32>(q, k, v, out, a, st);
     case 64: return launch_d<64>(q, k, v, out, a, st);

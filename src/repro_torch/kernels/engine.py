@@ -29,7 +29,11 @@ every tile gathered at once as a leading batch.  A wrapper takes the
 plain version only for a CPU tensor; for a CUDA tensor it launches the
 kernel or raises.  Each kernel counts its launches in :data:`LAUNCHES`.
 The kernels take float32, float64 and bfloat16 (computed in f32 and
-rounded once at the store, as the reference accumulates).
+rounded once at the store, as the reference accumulates).  K1/K2 of a
+rank-3 spec stream each tile plane by plane along dim 0
+(:func:`repro_torch.core.plan.stream_layout`); a tile there is a chunk of
+``tile[0]`` planes of an xy tile.  A launch puts every tile of every
+batch element on one grid axis (:func:`repro_torch.core.plan.launch_blocks`).
 """
 from __future__ import annotations
 
@@ -99,6 +103,7 @@ class CasperArgs(ctypes.Structure):
         ("padded", ctypes.c_int), ("rank", ctypes.c_int),
         ("sweeps", ctypes.c_int), ("batch", ctypes.c_int),
         ("n_stages", ctypes.c_int), ("async_load", ctypes.c_int),
+        ("stream", ctypes.c_int), ("n_foff", ctypes.c_int),
         ("grid", _I3), ("tile", _I3), ("halo", _I3), ("src", _I3),
         ("out", _I3), ("origin", _I3),
         ("tiles", ctypes.c_void_p),
@@ -109,6 +114,8 @@ class CasperArgs(ctypes.Structure):
         ("fac_first", ctypes.c_int * _MAX_FACS),
         ("fac_n", ctypes.c_int * _MAX_FACS),
         ("foff_lin", (ctypes.c_int * _MAX_FOFF) * 2),
+        ("tap_dz", ctypes.c_int * _MAX_TAPS),
+        ("foff_dz", ctypes.c_int * _MAX_FOFF),
         ("tap_c", ctypes.c_double * _MAX_TAPS),
         ("fc", ctypes.c_double * _MAX_FOFF),
     ]
@@ -144,7 +151,9 @@ def _pack_stages(a: CasperArgs, spec, layout=None) -> None:
     """Fill the stage table and the pooled tap/term tables of ``a`` for
     ``spec`` (a spec: one stage; a pipeline: its stages), with tap and
     factor offsets made linear on ``layout``'s two buffers
-    (:func:`repro_torch.core.plan.kernel_layout`; ``None`` leaves them 0).
+    (:func:`repro_torch.core.plan.kernel_layout`, or the in-plane offsets
+    of :func:`repro_torch.core.plan.stream_layout` with each offset's
+    dim-0 part apart in ``tap_dz``/``foff_dz``; ``None`` leaves them 0).
     Raises ``ValueError`` when the chain exceeds the pools."""
     stages = as_stages(spec)
     if len(stages) > _MAX_STAGES:
@@ -163,15 +172,18 @@ def _pack_stages(a: CasperArgs, spec, layout=None) -> None:
                              "all stages")
         s.tap_first, s.n_taps = ntap, st.n_taps
         for off, c in st.taps:
+            off3 = _rank3(off, pad, 0)
             if layout is not None:
                 for b in range(2):
-                    a.tap_lin[b][ntap] = layout.offset(b, _rank3(off, pad, 0))
+                    a.tap_lin[b][ntap] = layout.offset(b, off3)
+            a.tap_dz[ntap] = off3[0]
             a.tap_c[ntap] = c
             ntap += 1
         terms = (None if st.structure == "dense"
                  else _classify(nd, st.taps).compute_terms) or ()
         s.term_first, s.n_terms = nterm, len(terms)
-        s.star = nd if not terms and _is_unit_star(st) else 0
+        s.star = (nd if not terms and _is_unit_star(st)
+                  else _CORE27 if _is_core27(nd, terms) else 0)
         for term in terms:
             if nterm >= _MAX_TERMS or nfac + len(term.factors) > _MAX_FACS:
                 raise ValueError(f"{spec.name}: too many factored terms")
@@ -182,14 +194,36 @@ def _pack_stages(a: CasperArgs, spec, layout=None) -> None:
                     raise ValueError(f"{spec.name}: too many factor offsets")
                 a.fac_first[nfac], a.fac_n[nfac] = noff, len(f.offsets)
                 for o, c in zip(f.offsets, f.coeffs):
+                    off3 = [0, 0, 0]
+                    off3[f.axis + pad] = o
                     if layout is not None:
-                        off3 = [0, 0, 0]
-                        off3[f.axis + pad] = o
                         for b in range(2):
                             a.foff_lin[b][noff] = layout.offset(b, off3)
+                    a.foff_dz[noff] = off3[0]
                     a.fc[noff] = c
                     noff += 1
                 nfac += 1
+    a.n_foff = noff
+
+
+#: ``CasperStage.star`` of a stage the streamed kernel runs as star33_3d's
+#: structure with its coefficients in registers (``Core27``).
+_CORE27 = 27
+
+
+def _is_core27(nd: int, terms) -> bool:
+    """Whether factored ``terms`` are star33_3d's: one separable term of
+    three factors of offsets (-1, 0, 1) along dims 0, 1, 2, then one term
+    of offsets (-2, 2) along each of dims 0, 1 and 2, in that order."""
+    if nd != 3 or not terms or len(terms) != 4:
+        return False
+    core = terms[0].factors
+    if [(f.axis, tuple(f.offsets)) for f in core] != [
+            (d, (-1, 0, 1)) for d in range(3)]:
+        return False
+    return all(len(t.factors) == 1 and t.factors[0].axis == d
+               and tuple(t.factors[0].offsets) == (-2, 2)
+               for d, t in enumerate(terms[1:]))
 
 
 def _is_unit_star(st: StencilSpec) -> bool:
@@ -225,13 +259,16 @@ def _args(spec, padded: bool, sweeps: int, batch: int,
     a = CasperArgs()
     a.padded, a.rank, a.sweeps, a.batch = int(padded), spec.ndim, sweeps, batch
     a.async_load = int(async_load)
+    a.stream = int(_plan.streams(spec))
     a.grid[:] = _rank3(grid_shape, pad, 1)
     a.tile[:] = _rank3(tile, pad, 1)
     a.halo[:] = _rank3(spec.halo, pad, 0)
     a.src[:] = _rank3(src, pad, 1)
     a.out[:] = _rank3(out, pad, 1)
     a.origin[:] = _rank3(origin, pad, 0)
-    _pack_stages(a, spec, _plan.kernel_layout(tile, spec, sweeps, itemsize))
+    layout = (_plan.stream_layout(tile, spec, sweeps, itemsize) if a.stream
+              else _plan.kernel_layout(tile, spec, sweeps, itemsize))
+    _pack_stages(a, spec, layout)
     return a
 
 
@@ -242,6 +279,7 @@ def _launch(kernel: str, spec, src: torch.Tensor, out: torch.Tensor, *,
     stream.  A pad-free launch loads its interior windows on the path
     :func:`repro_torch.core.plan.load_path` fixes from the shape, tile,
     dtype and alignment; padded windows load element by element."""
+    _plan.launch_blocks(out_shape, tile, src.shape[0])
     lib = _lib()
     padded = kernel in ("K2", "K4")
     itemsize = src.element_size()
@@ -265,7 +303,8 @@ def _launch(kernel: str, spec, src: torch.Tensor, out: torch.Tensor, *,
     LAUNCHES[kernel] += 1
     if counter is not None:
         _TILE_RECORDS.append({
-            "kernel": kernel, "path": path, "tiles": counter,
+            "kernel": kernel, "path": path, "stream": bool(a.stream),
+            "tiles": counter,
             "smem_launch": lib.casper_smem_bytes(ctypes.addressof(a),
                                                  itemsize),
             "smem_plan": _plan.smem_bytes(tile, spec, sweeps, itemsize)})
@@ -273,9 +312,10 @@ def _launch(kernel: str, spec, src: torch.Tensor, out: torch.Tensor, *,
 
 def count_tiles(on: bool = True) -> None:
     """Start (clearing what was kept) or stop keeping a record of every
-    K1-K4 launch: its kernel, load path, the interior and rim tiles it
-    ran (device counters, read by :func:`tile_records`) and its shared
-    memory beside :func:`repro_torch.core.plan.smem_bytes`."""
+    K1-K4 launch: its kernel, load path, whether it streamed (rank 3),
+    the interior and rim tiles it ran (device counters, read by
+    :func:`tile_records`) and its shared memory beside
+    :func:`repro_torch.core.plan.smem_bytes`."""
     global _TILE_RECORDS
     _TILE_RECORDS = [] if on else None
 
@@ -525,8 +565,8 @@ def _sweep(spec, grid, tile, sweeps, strategy) -> torch.Tensor:
     pipeline = isinstance(spec, StencilPipeline)
     g, batched = _batched(spec, grid, "grid")
     itemsize = g.element_size()
-    tile = _plan.normalize_tile(spec, tile, sweeps, itemsize)
     n_shape = tuple(g.shape[1:])
+    tile = _plan.normalize_tile(spec, tile, sweeps, itemsize, n_shape)
     if strategy is None:
         strategy = _plan.ghost_strategy_for(spec, n_shape, itemsize, sweeps,
                                             tile)
@@ -674,9 +714,7 @@ def hbm_traffic(spec: StencilSpec, shape: Sequence[int],
     ``tile + 2*sweeps*halo`` window once and writing its tile once;
     ``unfused``: ``sweeps`` single-sweep calls of the padded pipeline,
     each with its ``pad_boundary`` round trip."""
-    if tile is None:
-        tile = _plan.default_tile(spec, sweeps, itemsize)
-    tile = tuple(tile)
+    tile = _plan.normalize_tile(spec, tile, sweeps, itemsize, shape)
     halo = spec.halo
     n_tiles = math.prod(-(-n // t) for n, t in zip(shape, tile))
     out_b = math.prod(tile) * itemsize

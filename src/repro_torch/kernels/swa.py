@@ -39,9 +39,20 @@ NEG_INF = -1e30
 #: K5's CUDA source and C entry per dtype: bf16 on the tensor cores,
 #: f32 on the CUDA cores.
 _ENTRY = {torch.float32: ("swa.cu", "casper_swa_f32"),
+          torch.float16: ("swa.cu", "casper_swa_f16"),
           torch.bfloat16: ("swa_wgmma.cu", "casper_swa_tc_bf16")}
 #: Head dims K5 is instantiated for (both sources).
 HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def instance_dim(d: int) -> int:
+    """The built head dim that serves head dim ``d``: the smallest of
+    :data:`HEAD_DIMS` at least ``d``; 0 unless ``d`` is a multiple of 16
+    in [16, 256] (nemotron4_340b's 192 runs on 256, zamba2_7b's 112 on
+    128)."""
+    if d % 16 or not 16 <= d <= HEAD_DIMS[-1]:
+        return 0
+    return next(h for h in HEAD_DIMS if h >= d)
 
 # The tensor-core kernel's block geometry (csrc/swa_wgmma.cu), also walked
 # by the CPU mirror of its arithmetic in the tests.
@@ -53,15 +64,24 @@ TC_TERMS = 3
 
 def tc_chunk_keys(d: int) -> int:
     """Keys per K/V chunk of the tensor-core kernel at head dim ``d``."""
-    return 64 if d == 256 else 128
+    return 64 if instance_dim(d) == 256 else 128
 
 
 def tc_positions(g: int) -> int:
     """Query positions per CTA of the tensor-core kernel for ``g`` query
-    heads per KV head: ``TC_ROWS // g`` rounded down to a multiple of 8
+    heads in the CTA: ``TC_ROWS // g`` rounded down to a multiple of 8
     (each head's rows are one TMA box, which starts on a swizzle atom of
-    8 rows); 0 where ``g > 16`` (refused)."""
+    8 rows); 0 where ``g > 16`` (more heads than one CTA holds)."""
     return TC_ROWS // g // 8 * 8
+
+
+def tc_heads_per_cta(g: int) -> int:
+    """Query heads per CTA of the tensor-core kernel for ``g`` query
+    heads per KV head: all ``g`` up to 16; above, the group is split into
+    ``ceil(g / 16)`` CTAs of equal size (the last one smaller where it
+    does not divide), each reading the KV head's K/V itself."""
+    split = -(-g // 16)
+    return -(-g // split)
 
 
 def swa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
@@ -159,7 +179,7 @@ class SwaTcArgs(ctypes.Structure):
         ("batch", ctypes.c_int), ("hq", ctypes.c_int), ("hkv", ctypes.c_int),
         ("seq", ctypes.c_int), ("head_dim", ctypes.c_int),
         ("window", ctypes.c_int), ("positions", ctypes.c_int),
-        ("has_softcap", ctypes.c_int),
+        ("heads", ctypes.c_int), ("has_softcap", ctypes.c_int),
         ("scale", ctypes.c_float), ("softcap", ctypes.c_float),
     ]
 
@@ -202,7 +222,8 @@ def _launch(q, k, v, out, window: int, tq: int,
                   scale=1.0 / math.sqrt(d),
                   softcap=0.0 if softcap is None else float(softcap))
     if q.dtype == torch.bfloat16:
-        a = SwaTcArgs(positions=tc_positions(hq // hkv), **common)
+        heads = tc_heads_per_cta(hq // hkv)
+        a = SwaTcArgs(positions=tc_positions(heads), heads=heads, **common)
     else:
         a = SwaArgs(tq=min(int(tq), s), **common)
     lib = _lib(source)
@@ -231,10 +252,10 @@ def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
 
     On CPU tensors: :func:`sliding_window_attention_plain`.  On CUDA
     tensors: one K5 launch, or an error — K5 takes contiguous, 16-byte
-    aligned float32 or bfloat16 q/k/v of one dtype with ``D`` in
-    :data:`HEAD_DIMS`, and any ``tq >= 1`` (the query tile; the result
-    does not depend on it).  bfloat16 runs on the tensor cores and takes
-    at most 16 query heads per KV head; float32 runs on the CUDA cores."""
+    aligned float32, float16 or bfloat16 q/k/v of one dtype with ``D`` a
+    multiple of 16 up to 256, and any ``tq >= 1`` (the query tile; the
+    result does not depend on it).  bfloat16 runs on the tensor cores,
+    float32 and float16 on the CUDA cores."""
     b, hq, hkv, s, d = _check_shapes(q, k, v, window, tq)
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
@@ -244,18 +265,16 @@ def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"K5 takes float32 or bfloat16 q/k/v of one dtype, "
-                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"K5 is built for head dims {HEAD_DIMS}, got {d}")
+        raise TypeError(f"K5 takes float32, float16 or bfloat16 q/k/v of one "
+                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if not instance_dim(d):
+        raise ValueError(f"K5 takes head dims that are multiples of 16 up "
+                         f"to {HEAD_DIMS[-1]}, got {d}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"K5 needs a contiguous, 16-byte aligned {name}")
     if s >= 2 ** 30:
         raise ValueError(f"K5 takes sequences below 2**30, got {s}")
-    if q.dtype == torch.bfloat16 and tc_positions(hq // hkv) < 8:
-        raise ValueError(f"bf16 K5 takes at most 16 query heads per KV "
-                         f"head, got {hq // hkv}")
     out = torch.empty_like(q)
     if out.numel():
         _launch(q, k, v, out, window, tq, softcap)

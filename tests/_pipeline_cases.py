@@ -3,10 +3,13 @@
 Copies of the reference fuzz harness's generator and corpus
 (``tests/test_pipeline_fuzz.py``), building ``repro_torch`` specs from
 numpy alone, so that both the CPU parity tests and ``chip_smoke.py`` (on
-the card, without JAX) run the same chains.  A case is determined by its
+the card, without JAX) run the same chains; and two separable rank-3
+specs beside the paper's (:func:`separable_3d_specs`).  A case is determined by its
 seed: the same seed gives the reference harness's taps, coefficients,
 boundaries and structures.
 """
+import itertools
+
 import numpy as np
 
 from repro_torch.core.stencil import StencilPipeline, StencilSpec
@@ -58,3 +61,22 @@ def random_pipeline(seed: int, ndim: int, periodic: bool,
                     f"fz{seed}_s{k}")
         for k in range(n_stages))
     return StencilPipeline(f"fuzz_pipe_{seed}", stages)
+
+
+def separable_3d_specs(boundary: str = "zero") -> list[StencilSpec]:
+    """Rank-3 separable specs other than star33_3d, whose factored terms
+    the streamed kernel reads through its offset tables: ``box3d``, a
+    3x3x3 outer product (one term of three factors, dim 0 innermost), and
+    ``planebox3d``, a 3x3 box in dims 1-2 (a term of two factors, no dim
+    0) plus dim-0 arms (a one-factor term).  Dyadic coefficients, so the
+    taps factor exactly."""
+    a, b, c = (0.25, 0.5, 0.25), (0.375, 0.5, 0.125), (0.125, 0.75, 0.125)
+    box = tuple(((i - 1, j - 1, k - 1), a[i] * b[j] * c[k])
+                for i, j, k in itertools.product(range(3), repeat=3))
+    plane = tuple(((0, j - 1, k - 1), b[j] * c[k])
+                  for j, k in itertools.product(range(3), repeat=2))
+    plane += (((-1, 0, 0), 0.0625), ((1, 0, 0), 0.0625))
+    return [StencilSpec("box3d", 3, box, boundary=boundary,
+                        structure="separable"),
+            StencilSpec("planebox3d", 3, plane, boundary=boundary,
+                        structure="separable")]

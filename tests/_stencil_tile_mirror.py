@@ -139,3 +139,227 @@ def fused_block(spec, grid, tile, sweeps):
                      for o, t, n in zip(origin, tile, shape))
         out[tuple(slice(o, o + k.stop) for o, k in zip(origin, keep))] = x[keep]
     return out, n_int, n_rim
+
+
+# ---------------------------------------------------------------------------
+# Rank 3, one stage: the streaming order (planes along the slow axis)
+# ---------------------------------------------------------------------------
+#: Planes the kernel loads ahead of the plane it reads
+#: (``CASPER_STREAM_AHEAD`` in ``csrc/stencil.cu``).
+STREAM_AHEAD = 2
+
+
+def stream_ring_depths(spec):
+    """Planes each level's ring holds, as the kernel allocates them: the
+    ``2*h0 + 1`` planes the next application reads (``h0`` the radius
+    along dim 0) and, for the window (level 0), the planes in flight, for
+    an intermediate the plane formed while those are read."""
+    r = 2 * spec.halo[0] + 1
+    return r + STREAM_AHEAD, r + 1
+
+
+class _Ring:
+    """A ring of planes keyed by global coordinate ``z mod depth``; a
+    read asserts that the slot still holds plane ``z`` (what the kernel
+    relies on without checking)."""
+
+    def __init__(self, depth):
+        self.depth, self.slots = depth, {}
+
+    def put(self, z, plane):
+        self.slots[z % self.depth] = (z, plane)
+
+    def get(self, z):
+        held, plane = self.slots[z % self.depth]
+        assert held == z, f"ring slot holds plane {held}, read {z}"
+        return plane
+
+
+def stream_block(spec, src, tile, sweeps, *, origin=None, grid_shape=None,
+                 out_shape=None):
+    """One fused block of ``sweeps`` applications of a rank-3 spec as the
+    streaming kernel runs it, tile by tile (a tile is a z chunk of an xy
+    tile).  ``src`` is the unpadded grid (K1), or with ``origin`` and
+    ``grid_shape`` a window pre-padded by ``sweeps*halo`` whose interior
+    ``out_shape`` sits at ``origin`` of the global grid (K2).
+
+    Each tile walks its planes along dim 0: a step loads one plane of the
+    window into level 0's ring (``STREAM_AHEAD`` planes ahead of the one
+    it reads) and advances every application by one plane, level 1
+    forming the plane ``h0`` behind the newest window plane and every
+    later level the plane ``h0 + 1`` behind its predecessor's, from the
+    ``2*h0 + 1`` planes of level ``l - 1`` around it, so that a step reads
+    only planes formed at earlier steps (the levels run here from the
+    last to the first, and a ring read of a plane not yet formed fails);
+    the last level writes the output.  Out-of-grid planes of an
+    intermediate take the
+    fill (zero/constant), are formed like any other (periodic), or are
+    never formed (reflect): a read of one goes to its mirror plane, which
+    the ring holds for every in-grid reader.  Within a plane, the ghosts
+    of a rim tile are restored along dim 1, then dim 2, as
+    :func:`restore_rim` does.  Returns ``(out, n_interior, n_rim)``."""
+    padded = origin is not None
+    h = spec.halo
+    s_ = sweeps
+    mode, value = spec.boundary_mode, spec.boundary_value
+    fill = float(value) if mode == "constant" else 0.0
+    grid_shape = tuple(grid_shape or src.shape)
+    out_shape = tuple(out_shape or src.shape)
+    origin = tuple(origin or (0, 0, 0))
+    terms = (None if spec.structure == "dense"
+             else _classify(3, spec.taps).compute_terms)
+    depth0, depth = stream_ring_depths(spec)
+    out = torch.empty(out_shape, dtype=src.dtype)
+    n_int = n_rim = 0
+    for base in tile_origins(out_shape, tile):
+        nz = min(tile[0], out_shape[0] - base[0])
+        g0 = [o + b for o, b in zip(origin, base)]
+        xy_in = all(g0[d] - s_ * h[d] >= 0
+                    and g0[d] + tile[d] + s_ * h[d] <= grid_shape[d]
+                    for d in (1, 2))
+        interior = xy_in and g0[0] - s_ * h[0] >= 0 \
+            and g0[0] + nz + s_ * h[0] <= grid_shape[0]
+        n_int += interior
+        n_rim += not interior
+        rings = [_Ring(depth0)] + [_Ring(depth) for _ in range(s_ - 1)]
+
+        def load(z):
+            """Level 0's plane ``z``: the window's rows and columns of the
+            tile, through the boundary index map (K1) or from the
+            pre-padded window, zero past its end (K2)."""
+            ys = torch.arange(g0[1] - s_ * h[1], g0[1] + tile[1] + s_ * h[1])
+            xs = torch.arange(g0[2] - s_ * h[2], g0[2] + tile[2] + s_ * h[2])
+            if padded:
+                loc = [z - origin[0] + s_ * h[0], ys - origin[1] + s_ * h[1],
+                       xs - origin[2] + s_ * h[2]]
+                ok = [torch.as_tensor(c < n) for c, n in zip(loc, src.shape)]
+                idx = [torch.as_tensor(c).clamp(max=n - 1)
+                       for c, n in zip(loc, src.shape)]
+                plane = src[idx[0]][idx[1][:, None], idx[2][None]]
+                return torch.where(ok[0] & ok[1][:, None] & ok[2][None],
+                                   plane, 0.0)
+            coords = [torch.as_tensor(z), ys, xs]
+            if mode == "periodic":
+                idx = [tref.periodic_index(c, n)
+                       for c, n in zip(coords, grid_shape)]
+                ok = None
+            elif mode == "reflect":
+                idx = [tref.reflect_index(c, n)
+                       for c, n in zip(coords, grid_shape)]
+                ok = None
+            else:
+                idx = [c.clamp(0, n - 1) for c, n in zip(coords, grid_shape)]
+                ok = [(c >= 0) & (c < n) for c, n in zip(coords, grid_shape)]
+            plane = src[idx[0]][idx[1][:, None], idx[2][None]]
+            if ok is not None:
+                plane = torch.where(ok[0] & ok[1][:, None] & ok[2][None],
+                                    plane, fill)
+            return plane
+
+        def read(level, z):
+            """Plane ``z`` of ``level``: a reflect intermediate's
+            out-of-grid plane is its mirror plane."""
+            if level and mode == "reflect" and not 0 <= z < grid_shape[0]:
+                z = tref.reflect_index(z, grid_shape[0])
+            return rings[level].get(z)
+
+        z_first = g0[0] - s_ * h[0]
+        planes0 = nz + 2 * s_ * h[0]
+        for p in range(min(STREAM_AHEAD, planes0)):
+            rings[0].put(z_first + p, load(z_first + p))
+        for j in range(planes0 + s_ - 1):
+            if j + STREAM_AHEAD < planes0:      # issued ahead of its use
+                zp = z_first + j + STREAM_AHEAD
+                rings[0].put(zp, load(zp))
+            for lvl in range(s_, 0, -1):
+                if not 2 * lvl * h[0] + lvl - 1 <= j < planes0 + lvl - 1:
+                    continue
+                zl = z_first + j - lvl * (h[0] + 1) + 1
+                rem = s_ - lvl
+                cur = (tile[1] + 2 * rem * h[1], tile[2] + 2 * rem * h[2])
+                if lvl < s_ and not 0 <= zl < grid_shape[0]:
+                    if mode in ("zero", "constant"):
+                        rings[lvl].put(zl, torch.full(cur, fill,
+                                                      dtype=src.dtype))
+                        continue
+                    if mode == "reflect":
+                        continue
+                x = torch.stack([read(lvl - 1, zl + dz)
+                                 for dz in range(-h[0], h[0] + 1)])
+                acc = tref._window_apply(x, spec.taps, h, (1,) + cur,
+                                         src.dtype, terms)[0]
+                if lvl < s_:
+                    if not xy_in:
+                        acc = restore_rim(acc, mode, value,
+                                          [g0[1] - rem * h[1],
+                                           g0[2] - rem * h[2]],
+                                          grid_shape[1:], cur)
+                    rings[lvl].put(zl, acc)
+                    continue
+                lz = zl - origin[0]
+                ny = min(tile[1], out_shape[1] - base[1])
+                nx = min(tile[2], out_shape[2] - base[2])
+                out[lz, base[1]:base[1] + ny, base[2]:base[2] + nx] = \
+                    acc[:ny, :nx]
+    return out, n_int, n_rim
+
+
+def stream_offset_table(spec, slot_of, row):
+    """The streamed kernel's ``TabledOp`` offsets for one level and step,
+    as ``build_tables`` in ``csrc/stencil.cu`` lays them out: tap ``k`` at
+    ``slot_of(dz) + dy * row + dx``; a factor offset likewise on the
+    innermost factor of its term (the lowest axis, dim 0 where the term
+    has it), and its in-plane part alone on an outer factor, whose offset
+    ``apply_point`` adds to the inner one's.  ``slot_of(dz)`` is the ring
+    offset of the plane at dim-0 offset ``dz``.  Returns ``(taps,
+    factor_offsets)``, each a list of ints in the kernel's order."""
+    taps = [slot_of(o[0]) + o[1] * row + o[2] for o, _ in spec.taps]
+    terms = (None if spec.structure == "dense"
+             else _classify(3, spec.taps).compute_terms) or ()
+    foffs = []
+    for term in terms:
+        for i, f in enumerate(term.factors):
+            for o in f.offsets:
+                off3 = [0, 0, 0]
+                off3[f.axis] = o
+                inner = off3[1] * row + off3[2]
+                foffs.append(slot_of(off3[0]) + inner if i == 0 else inner)
+    return taps, foffs
+
+
+def tabled_apply(spec, flat, at, table):
+    """``apply_point`` of ``csrc/stencil.cu`` at the positions ``at`` (a
+    tensor of indices into ``flat``) through ``table``
+    (:func:`stream_offset_table`): a tap chain summed from zero in tap
+    order, or each factored term as nested sums over its factors
+    (innermost first), the terms summed from zero."""
+    taps, foffs = table
+    terms = (None if spec.structure == "dense"
+             else _classify(3, spec.taps).compute_terms)
+    zero = torch.zeros(at.shape, dtype=flat.dtype)
+    if not terms:
+        acc = zero
+        for (_, c), off in zip(spec.taps, taps):
+            acc = acc + c * flat[at + off]
+        return acc
+    values, first = [], 0
+    for term in terms:
+        spans = []
+        for f in term.factors:
+            spans.append(list(zip(f.coeffs, foffs[first:first + len(f.offsets)])))
+            first += len(f.offsets)
+
+        def nest(level, base):
+            v = zero
+            for c, off in spans[level]:
+                inner = (flat[base + off] if level == 0
+                         else nest(level - 1, base + off))
+                v = v + c * inner
+            return v
+        values.append(nest(len(spans) - 1, at))
+    if len(values) == 1:
+        return values[0]
+    total = zero
+    for v in values:
+        total = total + v
+    return total

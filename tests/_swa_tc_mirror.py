@@ -1,8 +1,9 @@
 """A CPU mirror of the arithmetic of K5's tensor-core kernel
 (``src/repro_torch/kernels/csrc/swa_wgmma.cu``), in plain torch.
 
-It walks the kernel's blocks as the kernel does: per (batch, KV head) and
-block of ``tc_positions(G)`` query positions, the G heads' rows
+It walks the kernel's blocks as the kernel does: per (batch, KV head),
+share of the group (``tc_heads_per_cta(G)`` heads; all G up to 16) and
+block of ``tc_positions(heads)`` query positions, the heads' rows
 head-major; the block's key range ``[max(0, p0 - W + 1), p_hi]`` in
 chunks of ``tc_chunk_keys(D)`` keys (keys past S read as zero);
 bf16-valued q.k summed in f32, then scaled; softcap as
@@ -12,7 +13,10 @@ CUDA's ``tanhf``) elsewhere; the position mask only on chunks
 that straddle ``k <= p`` or ``k > p - W``; a running max and sum with the
 rescale by ``exp2((m_old - m_new) * log2 e)``; p split into ``terms``
 bf16 terms and ``sum_t term_t @ v`` in f32; one division and one
-rounding to bf16.  Only the order of the f32 sums differs from the card.
+rounding to bf16.  A head dim below the kernel's instance (112 on 128,
+192 on 256) is walked at its own width: the instance's extra columns are
+zeros, which add nothing.  Only the order of the f32 sums differs from
+the card.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.swa import tc_chunk_keys, tc_positions
+from repro_torch.kernels.swa import (tc_chunk_keys, tc_heads_per_cta,
+                                    tc_positions)
 
 LOG2E = 1.4426950408889634
 #: tanh_small's coefficients in csrc/swa_wgmma.cu: Q(t) from t^0 up, in
@@ -65,7 +70,8 @@ def swa_tc_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv
-    npos, kc = tc_positions(g), tc_chunk_keys(d)
+    gc = tc_heads_per_cta(g)
+    npos, kc = tc_positions(gc), tc_chunk_keys(d)
     w = min(int(window), s)
     f32 = torch.float32
     scale = torch.tensor(1.0 / math.sqrt(d), dtype=f32)
@@ -73,45 +79,46 @@ def swa_tc_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                         dtype=f32)
     qf, kf, vf = q.float(), k.float(), v.float()
     out = torch.empty(q.shape, dtype=out_dtype)
-    for bi in range(b):
-        for h in range(hkv):
-            for p0 in range(0, s, npos):
-                p_hi = min(s - 1, p0 + npos - 1)
-                n = p_hi - p0 + 1
-                k_lo = max(0, p0 - w + 1)
-                # rows g*npos + t: head g, position p0 + t (zero past S)
-                qb = torch.zeros(g, npos, d, dtype=f32)
-                qb[:, :n] = qf[bi, h * g:(h + 1) * g, p0:p_hi + 1]
-                qb = qb.reshape(g * npos, d)
-                pos = (p0 + torch.arange(npos)).repeat(g)[:, None]
-                m = torch.full((g * npos,), -math.inf, dtype=f32)
-                l = torch.zeros(g * npos, dtype=f32)
-                o = torch.zeros(g * npos, d, dtype=f32)
-                for c0 in range(k_lo, p_hi + 1, kc):
-                    keys = c0 + torch.arange(kc)
-                    nk = min(kc, s - c0)
-                    kb = torch.zeros(kc, d, dtype=f32)
-                    vb = torch.zeros(kc, d, dtype=f32)
-                    kb[:nk] = kf[bi, h, c0:c0 + nk]
-                    vb[:nk] = vf[bi, h, c0:c0 + nk]
-                    x = (qb @ kb.T) * scale
-                    if softcap is not None:
-                        y = x * inv_cap
-                        x = softcap * torch.where(
-                            y.abs() <= TANH_SMALL_MAX, tanh_small(y),
-                            torch.tanh(y))
-                    if not (c0 + kc - 1 <= p0 and c0 > p_hi - w):
-                        ok = (keys[None] <= pos) & (keys[None] > pos - w)
-                        x = torch.where(ok, x, -math.inf)
-                    m_new = torch.maximum(m, x.amax(dim=-1))
-                    m_use = torch.where(m_new == -math.inf, 0.0, m_new)
-                    alpha = torch.exp2((m - m_use) * LOG2E)
-                    p = torch.exp2((x - m_use[:, None]) * LOG2E)
-                    l = l * alpha + p.sum(dim=-1)
-                    o = o * alpha[:, None]
-                    for t in split_bf16(p, terms):
-                        o = o + t @ vb
-                    m = m_new
-                res = (o / l[:, None]).to(out_dtype).reshape(g, npos, d)
-                out[bi, h * g:(h + 1) * g, p0:p_hi + 1] = res[:, :n]
+    blocks = [(bi, h, h * g + g0, min(gc, g - g0), p0)
+              for bi in range(b) for h in range(hkv)
+              for g0 in range(0, g, gc) for p0 in range(0, s, npos)]
+    for bi, h, h0, gl, p0 in blocks:
+        p_hi = min(s - 1, p0 + npos - 1)
+        n = p_hi - p0 + 1
+        k_lo = max(0, p0 - w + 1)
+        # rows j*npos + t: head h0 + j, position p0 + t (zero past S)
+        qb = torch.zeros(gl, npos, d, dtype=f32)
+        qb[:, :n] = qf[bi, h0:h0 + gl, p0:p_hi + 1]
+        qb = qb.reshape(gl * npos, d)
+        pos = (p0 + torch.arange(npos)).repeat(gl)[:, None]
+        m = torch.full((gl * npos,), -math.inf, dtype=f32)
+        l = torch.zeros(gl * npos, dtype=f32)
+        o = torch.zeros(gl * npos, d, dtype=f32)
+        for c0 in range(k_lo, p_hi + 1, kc):
+            keys = c0 + torch.arange(kc)
+            nk = min(kc, s - c0)
+            kb = torch.zeros(kc, d, dtype=f32)
+            vb = torch.zeros(kc, d, dtype=f32)
+            kb[:nk] = kf[bi, h, c0:c0 + nk]
+            vb[:nk] = vf[bi, h, c0:c0 + nk]
+            x = (qb @ kb.T) * scale
+            if softcap is not None:
+                y = x * inv_cap
+                x = softcap * torch.where(
+                    y.abs() <= TANH_SMALL_MAX, tanh_small(y),
+                    torch.tanh(y))
+            if not (c0 + kc - 1 <= p0 and c0 > p_hi - w):
+                ok = (keys[None] <= pos) & (keys[None] > pos - w)
+                x = torch.where(ok, x, -math.inf)
+            m_new = torch.maximum(m, x.amax(dim=-1))
+            m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+            alpha = torch.exp2((m - m_use) * LOG2E)
+            p = torch.exp2((x - m_use[:, None]) * LOG2E)
+            l = l * alpha + p.sum(dim=-1)
+            o = o * alpha[:, None]
+            for t in split_bf16(p, terms):
+                o = o + t @ vb
+            m = m_new
+        res = (o / l[:, None]).to(out_dtype).reshape(gl, npos, d)
+        out[bi, h0:h0 + gl, p0:p_hi + 1] = res[:, :n]
     return out

@@ -14,12 +14,22 @@ held against the reference through its CPU mirror
 * the shared-memory layout (``plan.kernel_layout``) holds every
   intermediate, and the rule that picks the ``cp.async`` load path
   (``plan.load_path``) only picks it where every window starts on the
-  layout's 16-byte lead.
+  layout's 16-byte lead;
+* the streamed rank-3 order of K1/K2 (``stream_block`` in the mirror:
+  rings of planes per application, lead-in planes of each z chunk,
+  out-of-grid planes filled, formed or read from their mirror, rim
+  restoration within a plane) is bitwise equal to the plain versions and
+  to ``repro.core.ref``, for both entries, every boundary, sweeps 1/2/4,
+  ragged xy tiles and z chunks, a shard's window and a batch; its layout
+  (``plan.stream_layout``) fits one block at the default tiles, which
+  ``plan.default_tile`` picks the same way every time;
+* the launch geometry (``plan.launch_blocks``) puts a batch of 70,000
+  grids on one launch, and the default periodic budget sends every
+  periodic grid the device holds to K1.
 
 Inputs come from ``np.random.default_rng``; JAX f64 is scoped with
 ``jax.enable_x64(True)``.
 """
-import math
 
 import jax
 import jax.numpy as jnp
@@ -28,8 +38,10 @@ import pytest
 import torch
 
 from _hypothesis_compat import given, settings, st
-from _pipeline_cases import random_pipeline
+from _pipeline_cases import random_pipeline, separable_3d_specs
 from _stencil_tile_mirror import (fused_block, is_interior, restore_rim,
+                                  stream_block, stream_offset_table,
+                                  stream_ring_depths, tabled_apply,
                                   tile_origins, window_coords)
 from repro.core import PAPER_PIPELINES as J_PIPES
 from repro.core import PAPER_STENCILS as J_SPECS
@@ -217,8 +229,9 @@ def test_async_windows_start_on_the_layout_lead(ndim, sweeps, itemsize,
 
 def test_smem_bytes_of_the_default_tiles():
     """Every paper stencil and pipeline has a default tile that fits,
-    and two CTAs of K1/K3 fit one SM at the 2-D default tile (f64,
-    sweeps=4)."""
+    two CTAs of K1/K3 fit one SM at the 2-D default tile (f64,
+    sweeps=4), and the rank-3 specs stream 32-plane chunks of the widest
+    xy tile whose rings fit."""
     from repro_torch import PAPER_PIPELINES, PAPER_STENCILS
     for spec in list(PAPER_STENCILS.values()) + list(PAPER_PIPELINES.values()):
         tile = tplan.default_tile(spec, 4, 8)
@@ -227,8 +240,9 @@ def test_smem_bytes_of_the_default_tiles():
         if spec.ndim == 2:
             assert tile == (64, 64)
             assert 2 * (need + 1024) <= 233472          # 228 KB per SM
-    assert math.prod(tplan.default_tile(PAPER_STENCILS["star33_3d"], 4, 8)) \
-        == 256
+    assert tplan.default_tile(PAPER_STENCILS["star33_3d"], 4, 8) \
+        == (32, 16, 16)
+    assert tplan.default_tile(PAPER_STENCILS["heat3d"], 4, 8) == (32, 32, 32)
 
 
 def test_unit_stars_are_the_paper_radius_one_stars():
@@ -246,3 +260,270 @@ def test_unit_stars_are_the_paper_radius_one_stars():
     swapped = type(j2)("swapped", 2, (j2.taps[0], j2.taps[2], j2.taps[1])
                        + j2.taps[3:])
     assert not teng._is_unit_star(swapped)
+
+
+# ---------------------------------------------------------------------------
+# Rank 3 streamed along dim 0 (K1/K2 of a 3-D spec)
+# ---------------------------------------------------------------------------
+# (shape, tile): ragged xy tiles and z chunks with interior and rim tiles
+# at sweeps 1, a chunk deeper than the grid, and a grid below the window
+_STREAM_SHAPES = (((23, 21, 26), (7, 6, 8)), ((9, 11, 10), (16, 4, 8)),
+                  ((3, 5, 6), (2, 8, 4)))
+
+
+def _stream_specs():
+    return [(n, b) for n in ("heat3d", "star33_3d") for b in BOUNDARIES]
+
+
+@pytest.mark.parametrize("sweeps", (1, 2, 4))
+@pytest.mark.parametrize("name,boundary", _stream_specs())
+def test_stream_mirror_matches_plain_and_reference(name, boundary, sweeps):
+    """K1's streamed order, bitwise against the plain version (its own
+    3-D tiles) and the JAX oracle; K2's on the same grid's padded window
+    against its plain version."""
+    ref = J_SPECS[name].with_boundary(boundary)
+    port = spec_from_reference(ref)
+    for k, (shape, tile) in enumerate(_STREAM_SHAPES):
+        a = np.random.default_rng(100 * sweeps + k).standard_normal(shape)
+        x = torch.from_numpy(a)
+        got, n_int, n_rim = stream_block(port, x, tile, sweeps)
+        assert n_rim > 0 and (n_int > 0 or k or sweeps > 1)
+        assert torch.equal(got, teng.stencil_sweep_plain(port, x, tile,
+                                                         sweeps))
+        with jax.enable_x64(True):
+            want = np.asarray(jref.run_iterations(ref, jnp.asarray(a),
+                                                  sweeps))
+        np.testing.assert_array_equal(got.numpy(), want)
+        wide = tuple(sweeps * h for h in port.halo)
+        win = tref.pad_boundary(x, wide, port.boundary_mode,
+                                port.boundary_value)
+        got2, _, _ = stream_block(port, win, tile, sweeps, origin=(0, 0, 0),
+                                  grid_shape=shape, out_shape=shape)
+        assert torch.equal(got2, teng.stencil_window_sweep_plain(
+            port, win, shape, (0, 0, 0), shape, tile, sweeps))
+
+
+@pytest.mark.parametrize("boundary", BOUNDARIES)
+def test_stream_mirror_on_separable_specs(boundary):
+    """The streamed order on rank-3 separable specs other than
+    star33_3d (terms of three factors, of two without dim 0, of one),
+    bitwise against the plain version and ``repro.core.ref``, on both
+    entries."""
+    from repro.core.stencil import StencilSpec as JSpec
+    sweeps, shape, tile = 2, (11, 13, 12), (4, 8, 8)
+    for k, port in enumerate(separable_3d_specs(boundary)):
+        ref = JSpec(port.name, 3, port.taps, boundary=boundary,
+                    structure="separable")
+        a = np.random.default_rng(40 + k).standard_normal(shape)
+        x = torch.from_numpy(a)
+        got, _, _ = stream_block(port, x, tile, sweeps)
+        assert torch.equal(got, teng.stencil_sweep_plain(port, x, tile,
+                                                         sweeps))
+        with jax.enable_x64(True):
+            want = np.asarray(jref.run_iterations(ref, jnp.asarray(a),
+                                                  sweeps))
+        np.testing.assert_array_equal(got.numpy(), want)
+        wide = tuple(sweeps * h for h in port.halo)
+        win = tref.pad_boundary(x, wide, port.boundary_mode,
+                                port.boundary_value)
+        got2, _, _ = stream_block(port, win, tile, sweeps, origin=(0, 0, 0),
+                                  grid_shape=shape, out_shape=shape)
+        np.testing.assert_array_equal(got2.numpy(), want)
+
+
+def _table_specs():
+    from repro_torch import PAPER_STENCILS
+    star = PAPER_STENCILS["star33_3d"]
+    return {"heat3d": PAPER_STENCILS["heat3d"], "star33_3d": star,
+            "star33_3d-dense": star.with_structure("dense"),
+            **{s.name: s for s in separable_3d_specs()}}
+
+
+@pytest.mark.parametrize("name", list(_table_specs()))
+def test_stream_offset_tables_read_the_right_planes(name):
+    """The streamed kernel's general evaluator reads each tap through an
+    offset table (ring slot of its plane plus its in-plane offset) and
+    adds a term's factor offsets one inside the other, so only the
+    innermost factor's carry the slot: evaluated that way on planes at
+    scattered ring slots (other slots hold other data), every point
+    equals one application of the spec on the stacked planes, bitwise."""
+    spec = _table_specs()[name]
+    h = spec.halo
+    rng = np.random.default_rng(len(name))
+    lead, cy, cx = 1, 7, 9
+    ny, nx = cy + 2 * h[1], cx + 2 * h[2]
+    row = lead + nx + 3
+    depth = 2 * h[0] + 3
+    order = rng.permutation(depth)
+    slots = {dz: int(order[dz + h[0]]) * ny * row
+             for dz in range(-h[0], h[0] + 1)}
+    flat = torch.from_numpy(rng.standard_normal(depth * ny * row))
+    x = torch.stack([flat[slots[dz]:slots[dz] + ny * row].reshape(ny, row)
+                     [:, lead:lead + nx] for dz in range(-h[0], h[0] + 1)])
+    terms = (None if spec.structure == "dense"
+             else spec.factorization.compute_terms)
+    want = tref._window_apply(x, spec.taps, h, (1, cy, cx), torch.float64,
+                              terms)[0]
+    q1, q2 = torch.meshgrid(torch.arange(cy), torch.arange(cx),
+                            indexing="ij")
+    at = lead + (q1 + h[1]) * row + (q2 + h[2])
+    table = stream_offset_table(spec, slots.__getitem__, row)
+    assert torch.equal(tabled_apply(spec, flat, at, table), want)
+
+
+@pytest.mark.parametrize("boundary", BOUNDARIES)
+def test_stream_mirror_on_a_shard_window(boundary):
+    """K2 on a shard: the window of a block of a larger grid, its ghosts
+    neighbouring data inside the grid and boundary ghosts outside."""
+    spec = spec_from_reference(J_SPECS["star33_3d"].with_boundary(boundary))
+    sweeps, shape = 2, (14, 12, 13)
+    a = torch.from_numpy(np.random.default_rng(7).standard_normal(shape))
+    wide = tuple(sweeps * h for h in spec.halo)
+    full = tref.pad_boundary(a, wide, spec.boundary_mode, spec.boundary_value)
+    origin, out = (5, 0, 4), (7, 12, 9)
+    win = full[tuple(slice(o, o + n + 2 * w)
+                     for o, n, w in zip(origin, out, wide))]
+    got, _, _ = stream_block(spec, win, (4, 8, 4), sweeps, origin=origin,
+                             grid_shape=shape, out_shape=out)
+    want = teng.stencil_window_sweep_plain(spec, win, out, origin, shape,
+                                           (4, 8, 4), sweeps)
+    assert torch.equal(got, want)
+    whole = tref.run_iterations(spec, a, sweeps)
+    assert torch.equal(got, whole[tuple(slice(o, o + n)
+                                        for o, n in zip(origin, out))])
+
+
+def test_stream_mirror_on_a_batch():
+    """A batch: each grid streamed on its own equals the plain version of
+    the batched launch."""
+    spec = spec_from_reference(J_SPECS["heat3d"].with_boundary("reflect"))
+    a = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (3, 10, 9, 12)))
+    want = teng.stencil_sweep_plain(spec, a, (4, 4, 8), 3)
+    got = torch.stack([stream_block(spec, g, (4, 4, 8), 3)[0] for g in a])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("itemsize", (2, 4, 8))
+@pytest.mark.parametrize("sweeps", (1, 2, 3, 4))
+def test_stream_layout_fits_and_default_tile_is_stable(itemsize, sweeps):
+    """The rings and tables of the streamed kernel fit one block's
+    232,448 bytes at the default tile of every rank-3 paper stencil (the
+    forced-dense star33_3d too), levels follow each other without
+    overlap, and the default tile is the same on every call."""
+    from repro_torch import PAPER_STENCILS
+    specs = [PAPER_STENCILS["heat3d"], PAPER_STENCILS["star33_3d"],
+             PAPER_STENCILS["star33_3d"].with_structure("dense")]
+    for spec in specs:
+        tile = tplan.default_tile(spec, sweeps, itemsize)
+        assert tile == tplan.default_tile(spec, sweeps, itemsize)
+        assert tile[0] == 32 and tile in tplan.HOPPER_TILES[3]
+        ly = tplan.stream_layout(tile, spec, sweeps, itemsize)
+        assert tplan.smem_bytes(tile, spec, sweeps, itemsize) == ly.smem
+        assert ly.smem <= tplan._pm.H100_SMEM_PER_BLOCK
+        assert (ly.depth0, ly.depth) == stream_ring_depths(spec)
+        h = spec.halo
+        assert ly.row >= ly.lead + tile[2] + 2 * sweeps * h[2]
+        for lvl, plane in enumerate(ly.planes):
+            assert plane == (tile[1] + 2 * (sweeps - lvl) * h[1]) * ly.row
+        ends = [o + (ly.depth0 if lvl == 0 else ly.depth) * p
+                for lvl, (o, p) in enumerate(zip(ly.level_off, ly.planes))]
+        assert list(ly.level_off[1:]) == ends[:-1]
+        assert ly.table_bytes >= ends[-1] * max(itemsize, 4)
+
+
+@pytest.mark.parametrize("name,shape,sweeps,chunk,strategy", [
+    ("heat3d", (32, 512, 512), 4, 24, "pad-free"),
+    ("star33_3d", (37, 45, 101), 4, 21, "pad-free"),
+    ("star33_3d", (256, 256, 64), 4, 32, "pad-free"),
+    ("heat3d", (9, 40, 40), 4, 1, "pad-free"),
+    ("heat3d", (8, 40, 40), 4, 32, "padded-window"),
+])
+def test_default_chunk_fits_a_shallow_grid(name, shape, sweeps, chunk,
+                                           strategy):
+    """On a grid shallower than a 32-plane chunk's window, the default
+    tile's chunk is cut to the depth less ``2*sweeps*halo[0]``, so the
+    window stays inside the grid and the plan stays pad-free (K1); a grid
+    with no plane to spare keeps the chunk and takes the padded window.
+    The plan, the strategy rule and the wrapper agree on the tile."""
+    from repro_torch import PAPER_STENCILS
+    spec = PAPER_STENCILS[name].with_boundary("reflect")
+    tile = tplan.normalize_tile(spec, None, sweeps, 8, shape)
+    assert tile == (chunk,) + tplan.default_tile(spec, sweeps, 8)[1:]
+    assert tplan.ghost_strategy_for(spec, shape, 8, sweeps, None) == strategy
+    plan = tplan.lower(spec, shape, torch.float64, backend="cuda",
+                       sweeps=sweeps, device="cpu")
+    assert plan.tile == tile and plan.ghost_strategy == strategy
+
+
+@pytest.mark.parametrize("boundary", BOUNDARIES)
+def test_stream_mirror_on_a_shallow_grid(boundary):
+    """A grid shallower than the default chunk's window runs K1 on the cut
+    chunk: the mirror's streamed order there equals the plain version and
+    ``repro.core.ref``, as does the engine's run on the CPU."""
+    from repro_torch import CasperEngine
+    ref = J_SPECS["star33_3d"].with_boundary(boundary)
+    spec = spec_from_reference(ref)
+    sweeps, shape = 2, (13, 40, 36)
+    tile = tplan.normalize_tile(spec, None, sweeps, 8, shape)
+    assert tile[0] == 13 - 2 * sweeps * 2
+    a = np.random.default_rng(13).standard_normal(shape)
+    x = torch.from_numpy(a)
+    got, _, _ = stream_block(spec, x, tile, sweeps)
+    assert torch.equal(got, teng.stencil_sweep_plain(spec, x, tile, sweeps))
+    with jax.enable_x64(True):
+        want = np.asarray(jref.run_iterations(ref, jnp.asarray(a), sweeps))
+    np.testing.assert_array_equal(got.numpy(), want)
+    run = CasperEngine(spec, backend="cuda", sweeps=sweeps,
+                       device="cpu").run(x, iters=sweeps)
+    np.testing.assert_array_equal(run.numpy(), want)
+
+
+def test_core27_flags_only_star33_structure():
+    """The streamed kernel holds star33_3d's factored stage in registers
+    only for its exact structure; the dense form and other stencils go
+    by their taps."""
+    from repro_torch import PAPER_STENCILS
+    from repro_torch.core.stencil import _classify
+
+    def flag(spec):
+        terms = (None if spec.structure == "dense"
+                 else _classify(3, spec.taps).compute_terms)
+        return teng._is_core27(3, terms)
+    star = PAPER_STENCILS["star33_3d"]
+    assert flag(star)
+    assert not flag(star.with_structure("dense"))
+    assert not flag(PAPER_STENCILS["heat3d"])
+    args = teng._args(star, False, 4, 1, (64, 64, 64), (32, 16, 32),
+                      (64, 64, 64), (64, 64, 64), (0, 0, 0), 8, False)
+    assert args.stream == 1 and args.stage[0].star == teng._CORE27
+    assert args.n_foff == 15
+
+
+def test_launch_blocks_folds_the_batch_into_one_axis():
+    """70,000 grids of 8x8 are 70,000 CTAs of one launch (the batch no
+    longer rides on gridDim.y, whose limit is 65,535); past 2**31 - 1
+    CTAs the launch is refused before it reaches the card."""
+    assert tplan.launch_blocks((8, 8), (64, 64), 70000) == 70000
+    assert tplan.launch_blocks((37, 45, 101), (32, 16, 32), 3) == \
+        3 * 2 * 3 * 4
+    with pytest.raises(ValueError, match="CTAs"):
+        tplan.launch_blocks((2 ** 20, 2 ** 20), (1, 32), 1)
+
+
+def test_default_periodic_budget_sends_periodic_grids_to_k1():
+    """With the default budget, a periodic grid the device holds runs
+    pad-free (K1: no host pad), where a budget of a quarter of L2 sent
+    jacobi2d 2048^2 f64 to K2; the rule is unchanged, so a budget passed
+    in still decides."""
+    from repro_torch import PAPER_STENCILS
+    per = PAPER_STENCILS["jacobi2d"].with_boundary("periodic")
+    assert tplan._pm.PERIODIC_WHOLE_GRID_BYTES == tplan._pm.H100_HBM_BYTES
+    for shape in ((2048, 2048), (8192, 8192)):
+        assert tplan.ghost_strategy_for(per, shape, 8, 4, None) == "pad-free"
+    assert tplan.ghost_strategy_for(per, (2048, 2048), 8, 4, None,
+                                    periodic_budget_bytes=0) \
+        == "padded-window"
+    plan = tplan.lower(per, (2048, 2048), torch.float64, backend="cuda",
+                       sweeps=4, device="cpu")
+    assert plan.ghost_strategy == "pad-free"

@@ -76,6 +76,54 @@ def test_ops_swa_matches_reference_kernel(case):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
 
 
+# shapes the card used to refuse, the reference takes any: head dims 112
+# (zamba2_7b) and 192 (nemotron4_340b, 12 query heads per KV head), 32
+# query heads per KV head, and float16: (b, hkv, g, s, d, w, softcap, dtype)
+WIDE_CASES = [
+    (1, 1, 2, 64, 112, 32, None, np.float32),
+    (1, 1, 12, 40, 192, 16, 50.0, np.float32),
+    (1, 1, 32, 40, 32, 8, None, np.float32),
+    (1, 2, 2, 64, 64, 32, 50.0, np.float16),
+    (1, 1, 4, 48, 112, 16, None, np.float16),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES, ids=str)
+def test_ops_swa_wide_shapes_match_reference_kernel(case):
+    """The port's plain version on the shapes K5 now takes on the card
+    against the Pallas kernel in interpret mode (tq=32): f32 within 2e-5;
+    float16 (both widen to f32 and round once) within one f16 ulp, or
+    chip_smoke's 4e-6 floor where outputs cancel (the two f32 sums differ
+    in order), the rule the card holds K5 to."""
+    b, hkv, g, s, d, w, softcap, dt = case
+    q, k, v = [a.astype(dt) for a in _qkv(b, hkv, g, s, d, seed=s + d + g)]
+    tdt = torch.float16 if dt == np.float16 else torch.float32
+    jdt = jnp.float16 if dt == np.float16 else jnp.float32
+    got = ops.swa(*_port(q, k, v, dtype=tdt), window=w, tq=32,
+                  softcap=softcap)
+    assert got.dtype == tdt and tuple(got.shape) == q.shape
+    want = np.asarray(jops.swa(*_jax(q, k, v, dtype=jdt), window=w, tq=32,
+                               softcap=softcap))
+    if dt == np.float16:
+        smoke = _chip_smoke()
+        assert smoke.within_bf16_ulp(got, torch.from_numpy(want),
+                                     smoke.SWA_BF16_FLOOR, bits=10)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+
+
+def test_head_dim_instances_and_group_split():
+    """Head dims that are multiples of 16 up to 256 run on the next built
+    instance; the tensor-core kernel splits more than 16 query heads per
+    KV head into equal shares of at most 16."""
+    assert [tswa.instance_dim(d) for d in (16, 48, 64, 112, 128, 192, 256)] \
+        == [16, 64, 64, 128, 128, 256, 256]
+    assert [tswa.instance_dim(d) for d in (8, 100, 272)] == [0, 0, 0]
+    assert [tswa.tc_heads_per_cta(g) for g in (1, 12, 16, 17, 24, 32, 48)] \
+        == [1, 12, 16, 9, 12, 16, 16]
+    assert [tswa.tc_chunk_keys(d) for d in (112, 192)] == [128, 64]
+
+
 def test_window_covering_sequence_is_causal():
     b, hkv, g, s, d = 1, 2, 2, 64, 16
     q, k, v = _port(*_qkv(b, hkv, g, s, d, seed=7))
@@ -167,7 +215,9 @@ def _chip_smoke():
 CARD_CASES = [c + (32,) for c in CASES] + [
     (1, 2, 2, 100, 64, 32, 50.0, 64), (2, 1, 4, 96, 256, 64, None, 64),
     (1, 2, 1, 128, 128, 8, 50.0, 128), (1, 1, 2, 64, 256, 1, 50.0, 128),
-    (1, 2, 2, 128, 128, 64, 1.0, 64)]   # softcap 1: tanhf's range too
+    (1, 2, 2, 128, 128, 64, 1.0, 64),   # softcap 1: tanhf's range too
+    (1, 1, 2, 100, 112, 32, 50.0, 64), (1, 1, 12, 96, 192, 40, None, 32),
+    (1, 2, 32, 64, 64, 16, 50.0, 32)]   # head dims 112, 192; G = 32
 
 
 @pytest.mark.cuda
@@ -175,11 +225,11 @@ def test_k5_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     smoke = _chip_smoke()
-    assert {c[4] for c in CARD_CASES} == set(tswa.HEAD_DIMS)
+    assert {c[4] for c in CARD_CASES} >= set(tswa.HEAD_DIMS)
     for case in CARD_CASES:
         b, hkv, g, s, d, w, softcap, tq = case
         arrays = _qkv(b, hkv, g, s, d, seed=200 + sum(case[:6]))
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             q, k, v = [tensor_from_numpy(a, dtype, "cuda") for a in arrays]
             before = LAUNCHES["K5"]
             got = ops.swa(q, k, v, window=w, tq=tq, softcap=softcap)
@@ -190,6 +240,10 @@ def test_k5_matches_plain_version_on_the_card():
             if dtype == torch.float32:
                 err = (got.double() - want.double()).abs().max().item()
                 assert err <= smoke.SWA_F32_ATOL, case
+                continue
+            if dtype == torch.float16:
+                assert smoke.within_bf16_ulp(got, want, smoke.SWA_BF16_FLOOR,
+                                             bits=10), case
                 continue
             # one bf16 ulp of the plain version (at least the floor, for
             # outputs that cancel), and of the f32 CUDA-core kernel on the
@@ -221,7 +275,11 @@ _TC_MATRIX = [c for c in itertools.product(
     (1, 8, 32, 64, None), (None, 50.0))]
 TC_CASES = [_TC_MATRIX[i] for i in sorted(
     np.random.default_rng(2024).choice(len(_TC_MATRIX), 12, replace=False))]
-TC_CASES += [(1, 2, 2, 100, 256, None, 50.0), (2, 1, 4, 128, 16, 1, None)]
+TC_CASES += [(1, 2, 2, 100, 256, None, 50.0), (2, 1, 4, 128, 16, 1, None),
+             # head dims 112 and 192 (zero-filled instance columns), and
+             # groups of 32 and 24 query heads split over two CTAs
+             (1, 1, 2, 100, 112, 32, 50.0), (1, 1, 12, 64, 192, None, None),
+             (1, 1, 32, 64, 32, 16, None), (1, 1, 24, 40, 16, 8, 50.0)]
 
 
 def test_tc_block_geometry():

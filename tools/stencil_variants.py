@@ -2,9 +2,11 @@
 itself on one GPU, each with one design step taken out or one probe put in.
 
     python3 tools/stencil_variants.py [--out FILE] [--reps N] [--rounds N]
+        [--variants A,B] [--cases SUBSTR,...]
 
 The checkout's ``stencil.cu`` is copied into ``build/variants/`` and each
-variant is made by replacing exact fragments of the copy, a ``#define``
+variant is made by replacing exact fragments of the copy (every
+occurrence: the window and the streamed kernel share some), a ``#define``
 among them (the checkout's source is not changed); every copy is built by
 ``nvcc`` at once and swapped in as the library behind ``kernels.engine``:
 
@@ -21,14 +23,22 @@ among them (the checkout's source is not changed); every copy is built by
   CTAs per SM instead of two;
 * ``threads384``, ``threads512``: CTAs of 384 or 512 threads instead of
   256 (two per SM, so fewer registers each);
+* ``stream256``, ``stream512``: CTAs of the streamed rank-3 kernel of
+  256 or 512 threads instead of 384;
+* ``core27_tabled``: star33_3d's stage on the streamed kernel's general
+  evaluator (``TabledOp``, taps read per point) instead of ``Core27Op``;
 * ``probe_load_only``: the window loaded and the tile written straight
   from it, no application (wrong results; the load and store floor);
 * ``probe_compute_only``: every application, no window load (wrong
-  results; the compute floor).
+  results; the compute floor);
+* ``probe_stream_load_only``, ``probe_stream_compute_only``: the same two
+  probes of the streamed rank-3 kernel (every plane loaded and no
+  application formed; every application formed and no plane loaded).
 
 Cases, f64 at sweeps=4: K3 on reaction_diffusion2d (reflect) at 8192^2
 and on the mixed zero/constant/reflect chain at 2048^2, K1 on jacobi2d
-(zero) at 8192^2 and heat3d at 512x512x256, the staged reaction_diffusion2d
+(zero) at 8192^2, heat3d at 512x512x256 and star33_3d at 256x256x64
+(streamed), the staged reaction_diffusion2d
 chain (8 K1 launches) at 8192^2, K2 on jacobi2d (periodic) at 2048^2 and
 K4 on advect_diffuse2d at 2048^2 (pre-padded windows); and K3/K1 at
 8192^2 and heat3d with explicit tiles other than the default.  Each
@@ -62,13 +72,13 @@ _COPY_OUT = """  {
     return;
   }
 """
-_PAIRS = """    const bool has_b = i + CASPER_THREADS < n;
+_PAIRS = """    const bool has_b = i + NTH < n;
     const auto va = get(a0, a1, a2);
     const auto vb = has_b ? get(b0, b1, b2) : va;
     put(a0, a1, a2, va);
     if (has_b) put(b0, b1, b2, vb);"""
 _SINGLE = """    put(a0, a1, a2, get(a0, a1, a2));
-    if (i + CASPER_THREADS < n) put(b0, b1, b2, get(b0, b1, b2));"""
+    if (i + NTH < n) put(b0, b1, b2, get(b0, b1, b2));"""
 _NO_ASYNC = [("if (a.async_load) {", "if (false) {")]
 
 
@@ -77,7 +87,7 @@ def _define(name: str, old: int, new: int):
 
 
 
-_NO_STRIPS = _NO_ASYNC + [("if (R >= 2 && st.star == R)", "if (false)")]
+_NO_STRIPS = _NO_ASYNC + [("if (R == 2 && st.star == 2)", "if (false)")]
 VARIANTS = {
     "kept": [],
     "plain_loads": _NO_ASYNC,
@@ -90,8 +100,16 @@ VARIANTS = {
     "three_blocks": _define("CASPER_MIN_BLOCKS", 2, 3),
     "threads384": _define("CASPER_THREADS", 256, 384),
     "threads512": _define("CASPER_THREADS", 256, 512),
+    "stream256": _define("CASPER_STREAM_THREADS", 384, 256),
+    "stream512": _define("CASPER_STREAM_THREADS", 384, 512),
+    "core27_tabled": [("if (st.star == CASPER_CORE27) {", "if (false) {")],
     "probe_load_only": [(_APPLY_START, _COPY_OUT + _APPLY_START)],
     "probe_compute_only": [(_LOAD_START, "  if (true) {\n  } else " + _LOAD_START[2:])],
+    "probe_stream_load_only": [("      if (!active(l, j)) continue;",
+                                "      if (true) continue;")],
+    "probe_stream_compute_only": [
+        ("    if (p < planes0) load_plane(z_first + p);", ""),
+        ("    if (j + CASPER_STREAM_AHEAD < planes0) load_plane(", "    if (false) load_plane(")],
 }
 
 
@@ -100,7 +118,18 @@ def main() -> int:
     ap.add_argument("--out")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--variants", help="comma-separated variants to build "
+                    "and time beside 'kept' (default: all)")
+    ap.add_argument("--cases", help="comma-separated substrings: time only "
+                    "the cases whose label holds one (default: all)")
     args = ap.parse_args()
+    variants = dict(VARIANTS)
+    if args.variants:
+        wanted = args.variants.split(",")
+        unknown = set(wanted) - set(VARIANTS)
+        if unknown:
+            raise SystemExit(f"unknown variants: {sorted(unknown)}")
+        variants = {n: VARIANTS[n] for n in ["kept"] + wanted}
     import torch
     if not torch.cuda.is_available():
         print("stencil_variants: CUDA is not available", file=sys.stderr)
@@ -122,11 +151,11 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _build.nvcc_path()
     jobs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         src = text
         for old, new in subs:
-            if src.count(old) != 1:
-                raise SystemExit(f"{name}: fragment not found once: {old!r}")
+            if not src.count(old):
+                raise SystemExit(f"{name}: fragment not found: {old!r}")
             src = src.replace(old, new)
         path = os.path.join(out_dir, f"{name}.cu")
         with open(path, "w") as fh:
@@ -148,6 +177,7 @@ def main() -> int:
         return torch.randn(shape, dtype=torch.float64, device="cuda", generator=gen)
 
     big, mid, cube = randn(8192, 8192), randn(2048, 2048), randn(512, 512, 256)
+    small_cube = randn(256, 256, 64)
     rd = PAPER_PIPELINES["reaction_diffusion2d"]
     ad = PAPER_PIPELINES["advect_diffuse2d"]
     mixed = StencilPipeline("mixed_rd", (
@@ -164,6 +194,9 @@ def main() -> int:
         "K1 jacobi2d zero 8192^2": lambda: keng.stencil_sweep(jac, big, None, 4, "pad-free"),
         "K1 heat3d zero 512x512x256":
             lambda: keng.stencil_sweep(PAPER_STENCILS["heat3d"], cube, None, 4, "pad-free"),
+        "K1 star33_3d zero 256x256x64":
+            lambda: keng.stencil_sweep(PAPER_STENCILS["star33_3d"], small_cube, None, 4,
+                                       "pad-free"),
         "staged reaction_diffusion2d 8192^2 (8 K1)":
             lambda: keng.pipeline_sweep(rd, big, None, 4, "staged"),
         "K2 jacobi2d periodic 2048^2 (window)":
@@ -185,6 +218,10 @@ def main() -> int:
             lambda t=tile: keng.stencil_sweep(PAPER_STENCILS["heat3d"], cube, t, 4,
                                               "pad-free")
 
+    if args.cases:
+        cases = {label: fn for label, fn in cases.items()
+                 if any(sub in label for sub in args.cases.split(","))}
+
     def time_ms(fn) -> float:
         for _ in range(2):
             fn()
@@ -200,7 +237,7 @@ def main() -> int:
 
     result = {"card": smi, "torch": torch.__version__, "reps": args.reps,
               "variants": {n: {"times": {c: [] for c in cases}, "equal_to_kept": True}
-                           for n in VARIANTS}}
+                           for n in variants}}
     kept = {}
     for rnd in range(args.rounds):
         for name, lib in libs.items():
