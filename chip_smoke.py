@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels K1-K4 (``stencil.cu``) and K5 (bf16 on
-the tensor cores, ``swa_wgmma.cu``; f32 on the CUDA cores, ``swa.cu``)
-from ``src/repro_torch/kernels/csrc`` (nvcc, one process per source, all
-three at once, into ``build/repro_torch/``), then:
+Builds the hand-written kernels K1-K4 (``stencil.cu``) and K5 (all on
+the tensor cores: bf16 and f16 on wgmma, ``swa_wgmma.cu``; f32 in three
+TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
+(nvcc, one process per source, all three at once, into
+``build/repro_torch/``), then:
 
 1. holds each kernel against its plain PyTorch version on the card —
    every paper stencil (plus forced-dense blur2d/star33_3d) and every
@@ -29,8 +30,8 @@ three at once, into ``build/repro_torch/``), then:
    at softcap <= 2, where |s / softcap| passes 0.55, and head dims 112
    and 192, groups of 24 and 32 query heads per KV head and float16
    (f32 within 2e-5; bf16 within one ulp or 4e-6, whichever is larger, of
-   the plain version and of the f32 CUDA-core kernel on the widened
-   inputs; f16 within one f16 ulp or 4e-6);
+   the plain version and of the f32 kernel on the widened inputs; f16
+   within one f16 ulp or 4e-6);
 2. runs the engine — ``CasperEngine(spec, backend="cuda",
    sweeps=4).run(grid, iters=10)``, all f64, each bitwise equal to
    ``backend="ref"`` on the card, on two main paths, each with the launch
@@ -45,8 +46,8 @@ three at once, into ``build/repro_torch/``), then:
    to the padded window, K4), the mixed chain at 2048^2 and a chain that
    cannot fuse at 2048^2 (staged: K1 per stage); (c) sliding-window attention,
    ``kernels.ops.swa`` at gemma2-27b's local-layer width (bf16 at 8192
-   and 8000 tokens, f32 at 8192; K5), each result held against K5's plain
-   version and the dense oracle ``swa_ref``;
+   and 8000 tokens, f32 and f16 at 8192; K5), each result held against
+   K5's plain version and the dense oracle ``swa_ref``;
 3. times one fused block per phase-2 case with CUDA events (median),
    beside its bound (the larger of one read and one write of the grid at
    the HBM rate and the f64 operations the contract fixes per point and
@@ -54,14 +55,16 @@ three at once, into ``build/repro_torch/``), then:
    FMA), the plain version, chained ``F.conv``
    (the yardstick, never used by the port) and, for pipelines, the
    staged chain of the port's own K1 launches; and K5 at the 8192-token
-   bf16 and f32 shapes beside their operation bounds, their plain
-   versions and ``F.scaled_dot_product_attention`` with the same band
-   mask (the yardstick, never used by the port; f32 with TF32 off).
+   bf16, f16 and f32 shapes beside their operation bounds (useful FLOP
+   at the dense bf16 / f16 tensor rate; for f32 three TF32 passes at the
+   dense TF32 rate), their plain versions and
+   ``F.scaled_dot_product_attention`` with the same band mask (the
+   yardstick, never used by the port; f32 with TF32 off).
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 (one entry per kernel and route: K1/K2 of 1-D/2-D specs on the window
-kernel, K1/K2 of 3-D specs on the streamed kernel, K3, K4, K5 bf16 and
-f32) before the last line, which is ``{"ok": true, "device": {...}}``.  Full
+kernel, K1/K2 of 3-D specs on the streamed kernel, K3, K4, K5 bf16, f16
+and f32) before the last line, which is ``{"ok": true, "device": {...}}``.  Full
 results go to ``build/chip_smoke.json``.  Exits non-zero, printing
 no result, when CUDA is missing or any check fails.
 """
@@ -103,20 +106,22 @@ REPLACES["K1 rank 3"] = REPLACES["K1"]
 REPLACES["K2 rank 3"] = REPLACES["K2"]
 REPLACES["K1 rank 3 (heat3d)"] = REPLACES["K1"]
 SOURCES = {k: "src/repro_torch/kernels/csrc/stencil.cu" for k in REPLACES}
-# K5's bf16 calls run on the tensor cores (swa_wgmma.cu), its f32 and f16
-# calls on the CUDA cores (swa.cu): two entries of the kernels line
+# K5's bf16 and f16 calls run on wgmma (swa_wgmma.cu, one template), its
+# f32 calls in three TF32 passes (swa_tf32.cu): an entry each per dtype
 SOURCES["K5"] = "src/repro_torch/kernels/csrc/swa_wgmma.cu"
+REPLACES["K5 f16"] = REPLACES["K5"]
+SOURCES["K5 f16"] = "src/repro_torch/kernels/csrc/swa_wgmma.cu"
 REPLACES["K5 f32"] = REPLACES["K5"]
-SOURCES["K5 f32"] = "src/repro_torch/kernels/csrc/swa.cu"
+SOURCES["K5 f32"] = "src/repro_torch/kernels/csrc/swa_tf32.cu"
 
 # Data-sheet rates by card (NVIDIA H100 and H200 data sheets, dense rates
 # without sparsity): HBM bytes/s, f64 and f32 FLOP/s outside the tensor
-# cores, and bf16 FLOP/s on the tensor cores.
+# cores, and bf16, TF32 and f16 FLOP/s on the tensor cores.
 CARD_RATES = {
-    "H100 PCIe": (2.0e12, 25.6e12, 51.2e12, 756e12),
-    "H100 NVL": (3.9e12, 30e12, 60e12, 835e12),
-    "H200": (4.8e12, 34e12, 67e12, 989e12),
-    "H100": (3.35e12, 34e12, 67e12, 989e12),               # SXM
+    "H100 PCIe": (2.0e12, 25.6e12, 51.2e12, 756e12, 378e12, 756e12),
+    "H100 NVL": (3.9e12, 30e12, 60e12, 835e12, 417.5e12, 835e12),
+    "H200": (4.8e12, 34e12, 67e12, 989e12, 494.7e12, 989e12),
+    "H100": (3.35e12, 34e12, 67e12, 989e12, 494.7e12, 989e12),   # SXM
 }
 
 # Sliding-window attention at gemma2-27b's local layers
@@ -134,9 +139,10 @@ SWA_F32_ATOL = 2e-5     # K5 vs plain in f32: tests/test_kernels.py's bound
 # which is more than one ulp only where an ulp is below d (outputs that
 # cancel, |o| < 2**-12), and there at most 2 d.  The bf16 kernel (tensor
 # cores, P.V exact up to order with P as three bf16 terms) is held by the
-# same rule against the f32 CUDA-core kernel on the widened inputs, a
-# cross-check between the two kernels; they sum in different orders, so
-# the bf16 result is not the f32 one rounded bitwise.
+# same rule against the f32 kernel (three TF32 passes) on the widened
+# inputs, a cross-check between the two kernels; they sum in different
+# orders, so the bf16 result is not the f32 one rounded bitwise.  f16 is
+# held to one f16 ulp by the same rule.
 SWA_BF16_FLOOR = 4e-6
 SWA_REF_BF16_ATOL = 0.08  # bf16 vs the f32 oracle: tests/test_kernels.py
 SWA_CASES = 400         # phase-1 K5 cases drawn from the matrix below
@@ -287,10 +293,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    rate_key, (hbm_bw, peak_f64, peak_f32, peak_bf16_tc) = card_rates(name)
+    rate_key, (hbm_bw, peak_f64, peak_f32, peak_bf16_tc, peak_tf32_tc,
+               peak_f16_tc) = card_rates(name)
     log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | rates of {rate_key}: {hbm_bw:.3g} B/s, f64 {peak_f64:.3g}, "
-        f"f32 {peak_f32:.3g}, bf16 tensor {peak_bf16_tc:.3g} FLOP/s")
+        f"f32 {peak_f32:.3g}, tensor bf16 {peak_bf16_tc:.3g}, TF32 "
+        f"{peak_tf32_tc:.3g}, f16 {peak_f16_tc:.3g} FLOP/s")
 
     # ---- setup: build every kernel source from the checkout -------------
     t0 = time.time()
@@ -321,13 +329,31 @@ def main() -> int:
     if len(stream_budget) != 3:
         raise SystemExit(f"setup: {len(stream_budget)} streamed stencil "
                          "kernel instances in the build log, expected 3")
-    tc_budget = ptxas_table(_build.BUILD_LOGS.get("swa_wgmma.cu", ""),
-                            r"swa_tc_kernelILi(\d+)E",
-                            lambda m: int(m.group(1)))
-    for d in kswa.HEAD_DIMS:
-        tc_budget.setdefault(d, {})["smem_bytes"] = kswa.tc_smem_bytes(d)
-        log(f"  swa_wgmma.cu D={d}: {tc_budget[d]} (registers at entry; "
-            f"the consumers run at 232 after setmaxnreg.inc)")
+    # K5 per dtype and head dim: bf16/f16 instances of swa_tc_kernel,
+    # f32 instances of swa_tf32_kernel
+    k5_types = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
+    tc_budget = ptxas_table(
+        _build.BUILD_LOGS.get("swa_wgmma.cu", ""),
+        r"swa_tc_kernelILi(\d+)E(13__nv_bfloat16|6__half)E",
+        lambda m: f"{k5_types[m.group(2)]} D={m.group(1)}")
+    tc_budget.update(ptxas_table(
+        _build.BUILD_LOGS.get("swa_tf32.cu", ""),
+        r"swa_tf32_kernelILi(\d+)E", lambda m: f"f32 D={m.group(1)}"))
+    for dtype, label in ((torch.bfloat16, "bf16"), (torch.float16, "f16"),
+                         (torch.float32, "f32")):
+        for d in kswa.HEAD_DIMS:
+            key = f"{label} D={d}"
+            tc_budget.setdefault(key, {})["smem_bytes"] = kswa.tc_smem_bytes(
+                d, dtype)
+            log(f"  K5 {kswa._ENTRY[dtype][0]} {key}: {tc_budget[key]}"
+                + ("" if dtype == torch.float32 else
+                   " (registers at entry; the consumers run at 232 after "
+                   "setmaxnreg.inc)"))
+    if len(tc_budget) != 3 * len(kswa.HEAD_DIMS) or not all(
+            "registers" in b for b in tc_budget.values()):
+        raise SystemExit(f"setup: K5 instances in the build logs: "
+                         f"{sorted(tc_budget)}, expected bf16, f16 and f32 "
+                         f"at D={kswa.HEAD_DIMS}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -537,16 +563,16 @@ def main() -> int:
     cross_err = [0.0]
 
     def swa_cross_check(got, q, k, v, w, tq, softcap, label):
-        """A bf16 K5 result (tensor cores) must lie within one bf16 ulp,
-        or SWA_BF16_FLOOR, of the f32 K5 (CUDA cores) on the widened
+        """A bf16 K5 result (wgmma) must lie within one bf16 ulp, or
+        SWA_BF16_FLOOR, of the f32 K5 (three TF32 passes) on the widened
         inputs."""
         f32 = kswa.sliding_window_attention(q.float(), k.float(), v.float(),
                                             w, tq, softcap)
         cross_err[0] = max(cross_err[0],
                            (got.double() - f32.double()).abs().max().item())
         if not within_bf16_ulp(got, f32, SWA_BF16_FLOOR):
-            failures.append(f"{label}: bf16 K5 (tensor cores) not within "
-                            f"one ulp / {SWA_BF16_FLOOR} of f32 K5")
+            failures.append(f"{label}: bf16 K5 (wgmma) not within "
+                            f"one ulp / {SWA_BF16_FLOOR} of f32 K5 (TF32)")
 
     def swa_case(b, hkv, g, s, d, w, softcap, tq, dtype):
         label = (f"K5 b{b} hkv{hkv} g{g} s{s} d{d} w{w} cap{softcap} "
@@ -587,8 +613,8 @@ def main() -> int:
             n_swa += 1
     # what the card used to refuse: head dims 112 (zamba2_7b) and 192
     # (nemotron4_340b, 12 query heads per KV head), 24 and 32 query heads
-    # per KV head (the tensor-core kernel splits the group over CTAs), and
-    # float16 (the CUDA-core kernel on f16 storage)
+    # per KV head (the tensor-core kernels split the group over CTAs), and
+    # float16 (the bf16 kernel's template on f16, P in scaled f16 terms)
     for case in SWA_WIDE:
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             swa_case(*case, dtype)
@@ -608,7 +634,7 @@ def main() -> int:
         f"{swa_err[torch.bfloat16]} (one ulp, at least {SWA_BF16_FLOOR}), "
         f"f16 {swa_err[torch.float16]} (one f16 ulp, at least "
         f"{SWA_BF16_FLOOR}), "
-        f"bf16 tensor-core vs f32 CUDA-core K5 {cross_err[0]} "
+        f"bf16 (wgmma) vs f32 (three TF32 passes) K5 {cross_err[0]} "
         f"({time.time() - t0:.1f}s)")
     if failures:
         raise SystemExit("phase 1 failed:\n" + "\n".join(failures[:40]))
@@ -749,7 +775,8 @@ def main() -> int:
             for h in range(0, k.shape[1], step)], dim=1)
 
     swa_runs = [(s, torch.bfloat16) for s in GEMMA2_SEQS]
-    swa_runs.append((GEMMA2_SEQS[0], torch.float32))
+    swa_runs += [(GEMMA2_SEQS[0], torch.float32),
+                 (GEMMA2_SEQS[0], torch.float16)]
     swa_in = [tuple(randn((cfg["batch"], h, s, cfg["head_dim"]), dtype, gen)
                     for h in (cfg["hq"], cfg["hkv"], cfg["hkv"]))
               for s, dtype in swa_runs]
@@ -781,11 +808,18 @@ def main() -> int:
                             cfg["softcap"], label)
         ref = swa_ref_by_heads(q.float(), k.float(), v.float())
         ref_err = (out.float() - ref).abs().max().item()
-        limit = SWA_REF_BF16_ATOL if dtype == torch.bfloat16 \
-            else SWA_F32_ATOL
+        if dtype == torch.float16:
+            # the oracle rounded once to f16, as the plain version is
+            limit = f"one f16 ulp or {SWA_BF16_FLOOR}"
+            ref_ok = within_bf16_ulp(out, ref.half(), SWA_BF16_FLOOR,
+                                     bits=10)
+        else:
+            limit = SWA_REF_BF16_ATOL if dtype == torch.bfloat16 \
+                else SWA_F32_ATOL
+            ref_ok = ref_err <= limit
         del ref
         finite = bool(torch.isfinite(out).all())
-        if not (ref_err <= limit and finite and out.shape == q.shape):
+        if not (ref_ok and finite and out.shape == q.shape):
             failures.append(f"{label}: vs swa_ref {ref_err} (limit {limit}),"
                             f" finite {finite}, shape {tuple(out.shape)}")
         swa_results.append({"seq": s, "dtype": str(dtype),
@@ -981,16 +1015,23 @@ def main() -> int:
             f"{e['library_ms']:.3f} | launches {e['launches']} "
             f"({e['launches_of']})")
 
-    def swa_f32_entry(q, k, v, count):
-        """K5 f32 (CUDA cores) at the phase-2c shape beside its bound
-        (f32 FLOP outside the tensor cores, or bytes), its plain version
-        and SDPA in f32 with the same band mask (TF32 off)."""
+    def swa_dtype_entry(kname, q, k, v, count):
+        """K5 in f16 (wgmma) or f32 (three TF32 passes) at the phase-2c
+        shape beside its bound, its plain version and SDPA in the same
+        dtype with the same band mask (f32: TF32 off).  The bound is the
+        useful FLOP at the dense f16 tensor rate, or three TF32 passes of
+        it at the dense TF32 rate for f32 (the least time this card forms
+        f32-accurate products in), or the bytes if larger; f32 keeps the
+        bound of its earlier CUDA-core kernel (f32 FLOP outside the
+        tensor cores) under ``bound_f32_cuda_cores_ms``."""
         b, hq, s, d = q.shape
         w, tq, softcap = cfg["window"], cfg["tq"], cfg["softcap"]
         keys = sum(min(p + 1, w) for p in range(s))
         flop = 4 * b * hq * d * keys
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        t_bytes, t_f32 = nbytes / hbm_bw * 1e3, flop / peak_f32 * 1e3
+        t_bytes = nbytes / hbm_bw * 1e3
+        f32 = q.dtype == torch.float32
+        t_ops = (3 * flop / peak_tf32_tc if f32 else flop / peak_f16_tc) * 1e3
         g = hq // k.shape[1]
         kk, vv = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
         pos = torch.arange(s, device="cuda")
@@ -1002,37 +1043,44 @@ def main() -> int:
 
         def kern(cap=softcap):
             return kswa.sliding_window_attention(q, k, v, w, tq, cap)
-        lib_diff = (sdpa() - kern(None)).abs().max().item()
+        lib_diff = (sdpa().float() - kern(None).float()).abs().max().item()
         entry = {
-            "name": "K5 f32", "route": "cuda", "source": SOURCES["K5 f32"],
-            "replaces": REPLACES["K5 f32"], "launches": count,
-            "max_abs_err": swa_err[torch.float32],
-            "ms": time_ms(kern, 5),
+            "name": kname, "route": "cuda", "source": SOURCES[kname],
+            "replaces": REPLACES[kname], "launches": count,
+            "max_abs_err": swa_err[q.dtype],
+            "ms": time_ms(kern, 10),
             "plain_ms": time_ms(lambda: kswa.sliding_window_attention_plain(
                 q, k, v, w, tq, softcap), 3, warmup=1),
-            "bound_ms": max(t_bytes, t_f32),
-            "bound_by": "bytes" if t_bytes >= t_f32 else "operations",
-            "library_ms": time_ms(sdpa, 5),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_ms(sdpa, 10),
             "shape": {"q": list(q.shape), "kv": list(k.shape)},
-            "dtype": "float32", "window": w, "tq": tq, "softcap": softcap,
-            "ms_no_softcap": time_ms(lambda: kern(None), 5),
-            "library": "F.scaled_dot_product_attention, f32, bool band "
-                       "mask, TF32 off, softcap=None",
+            "dtype": str(q.dtype).replace("torch.", ""),
+            "window": w, "tq": tq, "softcap": softcap,
+            "ms_no_softcap": time_ms(lambda: kern(None), 10),
+            "flop": flop, "bytes_ms": t_bytes,
+            "library": "F.scaled_dot_product_attention, bool band mask, "
+                       "softcap=None" + (", TF32 off" if f32 else ""),
             "library_max_abs_diff_no_softcap": lib_diff,
         }
-        log(f"  K5 f32 {entry['shape']}: {entry['ms']:.3f} ms (softcap off "
-            f"{entry['ms_no_softcap']:.3f}) | bound {t_f32:.3f} ms (f32 "
-            f"FLOP outside the tensor cores) | plain {entry['plain_ms']:.2f}"
-            f" ms | SDPA f32 {entry['library_ms']:.3f} ms (max |diff| vs "
-            f"K5 {lib_diff:.3g}) | card {smi}")
+        if f32:
+            entry["bound_f32_cuda_cores_ms"] = flop / peak_f32 * 1e3
+        log(f"  {kname} {entry['shape']}: {entry['ms']:.3f} ms (softcap off "
+            f"{entry['ms_no_softcap']:.3f}) | bound {t_ops:.3f} ms ("
+            + ("three TF32 passes at the dense TF32 rate; f32 FLOP outside "
+               f"the tensor cores {entry['bound_f32_cuda_cores_ms']:.3f}"
+               if f32 else "useful FLOP at the dense f16 tensor rate")
+            + f") | plain {entry['plain_ms']:.2f} ms | SDPA "
+            f"{entry['library_ms']:.3f} ms (max |diff| vs K5 {lib_diff:.3g})"
+            f" | card {smi}")
         del kk, vv, band
         torch.cuda.empty_cache()
         return entry
 
     def swa_entry(q, k, v, count, f32_in):
-        """K5 at the phase-2c shape: times beside the operation bounds,
-        the plain version and SDPA with the same band mask; the f32
-        CUDA-core K5 on ``f32_in`` (same width) is timed for the log."""
+        """K5 bf16 at the phase-2c shape: times beside the operation
+        bounds, the plain version and SDPA with the same band mask; the
+        f32 K5 on ``f32_in`` (same width) is timed for the log."""
         b, hq, s, d = q.shape
         w, tq, softcap = cfg["window"], cfg["tq"], cfg["softcap"]
         # useful work: every query against its min(p+1, W) valid keys,
@@ -1065,7 +1113,7 @@ def main() -> int:
         entry = {
             "name": "K5", "route": "cuda", "source": SOURCES["K5"],
             "replaces": REPLACES["K5"], "launches": count["K5"],
-            "max_abs_err": max_err["K5"],
+            "max_abs_err": swa_err[torch.bfloat16],
             "ms": time_ms(kern, 20),
             "plain_ms": time_ms(lambda: kswa.sliding_window_attention_plain(
                 q, k, v, w, tq, softcap), 3, warmup=1),
@@ -1094,7 +1142,7 @@ def main() -> int:
             "executed_tflops_no_softcap": tc_flop / entry["ms_no_softcap"]
             / 1e9,
             "useful_tflops_no_softcap": flop / entry["ms_no_softcap"] / 1e9,
-            "f32_cuda_core_ms": f32_ms,
+            "f32_ms": f32_ms,
             "cross_check_max_abs_diff": cross_err[0],
             "flop": flop, "bytes": nbytes, "bytes_ms": t_bytes,
             "bound_f32_cuda_cores_ms": t_f32, "bound_bf16_tensor_ms": t_tc,
@@ -1118,7 +1166,7 @@ def main() -> int:
             f"{peak_bf16_tc / 1e12:.0f}; executed on the tensor cores "
             f"{tc_flop:.4g} FLOP, {details['executed_tflops']:.1f} TFLOP/s "
             f"(softcap off {details['executed_tflops_no_softcap']:.1f}); "
-            f"f32 K5 (CUDA cores) at the same "
+            f"f32 K5 (three TF32 passes) at the same "
             f"width {f32_ms:.3f} ms | card {smi}")
         del kk, vv, band
         torch.cuda.empty_cache()
@@ -1126,11 +1174,15 @@ def main() -> int:
 
     by_dtype = {dt: sum(k.get("K5", 0) for (_, d), k in zip(swa_runs,
                                                             swa_per_run)
-                        if d == dt) for dt in (torch.bfloat16, torch.float32)}
+                        if d == dt)
+                for dt in (torch.bfloat16, torch.float32, torch.float16)}
     k5_entry, k5_details = swa_entry(*swa_in[0], {
         "K5": by_dtype[torch.bfloat16]}, swa_in[2])
     kernels.append(k5_entry)
-    kernels.append(swa_f32_entry(*swa_in[2], by_dtype[torch.float32]))
+    kernels.append(swa_dtype_entry("K5 f16", *swa_in[3],
+                                   by_dtype[torch.float16]))
+    kernels.append(swa_dtype_entry("K5 f32", *swa_in[2],
+                                   by_dtype[torch.float32]))
     if failures:
         raise SystemExit("kernels line failed:\n" + "\n".join(failures))
 

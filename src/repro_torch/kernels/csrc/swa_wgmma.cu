@@ -1,24 +1,28 @@
-// Sliding-window attention kernel K5, bf16 path, on Hopper's tensor cores
-// (sm_90a: TMA, mbarrier, wgmma, setmaxnreg).
+// Sliding-window attention kernel K5, bf16 and f16 paths, on Hopper's
+// tensor cores (sm_90a: TMA, mbarrier, wgmma, setmaxnreg).
 //
 // Replaces (TPU/Pallas kernel of the reference package):
 //   K5  src/repro/kernels/swa.py  _kernel  (sliding_window_attention, ops.swa)
-// for bfloat16 q/k/v.  float32 stays on the CUDA-core kernel in swa.cu.
+// for bfloat16 and float16 q/k/v: one template over the 16-bit storage
+// type T (Tc16<T> below).  float32 runs in three TF32 passes in
+// swa_tf32.cu; what the two sources share (arguments, block geometry,
+// online softmax) is in swa_common.cuh.
 //
 // What it computes, as the reference does: windowed-causal GQA attention.
 // q is (B, Hq, S, D), k/v are (B, Hkv, S, D) with G = Hq / Hkv query heads
 // per KV head; query position p attends to keys k with p - W < k <= p.
 // Scores s = (q . k) * scale in f32 (scale = 1/sqrt(D), applied to the f32
-// product, never folded into bf16 q), optionally softcap * tanh(s /
+// product, never folded into 16-bit q), optionally softcap * tanh(s /
 // softcap), softmax over the valid keys and P.V in f32, the output rounded
-// once to bf16 at the store.
+// once to T at the store.
 //
 // Bound on this card: operations.  At gemma2-27b's local layer (B=1,
 // Hq=32, Hkv=16, D=128, S=8192, W=4096) the useful work is
 // 4*Hq*D*sum_p min(p+1, W) = 4.124e11 FLOP, 0.417 ms at 989 TFLOP/s of
-// dense bf16; the 192 MiB of q/k/v/o take 0.06 ms at 3.35 TB/s.  Per
+// dense bf16 or f16; the 192 MiB of q/k/v/o take 0.06 ms at 3.35 TB/s.  Per
 // score the kernel also runs a tanhf, an exp2f and a few f32 operations on
-// the CUDA cores and the MUFU (8.05e8 scores at that shape).
+// the CUDA cores and the MUFU (8.05e8 scores at that shape).  f16 has the
+// same bound (989 TFLOP/s of dense f16).
 //
 // Design:
 // * One CTA per (batch, KV head, block of P query positions), the blocks
@@ -48,12 +52,13 @@
 //   gives every thread 168 registers; the producer drops to 40 with
 //   setmaxnreg.dec and the consumers take the freed ones up to 232 with
 //   setmaxnreg.inc (40 * 128 + 232 * 256 = 168 * 384).
-// * Shared memory holds bf16 as loaded, in panels of PE = min(D, 64)
+// * Shared memory holds T as loaded, in panels of PE = min(D, 64)
 //   columns with the TMA swizzle of the panel's row (128 B, or 64/32 B at
 //   D = 32/16), which is the layout wgmma reads.
 // * S = Q.K^T: wgmma m64nKCk16 with Q and K both K-major in shared memory.
-//   bf16 x bf16 products are exact in f32, so this is the reference's f32
-//   dot product up to summation order.
+//   bf16 x bf16 and f16 x f16 products are exact in f32 (8 + 8 and 11 + 11
+//   significant bits), so this is the reference's f32 dot product up to
+//   summation order.
 // * Online softmax in registers: each thread holds 2 rows of the
 //   accumulator; the row max is reduced over the 4 lanes of a quad by
 //   shuffles; O is rescaled by exp(m_old - m_new); l stays a per-thread
@@ -61,70 +66,111 @@
 //   mask runs only on chunks that straddle k <= p or k > p - W; masked
 //   keys give probability exactly 0.  exp is 2^((x - m) * log2 e) on the
 //   MUFU (ex2.approx.ftz, about 2 ulp).
-// * P.V on the tensor cores with P as a sum of NT = 3 bf16 terms:
-//   hi = bf16(p), mid = bf16(p - hi), lo = bf16(p - hi - mid), every
-//   difference exact in f32.  Three terms of 8 significant bits cover p's
-//   24, so hi + mid + lo == p for every p the softmax gives above 2^-100
-//   (the residuals of smaller p turn subnormal), and each term x bf16 v
-//   is exact in f32: P.V is the reference's f32 product up to summation
-//   order.  Two terms keep about 16 bits of p (relative error up to
-//   2^-16); three were taken because the bf16 check holds the output to
-//   one bf16 ulp (at least 4e-6) of the f32 plain version, and the CPU
-//   mirror of this kernel (tests/_swa_tc_mirror.py) puts the 2-term f32
-//   gap at 5.6e-6, above that floor for outputs that cancel.  The terms
-//   are wgmma's A operand from registers, in the S accumulator's own
-//   fragment layout (m64nDk16, V MN-major in shared memory as B).  The
-//   extra P.V work (3x) is the design's cost and not in the bound.
+// * P.V on the tensor cores with P as a sum of NT terms of type T, each
+//   the rounding of what the earlier left (every difference exact in f32),
+//   and each term x v exact in f32, so P.V is the reference's f32 product
+//   up to summation order and the bits the terms drop.
+//   bf16, NT = 3: three terms of 8 significant bits cover p's 24, so the
+//   sum is p for every p the softmax gives above 2^-100 (the residuals of
+//   smaller p turn subnormal).  Two terms keep about 16 bits of p
+//   (relative error up to 2^-16); three were taken because the bf16 check
+//   holds the output to one bf16 ulp (at least 4e-6) of the f32 plain
+//   version, and the CPU mirror of this kernel (tests/_swa_tc_mirror.py)
+//   puts the 2-term f32 gap at 5.6e-6, above that floor for outputs that
+//   cancel.
+//   f16, NT = 2: f16 has 11 significant bits but little exponent range
+//   (residuals below 2^-14 turn subnormal), so the terms split p * 2^15
+//   (at most 32768 < 65504), undone exactly in the final division; two
+//   terms give p within 2^-22 relative for every p >= 2^-18, and the f16
+//   check (one f16 ulp, at least 4e-6) holds with two on the CPU mirror.
+//   The terms are wgmma's A operand from registers, in the S accumulator's
+//   own fragment layout (m64nDk16, V MN-major in shared memory as B).  The
+//   extra P.V work (NT x) is the design's cost and not in the bound.
 // * Store: O / l rounded once to bf16, straight from registers; spare rows
 //   and positions past S are not written.
 //
 // Budget per head dim (shared memory incl. 1 KB alignment slack and
-// barriers; registers per consumer thread: O + S + P terms of one group):
+// barriers, either type; registers per consumer thread: O + S + P terms
+// of one group, bf16 / f16):
 //   D   KC  smem     O    S   terms
-//   16  128  21 KB    8   64   24   (P.V in groups of 32 keys)
-//   32  128  41 KB   16   64   24
-//   64  128  81 KB   32   64   24
-//   128 128 161 KB   64   64   24   (Q 32 KB + 2 x (K 32 KB + V 32 KB))
-//   256  64 193 KB  128   32   12   (P.V in groups of 16 keys)
+//   16  128  21 KB    8   64   24 / 16  (P.V in groups of 32 keys)
+//   32  128  41 KB   16   64   24 / 16
+//   64  128  81 KB   32   64   24 / 16
+//   128 128 161 KB   64   64   24 / 16  (Q 32 KB + 2 x (K 32 KB + V 32 KB))
+//   256  64 193 KB  128   32   12 / 8   (P.V in groups of 16 keys)
 // One CTA per SM.  ptxas's counts are printed by chip_smoke.py.
 // Softcap divides by multiplying with 1/softcap (one rounding more than
 // the reference's division, 2^-24 relative, far below the checks), and
 // takes tanh from a polynomial where a warp's |s / softcap| <= 0.55
-// (within one ulp; tanh_small below), from tanhf elsewhere.
+// (within one ulp; tanh_small in swa_common.cuh), from tanhf elsewhere.
 //
 // Tensor maps are encoded on the host with cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint (no -lcuda), and passed as
-// __grid_constant__ parameters.  Arguments travel in SwaTcArgs, mirrored by
-// a ctypes.Structure in kernels/swa.py; casper_swa_tc_args_size() lets the
-// loader check the layout.
+// __grid_constant__ parameters.  Arguments travel in SwaTcArgs
+// (swa_common.cuh), mirrored by a ctypes.Structure in kernels/swa.py;
+// casper_swa_tc_args_size() lets the loader check the layout.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-struct SwaTcArgs {
-  int batch;        // B
-  int hq;           // query heads
-  int hkv;          // key/value heads, hq % hkv == 0
-  int seq;          // S
-  int head_dim;     // d, a multiple of 16 up to the instance's D
-  int window;       // W, clamped to S by the caller
-  int positions;    // P, query positions per CTA (multiple of 8, heads*P <= 128)
-  int heads;        // GC, query heads per CTA (all G, or a share of a split group)
-  int has_softcap;  // 0 or 1
-  float scale;      // 1/sqrt(D) in f32
-  float softcap;
-};
+#include "swa_common.cuh"
 
-#define TC_ROWS 128         // query rows per CTA (two consumer warpgroups)
 #define TC_CONSUMERS 256    // consumer threads
 #define TC_THREADS 384      // + the producer warpgroup
 #define TC_STAGES 2         // K/V ring depth
-#define TC_TERMS 3          // bf16 terms of P
 #define TC_ERR_ENTRY 10001  // no cuTensorMapEncodeTiled in the driver
 #define TC_ERR_ENCODE 10002 // cuTensorMapEncodeTiled refused a map
+
+// What the 16-bit storage type T changes: P's terms (NT of them, of
+// p * P_SCALE), their packing and residuals, the store and the TMA type.
+template <typename T>
+struct Tc16;
+
+template <>
+struct Tc16<__nv_bfloat16> {
+  static constexpr int NT = 3;
+  static constexpr float P_SCALE = 1.f;
+  static constexpr CUtensorMapDataType MAP_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // {lo, hi} rounded to bf16 (nearest even) and packed, lo in the low half
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    uint32_t u;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(u) : "f"(hi), "f"(lo));
+    return u;
+  }
+  static __device__ __forceinline__ float lo_f32(uint32_t u) { return __uint_as_float(u << 16); }
+  static __device__ __forceinline__ float hi_f32(uint32_t u) {
+    return __uint_as_float(u & 0xffff0000u);
+  }
+  static __device__ __forceinline__ void store2(__nv_bfloat16* dst, float x0, float x1) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+  }
+};
+
+template <>
+struct Tc16<__half> {
+  static constexpr int NT = 2;
+  static constexpr float P_SCALE = 32768.f;  // 2^15: p * 2^15 <= 32768 < 65504
+  static constexpr CUtensorMapDataType MAP_TYPE = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  // {lo, hi} rounded to f16 (nearest even) and packed, lo in the low half
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    uint32_t u;
+    asm("cvt.rn.f16x2.f32 %0, %1, %2;" : "=r"(u) : "f"(hi), "f"(lo));
+    return u;
+  }
+  static __device__ __forceinline__ float lo_f32(uint32_t u) {
+    return __half2float(__ushort_as_half((unsigned short)(u & 0xffffu)));
+  }
+  static __device__ __forceinline__ float hi_f32(uint32_t u) {
+    return __half2float(__ushort_as_half((unsigned short)(u >> 16)));
+  }
+  static __device__ __forceinline__ void store2(__half* dst, float x0, float x1) {
+    *reinterpret_cast<__half2*>(dst) = __floats2half2_rn(x0, x1);
+  }
+};
 
 template <int D>
 struct Tc {
@@ -144,10 +190,6 @@ struct Tc {
 // ---------------------------------------------------------------------------
 // PTX helpers
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
@@ -188,37 +230,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// 2^x, flushing results below 2^-126 to zero (those probabilities are far
-// below anything the f32 sums can hold beside the row's 1)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// tanh(y) for |y| <= 0.55: y + y^3 Q(y^2), Q a degree-5 least-squares fit
-// of (tanh(sqrt t)/sqrt t - 1)/t on [0, 0.3025].  Within one ulp of tanh
-// (tanhf's bound is 2 ulp); tests/test_torch_swa.py checks that on a sweep
-// of f32 values, through the same coefficients in tests/_swa_tc_mirror.py
-// (TANH_POLY).  CUDA's tanhf serves every larger |y|.
-__device__ __forceinline__ float tanh_small(float y) {
-  const float y2 = y * y;
-  float q = 2.524329582e-03f;
-  q = fmaf(q, y2, -8.524764329e-03f);
-  q = fmaf(q, y2, 2.181803063e-02f);
-  q = fmaf(q, y2, -5.396465585e-02f);
-  q = fmaf(q, y2, 1.333332360e-01f);
-  q = fmaf(q, y2, -3.333333433e-01f);
-  return fmaf(y * y2, q, y);
-}
-
-// {lo, hi} rounded to bf16 (nearest even) and packed, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  uint32_t u;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(u) : "f"(hi), "f"(lo));
-  return u;
-}
-
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -229,19 +240,6 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// Keep the compiler from moving accesses of wgmma's registers across the
-// asynchronous product.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
 // Shared-memory matrix descriptor: start address, leading and stride byte
 // offsets (16-byte units), swizzle layout type.
 template <int D>
@@ -250,172 +248,103 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (Tc<D>::LAYOUT << 62);
 }
 
-template <int N>
+// The accumulator operands of one wgmma, d[i] .. d[i + 4n - 1], and their
+// register lists in the instruction text
+#define TC_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define TC_D8(i) TC_D4(i), TC_D4(i + 4)
+#define TC_D16(i) TC_D8(i), TC_D8(i + 8)
+#define TC_D32(i) TC_D16(i), TC_D16(i + 16)
+#define TC_D64(i) TC_D32(i), TC_D32(i + 32)
+#define TC_D128(i) TC_D64(i), TC_D64(i + 64)
+#define TC_R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define TC_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define TC_R32                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "     \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define TC_R64                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "     \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define TC_R128                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "     \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "  \
+  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "                   \
+  "%120, %121, %122, %123, %124, %125, %126, %127}"
+
+// D[64 x N] (+)= A[64 x 16] . B[N x 16]^T, A and B K-major in shared memory;
+// NR accumulators per thread, the descriptors and the scale-d predicate
+// are operands A, B and P, TY the operand type's PTX name
+#define TC_WGMMA_SS(N, NR, A, B, P, TY)                                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\n"                   \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " "   \
+               TC_R##NR ", %" A ", %" B ", p, 1, 1, 0, 0;\n}\n"                  \
+               : TC_D##NR(0)                                                     \
+               : "l"(da), "l"(db), "r"(acc))
+
+// D[64 x N] += A[64 x 16] . B[16 x N], A in registers (operands A0..A0+3),
+// B MN-major in shared memory
+#define TC_WGMMA_RS(N, NR, A0, A1, A2, A3, B, P, TY)                             \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\n"                   \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " "   \
+               TC_R##NR ", {%" A0 ", %" A1 ", %" A2 ", %" A3 "}, %" B            \
+               ", p, 1, 1, 1;\n}\n"                                              \
+               : TC_D##NR(0)                                                     \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int acc);
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
 
-// D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared memory
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
+#define TC_SPECIALIZE(T, TY)                                                                      \
+  template <>                                                                                     \
+  __device__ __forceinline__ void wgmma_ss<T, 64>(float* d, uint64_t da, uint64_t db, int acc) {  \
+    TC_WGMMA_SS(64, 32, "32", "33", "34", TY);                                                    \
+  }                                                                                               \
+  template <>                                                                                     \
+  __device__ __forceinline__ void wgmma_ss<T, 128>(float* d, uint64_t da, uint64_t db, int acc) { \
+    TC_WGMMA_SS(128, 64, "64", "65", "66", TY);                                                   \
+  }                                                                                               \
+  template <>                                                                                     \
+  __device__ __forceinline__ void wgmma_rs<T, 16>(float* d, const uint32_t* a, uint64_t db) {     \
+    TC_WGMMA_RS(16, 8, "8", "9", "10", "11", "12", "13", TY);                                     \
+  }                                                                                               \
+  template <>                                                                                     \
+  __device__ __forceinline__ void wgmma_rs<T, 32>(float* d, const uint32_t* a, uint64_t db) {     \
+    TC_WGMMA_RS(32, 16, "16", "17", "18", "19", "20", "21", TY);                                  \
+  }                                                                                               \
+  template <>                                                                                     \
+  __device__ __forceinline__ void wgmma_rs<T, 64>(float* d, const uint32_t* a, uint64_t db) {     \
+    TC_WGMMA_RS(64, 32, "32", "33", "34", "35", "36", "37", TY);                                  \
+  }                                                                                               \
+  template <>                                                                                     \
+  __device__ __forceinline__ void wgmma_rs<T, 128>(float* d, const uint32_t* a, uint64_t db) {    \
+    TC_WGMMA_RS(128, 64, "64", "65", "66", "67", "68", "69", TY);                                 \
+  }                                                                                               \
+  template <>                                                                                     \
+  __device__ __forceinline__ void wgmma_rs<T, 256>(float* d, const uint32_t* a, uint64_t db) {    \
+    TC_WGMMA_RS(256, 128, "128", "129", "130", "131", "132", "133", TY);                          \
+  }
 
-// D[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, A and B K-major in shared memory
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// D[64 x 16] += A[64 x 16] . B[16 x 16], A in registers, B MN-major in shared memory
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 32] += A[64 x 16] . B[16 x 32], A in registers, B MN-major in shared memory
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers, B MN-major in shared memory
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 128] += A[64 x 16] . B[16 x 128], A in registers, B MN-major in shared memory
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 256] += A[64 x 16] . B[16 x 256], A in registers, B MN-major in shared memory
-template <>
-__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
-        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
-        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
-        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
-        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+TC_SPECIALIZE(__nv_bfloat16, "bf16")
+TC_SPECIALIZE(__half, "f16")
 
 // ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-              const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+              const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out,
               const __grid_constant__ SwaTcArgs a) {
   using C = Tc<D>;
+  using X = Tc16<T>;
   constexpr int KC = C::KC, SW = C::SW, PE = C::PE;
   extern __shared__ uint8_t smem_raw[];
   // 1 KB-aligned base: a 128-byte swizzle atom spans 8 rows of 128 bytes
@@ -484,7 +413,6 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
     const int warp = (threadIdx.x >> 5) & 3;
     const int lane = threadIdx.x & 31;
     const int quad = lane & 3;
-    constexpr float LOG2E = 1.4426950408889634f;
 
     // rows wg*64 + warp*16 + lane/4 (+ 8): head g = r / P, position p0 + r % P
     int pos[2];
@@ -528,89 +456,41 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
       for (int kd = 0; kd < D / 16; ++kd) {
         const int pn = kd * 16 / PE;                  // panel
         const uint32_t off = ((kd * 16) % PE) * 2;    // bytes into its row
-        wgmma_ss<KC>(s, make_desc<D>(q_wg + pn * TC_ROWS * SW + off, 16, 8 * SW),
-                     make_desc<D>(k_s + pn * KC * SW + off, 16, 8 * SW), kd > 0);
+        wgmma_ss<T, KC>(s, make_desc<D>(q_wg + pn * TC_ROWS * SW + off, 16, 8 * SW),
+                        make_desc<D>(k_s + pn * KC * SW + off, 16, 8 * SW), kd > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
       fence_regs<KC / 2>(s);
 
       // element e: row i = (e >> 1) & 1, key c0 + 8*(e >> 2) + 2*quad + (e & 1)
-#pragma unroll
-      for (int e = 0; e < KC / 2; ++e) s[e] *= a.scale;
-      if (a.has_softcap) {
-        const float inv_cap = 1.f / a.softcap;
-        float big = 0.f;
-#pragma unroll
-        for (int e = 0; e < KC / 2; ++e) {
-          s[e] *= inv_cap;
-          big = fmaxf(big, fabsf(s[e]));
-        }
-        // the polynomial where the whole warp's |y| <= 0.55, else tanhf
-        if (__any_sync(0xffffffffu, big > 0.55f)) {
-#pragma unroll
-          for (int e = 0; e < KC / 2; ++e) s[e] = a.softcap * tanhf(s[e]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < KC / 2; ++e) s[e] = a.softcap * tanh_small(s[e]);
-        }
-      }
-      // only chunks that straddle k <= p or k > p - W need the mask
-      if (!(c0 + KC - 1 <= p0 && c0 > p_hi - a.window)) {
-#pragma unroll
-        for (int e = 0; e < KC / 2; ++e) {
-          const int key = c0 + 8 * (e >> 2) + 2 * quad + (e & 1);
-          const int p = pos[(e >> 1) & 1];
-          if (!(key <= p && key > p - a.window)) s[e] = -INFINITY;
-        }
-      }
+      online_softmax<KC, D / 2>(s, o, m, l, pos, c0, p0, p_hi, quad, a);
 
-      // online softmax
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int e = 0; e < KC / 2; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
-      float alpha[2], m_use[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(m[i], mx[i]);
-        m_use[i] = m_new == -INFINITY ? 0.f : m_new;
-        alpha[i] = exp2_ftz((m[i] - m_use[i]) * LOG2E);
-        m[i] = m_new;
-      }
-      float ls[2] = {0.f, 0.f};
-#pragma unroll
-      for (int e = 0; e < KC / 2; ++e) {
-        s[e] = exp2_ftz((s[e] - m_use[(e >> 1) & 1]) * LOG2E);
-        ls[(e >> 1) & 1] += s[e];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + ls[i];
-#pragma unroll
-      for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
-
-      // O += P . V, P split into TC_TERMS bf16 terms, KH keys at a time
+      // O += P . V, P (times P_SCALE) split into NT terms of T, KH keys at a time
 #pragma unroll
       for (int grp = 0; grp < KC / C::KH; ++grp) {
         constexpr int KS = C::KH / 16;  // k-steps per group
-        uint32_t pa[TC_TERMS][KS][4];
+        uint32_t pa[X::NT][KS][4];
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
           const int kk = grp * KS + ks;
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             float x0 = s[8 * kk + 2 * q], x1 = s[8 * kk + 2 * q + 1];
+            if constexpr (X::P_SCALE != 1.f) {
+              x0 *= X::P_SCALE;  // exact: a power of two
+              x1 *= X::P_SCALE;
+            }
 #pragma unroll
-            for (int t = 0; t < TC_TERMS; ++t) {
-              const uint32_t u = pack_bf16x2(x0, x1);
+            for (int t = 0; t < X::NT; ++t) {
+              const uint32_t u = X::pack(x0, x1);
               pa[t][ks][q] = u;
-              x0 -= __uint_as_float(u << 16);  // exact: the rounding residual
-              x1 -= __uint_as_float(u & 0xffff0000u);
+              x0 -= X::lo_f32(u);  // exact: the rounding residual
+              x1 -= X::hi_f32(u);
             }
           }
         }
-        fence_regs<TC_TERMS * KS * 4>(&pa[0][0][0]);
+        fence_regs<X::NT * KS * 4>(&pa[0][0][0]);
         fence_regs<D / 2>(o);
         wgmma_fence();
 #pragma unroll
@@ -619,32 +499,32 @@ swa_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ 
           const uint64_t dv =
               make_desc<D>(v_s + (grp * KS + ks) * 16 * SW, KC * SW, 8 * SW);
 #pragma unroll
-          for (int t = 0; t < TC_TERMS; ++t) wgmma_rs<D>(o, pa[t][ks], dv);
+          for (int t = 0; t < X::NT; ++t) wgmma_rs<T, D>(o, pa[t][ks], dv);
         }
         wgmma_commit();
         wgmma_wait_all();
         fence_regs<D / 2>(o);
-        fence_regs<TC_TERMS * KS * 4>(&pa[0][0][0]);
+        fence_regs<X::NT * KS * 4>(&pa[0][0][0]);
       }
       mbar_arrive(bar_empty + 8 * st);
     }
 
-    // O / l, rounded once; element e of n-block jn: row (e >> 1) & 1,
-    // column 8*jn + 2*quad + (e & 1)
+    // O / (l * P_SCALE), rounded once; element e of n-block jn: row
+    // (e >> 1) & 1, column 8*jn + 2*quad + (e & 1)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      if constexpr (X::P_SCALE != 1.f) l[i] *= X::P_SCALE;  // exact
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (!live[i]) continue;
-      __nv_bfloat16* dst = out + out_off[i] + 2 * quad;
+      T* dst = out + out_off[i] + 2 * quad;
 #pragma unroll
       for (int jn = 0; jn < D / 8; ++jn)
         if (8 * jn + 2 * quad < dd)
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jn) = __floats2bfloat162_rn(
-              o[4 * jn + 2 * i] / l[i], o[4 * jn + 2 * i + 1] / l[i]);
+          X::store2(dst + 8 * jn, o[4 * jn + 2 * i] / l[i], o[4 * jn + 2 * i + 1] / l[i]);
     }
   }
 }
@@ -674,10 +554,10 @@ static EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// (B*H, S, d) bf16 rows, boxes of PE columns x `rows` positions x 1 head;
-// box columns past d read as zero
-static bool encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int heads, int seq, int d,
-                   int pe, int rows, int swizzle_bytes) {
+// (B*H, S, d) rows of a 16-bit type, boxes of PE columns x `rows`
+// positions x 1 head; box columns past d read as zero
+static bool encode(EncodeTiledFn fn, CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                   int heads, int seq, int d, int pe, int rows, int swizzle_bytes) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq, (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)seq * d * 2};
   const cuuint32_t box[3] = {(cuuint32_t)pe, (cuuint32_t)rows, 1};
@@ -685,12 +565,12 @@ static bool encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int head
   const CUtensorMapSwizzle sw = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+  return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, typename T>
 static int launch_d(const void* q, const void* k, const void* v, void* out, const SwaTcArgs* a,
                     cudaStream_t stream) {
   using C = Tc<D>;
@@ -698,20 +578,38 @@ static int launch_d(const void* q, const void* k, const void* v, void* out, cons
   if (fn == nullptr) return TC_ERR_ENTRY;
   CUtensorMap tm_q, tm_k, tm_v;
   const int d = a->head_dim;
-  if (!encode(fn, &tm_q, q, a->batch * a->hq, a->seq, d, C::PE, a->positions, C::SW) ||
-      !encode(fn, &tm_k, k, a->batch * a->hkv, a->seq, d, C::PE, C::KC, C::SW) ||
-      !encode(fn, &tm_v, v, a->batch * a->hkv, a->seq, d, C::PE, C::KC, C::SW))
+  const CUtensorMapDataType ty = Tc16<T>::MAP_TYPE;
+  if (!encode(fn, &tm_q, ty, q, a->batch * a->hq, a->seq, d, C::PE, a->positions, C::SW) ||
+      !encode(fn, &tm_k, ty, k, a->batch * a->hkv, a->seq, d, C::PE, C::KC, C::SW) ||
+      !encode(fn, &tm_v, ty, v, a->batch * a->hkv, a->seq, d, C::PE, C::KC, C::SW))
     return TC_ERR_ENCODE;
-  cudaError_t err = cudaFuncSetAttribute(swa_tc_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(swa_tc_kernel<D, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   const long long split = (a->hq / a->hkv + a->heads - 1) / a->heads;
   const long long blocks = (long long)a->batch * a->hkv * split *
                            ((a->seq + a->positions - 1) / a->positions);
   if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidConfiguration;
-  swa_tc_kernel<D><<<(unsigned int)blocks, TC_THREADS, C::SMEM, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), *a);
+  swa_tc_kernel<D, T><<<(unsigned int)blocks, TC_THREADS, C::SMEM, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<T*>(out), *a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch(int device, const void* q, const void* k, const void* v, void* out,
+                  const SwaTcArgs* a, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!swa_args_ok(a)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (swa_instance_dim(a->head_dim)) {
+    case 16: return launch_d<16, T>(q, k, v, out, a, st);
+    case 32: return launch_d<32, T>(q, k, v, out, a, st);
+    case 64: return launch_d<64, T>(q, k, v, out, a, st);
+    case 128: return launch_d<128, T>(q, k, v, out, a, st);
+    case 256: return launch_d<256, T>(q, k, v, out, a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" {
@@ -732,24 +630,12 @@ int casper_swa_tc_smem_bytes(int d) {
 
 int casper_swa_tc_bf16(int device, const void* q, const void* k, const void* v, void* out,
                        const void* args, void* stream) {
-  const SwaTcArgs* a = static_cast<const SwaTcArgs*>(args);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (a->hkv < 1 || a->hq % a->hkv || a->seq < 1 || a->window < 1 || a->positions < 8 ||
-      a->positions % 8 || a->heads < 1 || a->heads > a->hq / a->hkv ||
-      a->heads * a->positions > TC_ROWS || a->head_dim % 16)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int d = a->head_dim;
-  switch (d < 16 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128
-                   : d <= 256 ? 256 : 0) {
-    case 16: return launch_d<16>(q, k, v, out, a, st);
-    case 32: return launch_d<32>(q, k, v, out, a, st);
-    case 64: return launch_d<64>(q, k, v, out, a, st);
-    case 128: return launch_d<128>(q, k, v, out, a, st);
-    case 256: return launch_d<256>(q, k, v, out, a, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch<__nv_bfloat16>(device, q, k, v, out, static_cast<const SwaTcArgs*>(args), stream);
+}
+
+int casper_swa_tc_f16(int device, const void* q, const void* k, const void* v, void* out,
+                      const void* args, void* stream) {
+  return launch<__half>(device, q, k, v, out, static_cast<const SwaTcArgs*>(args), stream);
 }
 
 const char* casper_swa_tc_error_string(int err) {

@@ -14,14 +14,15 @@ over the window and applied to v in f32; the output takes q's dtype.
   ``tq + W - 1`` key window per query tile and a full softmax per tile;
 * :func:`sliding_window_attention` — the wrapper: the plain version for a
   CPU tensor; for a CUDA tensor it launches K5 (replaces
-  ``repro/kernels/swa.py`` ``_kernel``) or raises.  bfloat16 runs on the
-  tensor cores (``csrc/swa_wgmma.cu``: TMA ring, wgmma Q.K^T, P.V with P
-  split into :data:`TC_TERMS` bf16 terms), float32 on the CUDA cores
-  (``csrc/swa.cu``).  Both walk each query block's valid key range in
-  chunks with a running max and sum (online softmax) instead of
-  materialising the window's scores, so they compute the same function
-  without the front pad.  Their launches count in
-  ``engine.LAUNCHES["K5"]``.
+  ``repro/kernels/swa.py`` ``_kernel``) or raises.  Every dtype runs on
+  the tensor cores: bfloat16 and float16 in ``csrc/swa_wgmma.cu`` (TMA
+  ring, wgmma Q.K^T, P.V with P split into :data:`TC_TERMS` bf16 or
+  :data:`TC_TERMS_F16` f16 terms), float32 in ``csrc/swa_tf32.cu``
+  (mma.sync in three TF32 passes, each operand split into a big and a
+  small half).  Both walk each query block's valid key range in chunks
+  with a running max and sum (online softmax) instead of materialising
+  the window's scores, so they compute the same function without the
+  front pad.  Their launches count in ``engine.LAUNCHES["K5"]``.
 """
 from __future__ import annotations
 
@@ -36,10 +37,9 @@ from .engine import LAUNCHES
 
 NEG_INF = -1e30
 
-#: K5's CUDA source and C entry per dtype: bf16 on the tensor cores,
-#: f32 on the CUDA cores.
-_ENTRY = {torch.float32: ("swa.cu", "casper_swa_f32"),
-          torch.float16: ("swa.cu", "casper_swa_f16"),
+#: K5's CUDA source and C entry per dtype, all on the tensor cores.
+_ENTRY = {torch.float32: ("swa_tf32.cu", "casper_swa_tf32"),
+          torch.float16: ("swa_wgmma.cu", "casper_swa_tc_f16"),
           torch.bfloat16: ("swa_wgmma.cu", "casper_swa_tc_bf16")}
 #: Head dims K5 is instantiated for (both sources).
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -54,17 +54,27 @@ def instance_dim(d: int) -> int:
         return 0
     return next(h for h in HEAD_DIMS if h >= d)
 
-# The tensor-core kernel's block geometry (csrc/swa_wgmma.cu), also walked
-# by the CPU mirror of its arithmetic in the tests.
-#: Query rows per CTA: two warpgroups of wgmma's 64.
+# The tensor-core kernels' block geometry (csrc/swa_common.cuh), also
+# walked by the CPU mirror of their arithmetic in the tests.
+#: Query rows per CTA: two warpgroups of wgmma's 64 (swa_wgmma.cu), eight
+#: warps of mma.sync's 16 (swa_tf32.cu).
 TC_ROWS = 128
 #: bf16 terms P is split into for P.V on the tensor cores.
 TC_TERMS = 3
+#: f16 terms P * 2**15 is split into for P.V on the tensor cores.
+TC_TERMS_F16 = 2
+#: The scale of P before its f16 split (undone in the final division).
+TC_P_SCALE_F16 = 2.0 ** 15
 
 
-def tc_chunk_keys(d: int) -> int:
-    """Keys per K/V chunk of the tensor-core kernel at head dim ``d``."""
-    return 64 if instance_dim(d) == 256 else 128
+def tc_chunk_keys(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Keys per K/V chunk of K5's kernel for ``dtype`` at head dim ``d``:
+    128 (64 at D = 256) in swa_wgmma.cu, 64 (32 at D = 256) in
+    swa_tf32.cu."""
+    wide = instance_dim(d) == 256
+    if dtype == torch.float32:
+        return 32 if wide else 64
+    return 64 if wide else 128
 
 
 def tc_positions(g: int) -> int:
@@ -161,20 +171,10 @@ def sliding_window_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The C interface (mirrors struct SwaArgs in csrc/swa.cu)
+# The C interface
 # ---------------------------------------------------------------------------
-class SwaArgs(ctypes.Structure):
-    _fields_ = [
-        ("batch", ctypes.c_int), ("hq", ctypes.c_int), ("hkv", ctypes.c_int),
-        ("seq", ctypes.c_int), ("head_dim", ctypes.c_int),
-        ("window", ctypes.c_int), ("tq", ctypes.c_int),
-        ("has_softcap", ctypes.c_int),
-        ("scale", ctypes.c_float), ("softcap", ctypes.c_float),
-    ]
-
-
 class SwaTcArgs(ctypes.Structure):
-    """Mirrors struct SwaTcArgs in csrc/swa_wgmma.cu."""
+    """Mirrors struct SwaTcArgs in csrc/swa_common.cuh (both sources)."""
     _fields_ = [
         ("batch", ctypes.c_int), ("hq", ctypes.c_int), ("hkv", ctypes.c_int),
         ("seq", ctypes.c_int), ("head_dim", ctypes.c_int),
@@ -184,15 +184,15 @@ class SwaTcArgs(ctypes.Structure):
     ]
 
 
-# per source: its entry's args struct and the prefix of its helpers
-_C_API = {"swa.cu": (SwaArgs, "casper_swa"),
-          "swa_wgmma.cu": (SwaTcArgs, "casper_swa_tc")}
+# per source: the prefix of its helpers (``_args_size``, ``_error_string``,
+# ``_smem_bytes``)
+_C_API = {"swa_tf32.cu": "casper_swa_tf32", "swa_wgmma.cu": "casper_swa_tc"}
 
 
 def _lib(source: str) -> ctypes.CDLL:
     lib = _build.load(source)
     if not getattr(lib, "_swa_bound", False):
-        args, prefix = _C_API[source]
+        prefix = _C_API[source]
         for src, name in _ENTRY.values():
             if src == source:
                 fn = getattr(lib, name)
@@ -202,10 +202,10 @@ def _lib(source: str) -> ctypes.CDLL:
         size.argtypes, size.restype = [], ctypes.c_int
         errs = getattr(lib, f"{prefix}_error_string")
         errs.argtypes, errs.restype = [ctypes.c_int], ctypes.c_char_p
-        if size() != ctypes.sizeof(args):
+        if size() != ctypes.sizeof(SwaTcArgs):
             raise RuntimeError(
-                f"{args.__name__} layout mismatch: C {size()} bytes, "
-                f"Python {ctypes.sizeof(args)}")
+                f"SwaTcArgs layout mismatch ({source}): C {size()} bytes, "
+                f"Python {ctypes.sizeof(SwaTcArgs)}")
         lib._swa_bound = True
     return lib
 
@@ -215,32 +215,30 @@ def _launch(q, k, v, out, window: int, tq: int,
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     source, entry = _ENTRY[q.dtype]
-    # a window or tile longer than the sequence means the same as S
-    common = dict(batch=b, hq=hq, hkv=hkv, seq=s, head_dim=d,
-                  window=min(int(window), s),
-                  has_softcap=int(softcap is not None),
+    heads = tc_heads_per_cta(hq // hkv)
+    # a window longer than the sequence means the same as S; the query
+    # tile tq does not change the result and the kernels take none
+    a = SwaTcArgs(batch=b, hq=hq, hkv=hkv, seq=s, head_dim=d,
+                  window=min(int(window), s), positions=tc_positions(heads),
+                  heads=heads, has_softcap=int(softcap is not None),
                   scale=1.0 / math.sqrt(d),
                   softcap=0.0 if softcap is None else float(softcap))
-    if q.dtype == torch.bfloat16:
-        heads = tc_heads_per_cta(hq // hkv)
-        a = SwaTcArgs(positions=tc_positions(heads), heads=heads, **common)
-    else:
-        a = SwaArgs(tq=min(int(tq), s), **common)
     lib = _lib(source)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = getattr(lib, entry)(
         q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), ctypes.addressof(a), stream)
     if err:
-        msg = getattr(lib, f"{_C_API[source][1]}_error_string")(err)
+        msg = getattr(lib, f"{_C_API[source]}_error_string")(err)
         raise RuntimeError(f"K5 launch failed ({source}): {msg.decode()}")
     LAUNCHES["K5"] += 1
 
 
-def tc_smem_bytes(d: int) -> int:
-    """Dynamic shared memory per CTA of the tensor-core kernel at head
+def tc_smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory per CTA of K5's kernel for ``dtype`` at head
     dim ``d``, as the built library reports it (needs nvcc)."""
-    fn = _lib("swa_wgmma.cu").casper_swa_tc_smem_bytes
+    source = _ENTRY[dtype][0]
+    fn = getattr(_lib(source), f"{_C_API[source]}_smem_bytes")
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return fn(int(d))
 
@@ -254,8 +252,8 @@ def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
     tensors: one K5 launch, or an error — K5 takes contiguous, 16-byte
     aligned float32, float16 or bfloat16 q/k/v of one dtype with ``D`` a
     multiple of 16 up to 256, and any ``tq >= 1`` (the query tile; the
-    result does not depend on it).  bfloat16 runs on the tensor cores,
-    float32 and float16 on the CUDA cores."""
+    result does not depend on it).  Every dtype runs on the tensor cores:
+    bfloat16 and float16 on wgmma, float32 in three TF32 passes."""
     b, hq, hkv, s, d = _check_shapes(q, k, v, window, tq)
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:

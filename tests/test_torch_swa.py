@@ -4,10 +4,11 @@ The same numpy inputs (seeded) go through the JAX package — its dense
 oracle ``swa_ref`` and ``ops.swa`` (the Pallas kernel in interpret mode)
 — and through the port on the CPU, where ``ops.swa`` runs K5's plain
 version.  Also ``ops.stencil_apply`` against the reference's; the CPU
-mirror of the tensor-core kernel's arithmetic (``_swa_tc_mirror``)
-against the plain version and the reference oracle, with the bf16 split
-of P it relies on; and a ``cuda``-marked test of K5 against its plain
-version that skips itself without a card.
+mirror of the tensor-core kernels' arithmetic (``_swa_tc_mirror``: bf16
+and f16 on wgmma, f32 in three TF32 passes) against the plain version and
+the reference, with the splits they rely on (P into bf16 or scaled f16
+terms, f32 operands into TF32 halves); and a ``cuda``-marked test of K5
+against its plain version that skips itself without a card.
 """
 import importlib.util
 import itertools
@@ -29,7 +30,7 @@ from repro_torch.kernels import swa as tswa
 
 from _hypothesis_compat import given, settings, st
 import _swa_tc_mirror as mirror
-from _swa_tc_mirror import split_bf16, swa_tc_mirror
+from _swa_tc_mirror import split_terms, split_tf32, swa_tc_mirror
 
 # a fixed, seeded subset of the reference property test's matrix:
 # (b, hkv, g, s, d, w, softcap)
@@ -246,8 +247,8 @@ def test_k5_matches_plain_version_on_the_card():
                                              bits=10), case
                 continue
             # one bf16 ulp of the plain version (at least the floor, for
-            # outputs that cancel), and of the f32 CUDA-core kernel on the
-            # widened inputs (the tensor-core kernel sums in its own order)
+            # outputs that cancel), and of the f32 kernel (three TF32
+            # passes) on the widened inputs (each sums in its own order)
             assert smoke.within_bf16_ulp(got, want, smoke.SWA_BF16_FLOOR), case
             f32 = ops.swa(q.float(), k.float(), v.float(), window=w, tq=tq,
                           softcap=softcap)
@@ -262,7 +263,7 @@ def test_three_bf16_terms_reconstruct_f32_p(exponent, mantissa):
     relative — the split the tensor-core kernel feeds to P.V."""
     p = min(math.ldexp(1.0 + mantissa / 2 ** 23, exponent), 1.0)
     x = torch.tensor([p], dtype=torch.float32)
-    three = split_bf16(x, 3)
+    three = split_terms(x, 3, torch.bfloat16)
     assert all(torch.equal(t.to(torch.bfloat16).float(), t) for t in three)
     assert torch.equal(three[0] + three[1] + three[2], x)
     assert ((three[0] + three[1]) - x).abs().item() <= 2.0 ** -16 * p
@@ -321,12 +322,12 @@ def test_tc_mirror_matches_plain_and_reference(case, terms):
 
 
 def test_kernel_tanh_polynomial_within_one_ulp():
-    """The tensor-core kernel's tanh for |y| <= 0.55 (``tanh_small``,
+    """The tensor-core kernels' tanh for |y| <= 0.55 (``tanh_small``,
     mirrored in f32 with one rounding per fmaf) lies within one f32 ulp of
     tanh on a dense sweep of f32 values, and the mirror's coefficients are
-    the ones in the CUDA source."""
+    the ones in the CUDA source (the header both kernels include)."""
     src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
-           "kernels" / "csrc" / "swa_wgmma.cu").read_text()
+           "kernels" / "csrc" / "swa_common.cuh").read_text()
     body = src[src.index("float tanh_small(float y)"):]
     body = body[:body.index("\n}")]
     lits = [float(x) for x in re.findall(r"(-?\d\.\d+e[-+]\d+)f", body)]
@@ -343,3 +344,106 @@ def test_kernel_tanh_polynomial_within_one_ulp():
     print(f"tanh_small: largest error {worst:.3f} f32 ulp over "
           f"{y.numel()} values")
     assert worst <= 1.0
+
+
+# f16 (wgmma, P * 2**15 in f16 terms) and f32 (three TF32 passes): the
+# mirror against the port's plain version at the card's limits and
+# against the JAX reference.  f16 runs with 1 and 2 terms of P; the
+# kernel's count (tswa.TC_TERMS_F16) must pass, the other's largest gap
+# is printed (``-s``).
+TC_F_CASES = [("float32", None, c)
+              for c in dict.fromkeys(TC_CASES[::2] + TC_CASES[-4:])]
+TC_F_CASES += [("float16", t, c) for t in (1, 2)
+               for c in dict.fromkeys(TC_CASES[1::2] + TC_CASES[-4:])]
+
+
+@pytest.mark.parametrize("dtype, terms, case", TC_F_CASES, ids=str)
+def test_tc_mirror_f16_f32_match_plain_and_reference(dtype, terms, case):
+    """The f32 mirror within 2e-5 of the port's plain version, of
+    ``repro.kernels.ops.swa`` (interpret mode) and of ``swa_ref``; the f16
+    mirror within one f16 ulp, at least chip_smoke's 4e-6 floor, of the
+    plain version and of both references on the same f16 inputs."""
+    smoke = _chip_smoke()
+    b, hkv, g, s, d, w, softcap = case
+    w = s if w is None else w
+    q, k, v = _qkv(b, hkv, g, s, d, seed=400 + sum(case[:5]) + w)
+    f16 = dtype == "float16"
+    tdt, jdt = ((torch.float16, jnp.float16) if f16
+                else (torch.float32, jnp.float32))
+    tq_, tk, tv = _port(q, k, v, dtype=tdt)
+    got32 = swa_tc_mirror(tq_, tk, tv, w, softcap, terms=terms,
+                          out_dtype=torch.float32)
+    got = got32.to(tdt)
+    plain = tswa.sliding_window_attention_plain(tq_, tk, tv, w, 32, softcap)
+    plain32 = tswa.sliding_window_attention_plain(
+        tq_.float(), tk.float(), tv.float(), w, 32, softcap)
+    gap = (got32 - plain32).abs().max().item()
+    print(f"{dtype} terms={terms} {case}: largest f32 |mirror - plain| "
+          f"{gap:.3g}")
+    if f16 and terms != tswa.TC_TERMS_F16:
+        return
+    jq, jk, jv = _jax(q, k, v, dtype=jdt)
+    refs = [plain,
+            torch.from_numpy(np.asarray(jops.swa(jq, jk, jv, window=w, tq=32,
+                                                 softcap=softcap))),
+            torch.from_numpy(np.asarray(jswa_ref(jq, jk, jv, w,
+                                                 softcap=softcap)))]
+    for want in refs:
+        assert want.dtype == tdt and want.shape == got.shape
+        if f16:
+            assert smoke.within_bf16_ulp(got, want, smoke.SWA_BF16_FLOOR,
+                                         bits=10), case
+        else:
+            err = (got.double() - want.double()).abs().max().item()
+            assert err <= smoke.SWA_F32_ATOL, (case, err)
+
+
+def test_tc_f32_chunk_geometry():
+    """The f32 kernel's chunks: 64 keys, 32 at D = 256 (its shared memory
+    holds a 128-row Q and the K/V ring in f32); the 16-bit kernel's
+    unchanged."""
+    assert [tswa.tc_chunk_keys(d, torch.float32) for d in tswa.HEAD_DIMS] \
+        == [64, 64, 64, 64, 32]
+    assert [tswa.tc_chunk_keys(d, torch.float16) for d in tswa.HEAD_DIMS] \
+        == [tswa.tc_chunk_keys(d) for d in tswa.HEAD_DIMS]
+    assert tswa._ENTRY[torch.float32][0] == "swa_tf32.cu"
+    assert {tswa._ENTRY[dt][0] for dt in (torch.float16, torch.bfloat16)} \
+        == {"swa_wgmma.cu"}
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(st.integers(-100, 127), st.integers(0, 2 ** 23 - 1), st.booleans())
+def test_tf32_halves_reconstruct_f32(exponent, mantissa, negative):
+    """Any f32 x with 2^-100 <= |x|: the two TF32 halves of the f32
+    kernel, as the tensor cores read them (low 13 bits dropped), are tf32
+    values whose sum is x within 2^-21 |x|; x - trunc(x) is exact in f32.
+    (Below about 2^-103 the small half turns subnormal and keeps fewer
+    bits; such operands add below 2^-100 to the kernel's sums.)"""
+    x = math.ldexp(1.0 + mantissa / 2 ** 23, exponent)
+    x = -x if negative else x
+    t = torch.tensor([x], dtype=torch.float32)
+    if not torch.isfinite(t).all():
+        return
+    big, small = split_tf32(t)
+    for h in (big, small):
+        assert int(h.view(torch.int32).item()) & 0x1FFF == 0
+    xd = t.double().item()
+    assert (t - big).double().item() == xd - big.double().item()
+    err = abs(xd - big.double().item() - small.double().item())
+    assert err <= 2.0 ** -21 * abs(xd)
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(st.integers(-18, 0), st.integers(0, 2 ** 23 - 1))
+def test_scaled_f16_terms_reconstruct_p(exponent, mantissa):
+    """Any f32 p in [2^-18, 1]: p * 2^15 (exact, at most 32768 < 65504)
+    as two f16 terms, each the rounding of what the earlier left, sums
+    back to within 2^-22 relative, one term to 2^-11 — the split the f16
+    kernel feeds to P.V."""
+    p = min(math.ldexp(1.0 + mantissa / 2 ** 23, exponent), 1.0)
+    x = torch.tensor([p], dtype=torch.float32) * tswa.TC_P_SCALE_F16
+    two = split_terms(x, 2, torch.float16)
+    assert all(torch.equal(t.half().float(), t) for t in two)
+    xd = x.double().item()
+    assert abs(two[0].double().item() - xd) <= 2.0 ** -11 * xd
+    assert abs((two[0] + two[1]).double().item() - xd) <= 2.0 ** -22 * xd
