@@ -17,14 +17,19 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    1e-5, bf16 equal or within one bf16 ulp; plus the fuzz regression
    corpus's chains (ranks 1-3), a mixed zero/constant/reflect chain, tiny
    grids, a 2048^2 periodic grid, batched grids and a batch of 70,000 f32
-   8x8 grids (past gridDim.y's 65,535); rank-3 specs run the streamed
-   kernel (planes along dim 0) on both entries; every K1-K4 launch counts
-   its interior and rim tiles on the card, and the phase fails unless
-   each kernel, and each entry of the streamed kernel, ran both kinds,
-   and K1, K3 and the streamed K1 ran interior tiles on both load paths
-   (16-byte ``cp.async`` and element by element), or unless
-   ``plan.smem_bytes`` equals the shared memory each launch asked for
-   (``casper_smem_bytes``); and K5 (sliding-window attention) against its
+   8x8 grids (past gridDim.y's 65,535); batches of small grids, each one
+   fitted tile, packed several to a CTA on all four kernels in every
+   dtype, boundary and sweeps (ragged last CTAs among them); rank-3 specs
+   run the streamed kernel (planes along dim 0) on both entries; every
+   K1-K4 launch counts on the card its interior and rim tiles, its CTAs
+   by load kind (16-byte ``cp.async``, a ``cp.async`` per element,
+   through registers, with a boundary test) and its packed CTAs, and the
+   phase fails unless each kernel, and each entry of the streamed kernel,
+   ran both tile kinds, K1, K3 and the streamed K1 ran interior tiles on
+   both load paths, K2 and K4 copied windows by both kinds of
+   ``cp.async`` and masked ragged ones, each of K1-K4 ran packed and
+   unpacked CTAs, and ``plan.smem_bytes`` equals the shared memory each
+   launch asked for (``casper_smem_bytes``); and K5 (sliding-window attention) against its
    plain version on a seeded subset of the reference tests' matrix, every
    head dim K5 is built for and tq {32, 64, 128} among them, plus 8 cases
    at softcap <= 2, where |s / softcap| passes 0.55, and head dims 112
@@ -34,7 +39,7 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    within one f16 ulp or 4e-6);
 2. runs the engine — ``CasperEngine(spec, backend="cuda",
    sweeps=4).run(grid, iters=10)``, all f64, each bitwise equal to
-   ``backend="ref"`` on the card, on two main paths, each with the launch
+   ``backend="ref"`` on the card, on four main paths, each with the launch
    counts reset just before it and read just after:
    (a) single specs at each paper stencil's Table 3 DRAM shape (zero and
    periodic boundary, K1; periodic again with the plan's strategy forced
@@ -47,7 +52,13 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    cannot fuse at 2048^2 (staged: K1 per stage); (c) sliding-window attention,
    ``kernels.ops.swa`` at gemma2-27b's local-layer width (bf16 at 8192
    and 8000 tokens, f32 and f16 at 8192; K5), each result held against
-   K5's plain version and the dense oracle ``swa_ref``;
+   K5's plain version and the dense oracle ``swa_ref``; (d) serving
+   buckets, a batch of grids per run (the reference's serving mix,
+   ``src/repro/serve/loadgen.py``): jacobi2d 8x8 x 70,000, (32, 64) x 48
+   and x 4096, jacobi1d (512,) x 4096, reaction_diffusion2d (32, 64) x
+   4096 (K2/K4 with the host pad: grids below one window), advect2d
+   periodic (32, 64) x 4096 (K1) and heat3d (8, 12, 16) x 4096 (the
+   streamed K2);
 3. times one fused block per phase-2 case with CUDA events (median),
    beside its bound (the larger of one read and one write of the grid at
    the HBM rate and the f64 operations the contract fixes per point and
@@ -59,12 +70,14 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    at the dense bf16 / f16 tensor rate; for f32 three TF32 passes at the
    dense TF32 rate), their plain versions and
    ``F.scaled_dot_product_attention`` with the same band mask (the
-   yardstick, never used by the port; f32 with TF32 off).
+   yardstick, never used by the port; f32 with TF32 off); a serving row
+   also times its host pad and the same block on the other entry, and
+   its conv chain runs the batch as N.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 (one entry per kernel and route: K1/K2 of 1-D/2-D specs on the window
 kernel, K1/K2 of 3-D specs on the streamed kernel, K3, K4, K5 bf16, f16
-and f32) before the last line, which is ``{"ok": true, "device": {...}}``.  Full
+and f32; K2 and K4 carry the serving rows under ``rows``) before the last line, which is ``{"ok": true, "device": {...}}``.  Full
 results go to ``build/chip_smoke.json``.  Exits non-zero, printing
 no result, when CUDA is missing or any check fails.
 """
@@ -233,7 +246,8 @@ def ptxas_table(text: str, entry: str, key) -> dict:
 def conv_chain(spec, sweeps):
     """The yardstick: ``sweeps`` applications of the spec's stage chain
     as chained F.conv{1,2,3}d, each on an F.pad in its stage's mode
-    (cuDNN, TF32 off).  Returns ``grid -> result``."""
+    (cuDNN, TF32 off), a leading batch of grids as N with C = 1.
+    Returns ``grid -> result``."""
     from repro_torch import as_stages
     nd = spec.ndim
     conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
@@ -252,7 +266,7 @@ def conv_chain(spec, sweeps):
         steps.append((w.cuda(), pads, mode, st.boundary_value))
 
     def run(grid):
-        x = grid.reshape((1, 1) + tuple(grid.shape))
+        x = grid.reshape((-1, 1) + tuple(grid.shape[grid.ndim - nd:]))
         for _ in range(sweeps):
             for w, pads, mode, value in steps:
                 if mode == "constant":
@@ -502,6 +516,38 @@ def main() -> int:
         log(f"  {label} {shape} s{sweeps}: plan chose "
             f"{kernel}, equal to plain: "
             f"{not any(f.startswith(label) for f in failures)}")
+    # batches of small grids, each one fitted tile: several grids per CTA
+    # on both entries (K1-K4), ragged last CTAs, padded windows inside
+    # their input copied by 16-byte cp.async (aligned rows) or by a
+    # cp.async per element (unaligned), and tiles whose rounded row
+    # crosses the input's end (masked)
+    small = {1: (((13,), 23), ((60,), 50)),
+             2: (((9, 11), 7), ((8, 8), 70))}
+    n_packed = 0
+    for label, spec0 in ([(n, PAPER_STENCILS[n]) for n in
+                          ("jacobi1d", "7pt1d", "jacobi2d", "blur2d")]
+                         + [(n, p) for n, p in PAPER_PIPELINES.items()]):
+        for boundary in BOUNDARIES:
+            spec = spec0.with_boundary(boundary)
+            for dtype, (shape, batch) in itertools.product(
+                    DTYPES, small[spec.ndim]):
+                g = randn((batch,) + shape, dtype, gen)
+                for sweeps in (1, 2, 4):
+                    for strategy in ("pad-free", "padded-window"):
+                        run_kernel(spec, g, sweeps, strategy,
+                                   f"packed {label} {boundary} {dtype} "
+                                   f"{batch}x{shape} s{sweeps}", dtype)
+                        n_packed += 1
+    # serving buckets: 600 grids of (32, 64), two to five per CTA
+    for spec in (PAPER_STENCILS["jacobi2d"], rd):
+        for dtype in DTYPES:
+            g = randn((600, 32, 64), dtype, gen)
+            for strategy in ("pad-free", "padded-window"):
+                run_kernel(spec, g, 4, strategy, f"packed {spec.name} "
+                           f"{dtype} 600x(32, 64) s4", dtype)
+                n_packed += 1
+    log(f"phase 1: {n_packed} cases of small grids packed several to a CTA"
+        f", max |err| {max_err}")
     # a batch past gridDim.y's 65,535: 70,000 f32 grids of 8x8, one launch
     label = "batch of 70000"
     g = randn((70000, 8, 8), torch.float32, gen)
@@ -540,6 +586,30 @@ def main() -> int:
                 t["interior"] for t in tiles[kernel].values()):
             failures.append(f"phase 1 {kernel}: interior tiles did not run "
                             f"on both load paths: {tiles.get(kernel)}")
+    # the window kernel's CTAs by load kind and packing (streamed
+    # launches apart): K2/K4 copied windows inside their input by 16-byte
+    # and per-element cp.async and masked ragged ones; every kernel ran
+    # packed and unpacked CTAs
+    window_ctas = {}
+    for kernel in ("K1", "K2", "K3", "K4"):
+        kinds = {k: sum(r["loads"][k] for r in records
+                        if r["kernel"] == kernel and not r["stream"])
+                 for k in keng.LOAD_KINDS}
+        ctas = sum(kinds.values())
+        packed = sum(r["packed"] for r in records
+                     if r["kernel"] == kernel and not r["stream"])
+        log(f"  {kernel} CTAs by load kind {kinds}, packed {packed} of "
+            f"{ctas}, pack factors "
+            f"{sorted({r['pack'] for r in records if r['kernel'] == kernel})}")
+        window_ctas[kernel] = {**kinds, "packed": packed}
+        if not 0 < packed < ctas:
+            failures.append(f"phase 1 {kernel}: packed {packed} of {ctas} "
+                            "CTAs: not both packed and unpacked")
+        want = ("async16", "elem", "tested") if kernel in ("K2", "K4") \
+            else ("async16", "plain", "tested")
+        if not all(kinds[k] for k in want):
+            failures.append(f"phase 1 {kernel}: a load kind never ran: "
+                            f"{kinds}")
     # the streamed rank-3 kernel: both entries, interior and rim tiles,
     # and K1's interior planes on both load paths
     for kernel in ("K1", "K2"):
@@ -644,7 +714,7 @@ def main() -> int:
         """The engine's plan for a case; a case that names a strategy
         (``padded-window``: K2/K4 on a row the plan now sends to K1/K3)
         runs the same plan with that strategy."""
-        plan = eng.plan_for(tuple(g.shape), g.dtype)
+        plan = eng.plan_for(tplan._grid_shape_for(case[1], g), g.dtype)
         if len(case) > 4:
             plan = dataclasses.replace(plan, ghost_strategy=case[4])
         return plan
@@ -745,6 +815,26 @@ def main() -> int:
     if min(plaunches[k] for k in ("K1", "K3", "K4")) < 1:
         raise SystemExit(f"phase 2b: a kernel of the path never ran: "
                          f"{plaunches}")
+    # serving: batches of small grids, one launch per fused block (the
+    # reference's serving mix, src/repro/serve/loadgen.py: BENCH_5's
+    # shapes; a bucket of 48 jacobi2d requests and buckets of 4096), and
+    # 70,000 grids of 8x8
+    advect2d = PAPER_PIPELINES["advect_diffuse2d"].stages[0]
+    scases = [("jacobi2d", PAPER_STENCILS["jacobi2d"], (70000, 8, 8),
+               "serving"),
+              ("jacobi2d", PAPER_STENCILS["jacobi2d"], (48, 32, 64),
+               "serving"),
+              ("jacobi2d", PAPER_STENCILS["jacobi2d"], (4096, 32, 64),
+               "serving"),
+              ("jacobi1d", PAPER_STENCILS["jacobi1d"], (4096, 512), "serving"),
+              ("reaction_diffusion2d", rd, (4096, 32, 64), "serving"),
+              ("advect2d", advect2d, (4096, 32, 64), "serving"),
+              ("heat3d", PAPER_STENCILS["heat3d"], (4096, 8, 12, 16),
+               "serving")]
+    sgrids, splans, sresults, slaunches = drive(scases, "d")
+    if sum(slaunches.values()) < len(scases):
+        raise SystemExit(f"phase 2d: a kernel of the path never ran: "
+                         f"{slaunches}")
     # the card against the host oracle on a small input
     small = randn((37, 45, 101), torch.float64, gen)
     spec = PAPER_STENCILS["star33_3d"].with_boundary("reflect")
@@ -851,15 +941,34 @@ def main() -> int:
         f"{'GB/s':>7s} {'bound':>7s} {'by':4s} {'plain':>8s} {'conv':>8s} "
         f"{'staged':>8s}")
     for r, c, g, plan in (list(zip(results, cases, grids, plans))
-                          + list(zip(presults, pcases, pgrids, pplans))):
+                          + list(zip(presults, pcases, pgrids, pplans))
+                          + list(zip(sresults, scases, sgrids, splans))):
         n, spec, shape, level = c[:4]
         kernel = kernel_of(plan)
         reps = 20 if level == "HBM" else 50
         ms = time_ms(lambda: tplan.execute(plan, g), reps)
+        # a batch of grids (serving): per-grid traffic times the batch
+        gshape = tuple(shape[len(shape) - spec.ndim:])
+        batch = math.prod(shape) // math.prod(gshape)
         if is_pipe(spec):
-            traffic = keng.hbm_pipeline_traffic(spec, shape, plan.tile, 4, 8)
+            traffic = keng.hbm_pipeline_traffic(spec, gshape, plan.tile, 4, 8)
         else:
-            traffic = keng.hbm_traffic(spec, shape, plan.tile, 4, 8)
+            traffic = keng.hbm_traffic(spec, gshape, plan.tile, 4, 8)
+        traffic = {k: v * batch for k, v in traffic.items()}
+        pad_ms = other_ms = None
+        if level == "serving":
+            # the host pad of a padded-window block, and the same block on
+            # the other entry (K1/K3 pad-free, or the pad and K2/K4)
+            wide = tuple(4 * h for h in spec.halo)
+            pad_ms = time_ms(lambda: tref.pad_boundary(
+                g, wide, spec.boundary_mode, spec.boundary_value), reps)
+            other = ("pad-free" if plan.ghost_strategy == "padded-window"
+                     else "padded-window")
+            oplan = dataclasses.replace(plan, ghost_strategy=other)
+            other_ms = time_ms(lambda: tplan.execute(oplan, g), reps)
+            compare(kernel_of(oplan), tplan.execute(oplan, g),
+                    tplan.execute(plan, g), torch.float64,
+                    f"phase 3 {n} {shape} {other}")
         bytes_ms = 2 * math.prod(shape) * 8 / hbm_bw * 1e3
         ops_ms, ops_pt = op_bound_ms(spec, shape)
         bound = max(bytes_ms, ops_ms)
@@ -897,20 +1006,28 @@ def main() -> int:
                  fused_bytes=traffic["fused_bytes"], bound_ms=bound,
                  bound_by=bound_by, bytes_ms=bytes_ms, ops_ms=ops_ms,
                  ops_per_point=ops_pt, plain_ms=plain_ms,
-                 library_ms=lib, staged_ms=staged_ms)
+                 library_ms=lib, staged_ms=staged_ms, pad_ms=pad_ms,
+                 other_entry_ms=other_ms)
         log(f"  {n + ' ' + r['boundary'][:9]:20s} {str(tuple(shape)):16s} "
             f"{kernel:6s} {ms:8.4f} {r['gbps']:7.1f} {bound:7.4f} "
             f"{bound_by[:4]:4s} {plain_ms:8.2f} {lib:8.3f} "
-            f"{'' if staged_ms is None else f'{staged_ms:8.4f}'}")
+            f"{'' if staged_ms is None else f'{staged_ms:8.4f}'}"
+            + ("" if pad_ms is None else f" | host pad {pad_ms:.4f}, other "
+               f"entry ({'K1/K3' if plan.ghost_strategy != 'pad-free' else 'pad + K2/K4'}) {other_ms:.4f}"))
     if failures:
         raise SystemExit("phase 3 failed:\n" + "\n".join(failures))
 
     # ---- the kernels line: one representative main-path case each ------
     def kernel_entry(kname, spec, g, window_call, launches, launches_of):
+        """A kernel's entry on ``g`` (one grid, or a leading batch of
+        grids: one launch), f64, sweeps=4: the kernel alone (K2/K4 on the
+        pre-padded window) beside its bound, plain version and batched
+        ``F.conv`` chain."""
         nd = spec.ndim
         shape = tuple(g.shape)
+        gshape = shape[len(shape) - nd:]
         sweeps = 4
-        tile = tplan.normalize_tile(spec, None, sweeps, 8, shape)
+        tile = tplan.normalize_tile(spec, None, sweeps, 8, gshape)
         wide = tuple(sweeps * h for h in spec.halo)
         if window_call:
             src = tref.pad_boundary(g, wide, spec.boundary_mode,
@@ -921,10 +1038,11 @@ def main() -> int:
                    else keng.stencil_window_sweep_plain)
 
             def kern():
-                return fn(spec, src, shape, (0,) * nd, shape, tile, sweeps)
+                return fn(spec, src, gshape, (0,) * nd, gshape, tile, sweeps)
 
             def plain():
-                return pfn(spec, src, shape, (0,) * nd, shape, tile, sweeps)
+                return pfn(spec, src, gshape, (0,) * nd, gshape, tile,
+                           sweeps)
         else:
             src = g
             fn = keng.pipeline_sweep if is_pipe(spec) else keng.stencil_sweep
@@ -948,7 +1066,7 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(lambda: lib(g), 5),
-            "shape": list(shape), "spec": spec.name,
+            "shape": list(shape), "tile": list(tile), "spec": spec.name,
             "boundary": getattr(spec, "boundary", None)
             or "+".join(s.boundary for s in spec.stages),
             "sweeps": sweeps, "dtype": "float64",
@@ -1007,6 +1125,35 @@ def main() -> int:
                                        "periodic", (2048, 2048)),
                      True, plaunches["K4"], "phase 2b"),
     ]
+    # K2 and K4 (1-D/2-D) carry the serving rows: the padded-window
+    # kernel alone on each batch's pre-padded windows, with the launches
+    # the row's main path (phase 2d) made of it
+    for e in kernels:
+        if e["name"] not in ("K2", "K4"):
+            continue
+        e["rows"] = [
+            kernel_entry(e["name"], c[1], g, True,
+                         r["launches_per_run"].get(e["name"], 0), "phase 2d")
+            for r, c, g in zip(sresults, scases, sgrids)
+            if c[1].ndim < 3 and is_pipe(c[1]) == (e["name"] == "K4")]
+        e["launches"] += sum(row["launches"] for row in e["rows"])
+        e["launches_of"] += " and 2d (serving)"
+        for row in e["rows"]:
+            log(f"  kernels line {e['name']} row {row['spec']:20s} "
+                f"{str(tuple(row['shape'])):18s} tile {row['tile']} "
+                f"{row['ms']:8.4f} ms | bound {row['bound_ms']:.4f} "
+                f"({row['bound_by']}) | plain {row['plain_ms']:.2f} | "
+                f"library {row['library_ms']:.3f} | launches "
+                f"{row['launches']}")
+    # the other entries' launches in the serving path
+    for e in kernels:
+        kname, pred = {"K1": ("K1", flat), "K3": ("K3", flat),
+                       "K1 rank 3 (heat3d)": ("K1", named("heat3d")),
+                       "K2 rank 3": ("K2", lambda c: not flat(c))}.get(
+                           e["name"], (None, None))
+        if kname is not None:
+            e["launches"] += launches_where(sresults, scases, kname, pred)
+            e["launches_of"] += " and 2d (serving)"
     for e in kernels:
         log(f"  kernels line {e['name']:18s} {e['spec']:20s} "
             f"{str(tuple(e['shape'])):16s} {e['ms']:8.4f} ms | bound "
@@ -1192,9 +1339,11 @@ def main() -> int:
                    "cuda": torch.version.cuda, "rates_of": rate_key,
                    "hbm_bw": hbm_bw, "peak_f64": peak_f64,
                    "phase1_cases": n_cases, "phase1_tiles": tiles,
+                   "phase1_window_ctas": window_ctas,
                    "chain_ptxas": chain_budget, "launches": launches,
                    "pipeline_launches": plaunches, "cases": results,
-                   "pipeline_cases": presults, "swa_phase1_cases": n_swa,
+                   "pipeline_cases": presults, "serving_launches": slaunches,
+                   "serving_cases": sresults, "swa_phase1_cases": n_swa,
                    "swa_launches": alaunches, "swa_cases": swa_results,
                    "k5_details": k5_details, "kernels": kernels,
                    "seconds": time.time() - t_start}, fh, indent=1)

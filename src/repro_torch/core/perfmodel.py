@@ -1,7 +1,7 @@
 """The Hopper constants that lowering reads.
 
-Only the two budgets :func:`repro_torch.core.plan.lower` consults are
-ported here; the Casper/CPU/GPU analytic model of
+Only the budgets :func:`repro_torch.core.plan.lower` and the kernel
+wrappers' launch geometry consult are ported here; the Casper/CPU/GPU analytic model of
 ``repro.core.perfmodel`` (Tables 4-6) waits for ROADMAP Queue 1 item 11,
 and the tile cost model for item 6.
 """
@@ -24,6 +24,15 @@ H100_L2_BYTES = 50 * 10 ** 6
 #: 227 KB = 232,448 bytes (CUDA C++ programming guide, compute
 #: capability 9.0).  The fused kernels' two window buffers must fit it.
 H100_SMEM_PER_BLOCK = 232448
+
+#: H100 SXM streaming multiprocessors (NVIDIA H100 data sheet).
+H100_SMS = 132
+
+#: Shared memory of one H100 SM that blocks can share: 228 KB = 233,472
+#: bytes, of which the system reserves 1 KB per resident block (CUDA C++
+#: programming guide, compute capability 9.0).
+H100_SMEM_PER_SM = 233472
+H100_SMEM_RESERVED_PER_BLOCK = 1024
 
 #: Whole-grid budget of the periodic pad-free decision: periodic grids
 #: above it take the padded-window kernel (K2) and its host pad.  The

@@ -19,7 +19,8 @@ Differences from the reference, by design:
 
 * ``interpret`` is replaced by ``device`` (part of the plan key);
 * the kernel tile defaults to the first Hopper tile whose two shared
-  memory window buffers fit 227 KB (:func:`default_tile`), and an
+  memory window buffers fit 227 KB (:func:`default_tile`), cut to a grid
+  smaller than it (:func:`normalize_tile`), and an
   explicit tile that does not fit — or a chain for which no tile fits,
   or whose taps exceed the kernels' argument pools — is refused here, at
   lowering time, on every device;
@@ -126,9 +127,12 @@ class KernelLayout:
     ``j0 * plane[b] + j1 * row + j2 + base[b]`` of buffer ``b`` and a tap
     is one linear offset per buffer.  ``row`` rounds ``lead`` plus the
     window's row up to 16 bytes of storage; ``lead`` places every tile's
-    first window column at the residue its grid column has mod 16 bytes.
-    ``elems`` counts each buffer's elements (buffer 1: 0 when the block
-    is one application)."""
+    first window column at the residue its input column has mod 16 bytes
+    (a pad-free window starts ``sweeps*H`` before its tile, a padded one
+    on its tile's own column: ``lead`` 0).  A CTA that packs ``pack``
+    grids of rank 1 or 2 stacks their windows along dim 0 (extent 1,
+    halo 0), one plane each.  ``elems`` counts each buffer's elements
+    (buffer 1: 0 when the block is one application)."""
 
     lead: int
     row: int
@@ -141,17 +145,20 @@ class KernelLayout:
         return off3[0] * self.plane[b] + off3[1] * self.row + off3[2]
 
 
-def kernel_layout(tile: Sequence[int], spec, sweeps: int,
-                  itemsize: int) -> KernelLayout:
+def kernel_layout(tile: Sequence[int], spec, sweeps: int, itemsize: int,
+                  *, padded: bool = False, pack: int = 1) -> KernelLayout:
     """The :class:`KernelLayout` of ``spec`` (a spec or a pipeline) at
-    ``tile``, ``sweeps`` and the grid's ``itemsize``."""
-    return _kernel_layout(tuple(tile), spec, sweeps, itemsize)
+    ``tile``, ``sweeps`` and the grid's ``itemsize``, for the pad-free or
+    the ``padded`` entry and ``pack`` grids per CTA."""
+    return _kernel_layout(tuple(tile), spec, sweeps, itemsize, bool(padded),
+                          int(pack))
 
 
 # the layouts and the default tile are asked for on every launch: cached,
 # so that a short block does not wait on the host
 @functools.lru_cache(maxsize=1024)
-def _kernel_layout(tile, spec, sweeps, itemsize) -> KernelLayout:
+def _kernel_layout(tile, spec, sweeps, itemsize, padded,
+                   pack) -> KernelLayout:
     stages = as_stages(spec)
     pad = 3 - spec.ndim
     t3 = (1,) * pad + tuple(tile)
@@ -159,7 +166,8 @@ def _kernel_layout(tile, spec, sweeps, itemsize) -> KernelLayout:
     h = (0,) * pad + tuple(stages[0].halo)
     vec = _chunk(itemsize)
     win = [t + 2 * sweeps * hh for t, hh in zip(t3, big)]
-    lead = -(sweeps * big[2]) % vec
+    win[0] *= pack
+    lead = 0 if padded else -(sweeps * big[2]) % vec
     row = -(-(lead + win[2]) // vec) * vec
     plane = (win[1] * row, (win[1] - 2 * h[1]) * row)
     base = (lead, lead - h[0] * plane[1] - h[1] * row)
@@ -251,20 +259,21 @@ def _stream_layout(tile, spec, sweeps, itemsize) -> StreamLayout:
                         tuple(offs[:-1]), table_bytes, smem)
 
 
-def smem_bytes(tile: Sequence[int], spec, sweeps: int,
-               itemsize: int) -> int:
+def smem_bytes(tile: Sequence[int], spec, sweeps: int, itemsize: int,
+               *, padded: bool = False, pack: int = 1) -> int:
     """Shared memory one CTA of K1-K4 needs for ``spec`` (a spec or a
     pipeline): for a rank-3 spec, the streamed kernel's rings and tables
     (:func:`stream_layout`); else the two buffers of
     :func:`kernel_layout` — the fetched window ``tile + 2*sweeps*H``
     (``H`` the sum of the stage radii) and, when
     ``sweeps * n_stages > 1``, the intermediate buffer, both on the
-    window's 16-byte-rounded row pitch.  Both hold the accumulator type:
-    an element of a grid narrower than f32 takes 4 bytes there."""
+    window's 16-byte-rounded row pitch, ``pack`` times over for a CTA of
+    ``pack`` grids.  Both hold the accumulator type: an element of a grid
+    narrower than f32 takes 4 bytes there."""
     if streams(spec):
         return stream_layout(tile, spec, sweeps, itemsize).smem
-    return sum(kernel_layout(tile, spec, sweeps, itemsize).elems) \
-        * max(itemsize, 4)
+    return sum(kernel_layout(tile, spec, sweeps, itemsize, padded=padded,
+                             pack=pack).elems) * max(itemsize, 4)
 
 
 #: Largest ``gridDim.x`` of a launch.
@@ -272,12 +281,14 @@ MAX_BLOCKS = 2 ** 31 - 1
 
 
 def launch_blocks(out_shape: Sequence[int], tile: Sequence[int],
-                  batch: int) -> int:
+                  batch: int, pack: int = 1) -> int:
     """CTAs of one K1-K4 launch, as ``launch_blocks`` in
-    ``csrc/stencil.cu`` counts them: every tile of every batch element,
-    all on ``gridDim.x``, so a batch is not held to ``gridDim.y``'s
-    65,535.  Raises ``ValueError`` past :data:`MAX_BLOCKS`."""
-    blocks = batch * math.prod(-(-n // t) for n, t in zip(out_shape, tile))
+    ``csrc/stencil.cu`` counts them: every tile of every group of
+    ``pack`` batch elements, all on ``gridDim.x``, so a batch is not held
+    to ``gridDim.y``'s 65,535.  Raises ``ValueError`` past
+    :data:`MAX_BLOCKS`."""
+    blocks = -(-batch // pack) * math.prod(-(-n // t)
+                                           for n, t in zip(out_shape, tile))
     if blocks > MAX_BLOCKS:
         raise ValueError(f"{blocks} CTAs (batch {batch} x tiles of "
                          f"{tuple(out_shape)} by {tuple(tile)}) exceed one "
@@ -286,18 +297,74 @@ def launch_blocks(out_shape: Sequence[int], tile: Sequence[int],
 
 
 def load_path(shape: Sequence[int], tile: Sequence[int], itemsize: int,
-              data_ptr: int = 0) -> str:
-    """How a pad-free launch (K1/K3) loads its interior windows, fixed
-    before the launch: ``"async"`` (16-byte ``cp.async``) for an f32/f64
-    grid whose rows are whole 16-byte chunks, whose tile's row is a whole
+              data_ptr: int = 0, *, padded: bool = False) -> str:
+    """How a launch copies the windows that need no boundary test, fixed
+    before the launch from its input's ``shape`` (the grid, or for the
+    ``padded`` entry the pre-padded window), the tile, the dtype and the
+    alignment: ``"async"`` (16-byte ``cp.async``) for an f32/f64 input
+    whose rows are whole 16-byte chunks, whose tile's row is a whole
     number of chunks (so every window starts on the layout's ``lead``)
-    and whose data starts 16-byte aligned; ``"plain"`` (element by
-    element) otherwise.  Rim tiles always load element by element."""
+    and whose data starts 16-byte aligned; otherwise, for the padded
+    entry, ``"elem"`` (a 4- or 8-byte ``cp.async`` per element) in
+    f32/f64, and ``"plain"`` (element by element through registers,
+    bf16 widened on the way).  The windows it covers: a pad-free
+    launch's interior tiles, and a padded launch's tiles whose window
+    lies inside its input (all but the ragged end).  Every other tile
+    loads element by element, mapped (pad-free) or masked (padded)."""
     vec = _chunk(itemsize)
-    if (itemsize < 4 or shape[-1] % vec or tile[-1] % vec
-            or data_ptr % 16):
+    if itemsize < 4:
         return "plain"
+    if shape[-1] % vec or tile[-1] % vec or data_ptr % 16:
+        return "elem" if padded else "plain"
     return "async"
+
+
+#: Threads of one K1-K4 CTA (``CASPER_THREADS``).
+CTA_THREADS = 256
+
+#: CTAs per SM the kernels' register budget leaves room for
+#: (``CASPER_MIN_BLOCKS``): packed windows are held to the shared memory
+#: that keeps this many resident.
+CTAS_PER_SM = 2
+
+
+def pack_factor(spec, out_shape: Sequence[int], tile: Sequence[int],
+                sweeps: int, itemsize: int, batch: int, *,
+                padded: bool = False) -> int:
+    """How many grids of a batch one CTA of the window kernel carries,
+    chosen at launch (a plan does not depend on its batch size).  Only a
+    spec or pipeline of rank 1 or 2 whose tile covers the whole output
+    packs: its ``P`` windows are stacked along the spare dim 0, so every
+    tap keeps its linear offset and one box walk covers all of them.
+    ``P`` is at most what keeps :data:`CTAS_PER_SM` CTAs resident in an
+    SM's shared memory.  The card holds 132 SMs x :data:`CTAS_PER_SM`
+    CTAs at once (a wave): at that cap the batch takes ``W`` waves, and
+    ``P`` is the fewest grids per CTA that still finish in ``W`` (so the
+    last wave is as full as the others, and a batch smaller than a wave
+    fills the card), but at least as many as give each of the
+    :data:`CTA_THREADS` threads a point of the last application; never
+    more than the batch."""
+    return _pack_factor(spec, tuple(out_shape), tuple(tile), sweeps,
+                        itemsize, batch, bool(padded))
+
+
+# asked for on every launch: cached, as the layouts are
+@functools.lru_cache(maxsize=1024)
+def _pack_factor(spec, out_shape, tile, sweeps, itemsize, batch,
+                 padded) -> int:
+    if (spec.ndim == 3 or batch < 2
+            or any(t < n for t, n in zip(tile, out_shape))):
+        return 1
+    per = smem_bytes(tile, spec, sweeps, itemsize, padded=padded)
+    budget = (_pm.H100_SMEM_PER_SM // CTAS_PER_SM
+              - _pm.H100_SMEM_RESERVED_PER_BLOCK)
+    cap = budget // per
+    if cap < 2:
+        return 1
+    wave = _pm.H100_SMS * CTAS_PER_SM
+    waves = -(-batch // (cap * wave))
+    need = -(-CTA_THREADS // math.prod(tile))
+    return min(max(-(-batch // (waves * wave)), need), cap, batch)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -319,16 +386,24 @@ def normalize_tile(spec: StencilSpec, tile: Sequence[int] | int | None,
                    sweeps: int = 1, itemsize: int = 4,
                    shape: Sequence[int] | None = None) -> tuple[int, ...]:
     """Default / int-promote / validate a kernel tile for ``spec``.  The
-    default tile of a streamed spec on a grid of ``shape`` has its chunk
-    ``tile[0]`` cut to the grid's depth less the window's
+    default tile is fitted to an output of ``shape``: a streamed spec's
+    chunk ``tile[0]`` is first cut to the grid's depth less the window's
     ``2*sweeps*halo[0]`` planes (when that leaves at least one), so the
-    window stays inside a shallow grid and the grid pad-free."""
+    window stays inside a shallow grid and the grid pad-free; then every
+    dim longer than the output's is cut to it, the row rounded up to the
+    layout's 16-byte chunk (so the ``lead`` rule and the ``cp.async``
+    path still hold), and the kernel stages the grid's own window instead
+    of a default tile's.  An explicit ``tile`` is taken as it is."""
     if tile is None:
         tile = default_tile(spec, sweeps, itemsize)
-        if shape is not None and streams(spec):
-            fit = shape[-3] - 2 * sweeps * spec.halo[0]
-            if 1 <= fit < tile[0]:
-                tile = (fit,) + tile[1:]
+        if shape is not None:
+            if streams(spec):
+                fit = shape[-3] - 2 * sweeps * spec.halo[0]
+                if 1 <= fit < tile[0]:
+                    tile = (fit,) + tile[1:]
+            vec = _chunk(itemsize)
+            tile = tuple(min(t, n) for t, n in zip(tile[:-1], shape[:-1])) \
+                + (min(tile[-1], -(-shape[-1] // vec) * vec),)
         return tile
     if tile == "auto":
         raise not_ported("auto")
@@ -364,9 +439,14 @@ def ghost_strategy_for(spec: StencilSpec, shape: Sequence[int],
     when its bytes exceed ``periodic_budget_bytes`` (default
     :data:`repro_torch.core.perfmodel.PERIODIC_WHOLE_GRID_BYTES`, the
     device memory: K1 takes every periodic grid).  A fusable pipeline
-    takes the same rule:
-    its ``halo`` is the sum of the stage radii and its mode is periodic
-    only when every stage is."""
+    takes the same rule: its ``halo`` is the sum of the stage radii and
+    its mode is periodic only when every stage is.
+
+    Small grids stay on the padded window by measurement: on an H100,
+    with fitted tiles and several grids per CTA on both entries, K1/K3
+    on the unpadded grids did not beat the host pad plus K2/K4 on every
+    batch of small grids (``tools/window_probe.py``: batches of 8x8
+    grids ran faster padded, of (512,) grids pad-free)."""
     shape = tuple(shape)
     tile = normalize_tile(spec, tile, sweeps, itemsize, shape)
     wide = tuple(sweeps * h for h in spec.halo)

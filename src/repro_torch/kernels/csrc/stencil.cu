@@ -9,7 +9,7 @@
 // All four are one kernel template, instantiated per storage type and per
 // rank (1, 2, 3): `sweeps` fused applications of a chain of 1..4 stencil
 // stages (one stage for K1/K2, a StencilPipeline's stages for K3/K4) on
-// one output tile per CTA (blockIdx.x = batch element * tiles + tile, so
+// one output tile per CTA (blockIdx.x = batch group * tiles + tile, so
 // a batch is not held to gridDim.y's 65,535).  A rank-3 spec (K1/K2 of
 // one stage) runs instead in casper_stream_kernel below, which streams
 // its tile plane by plane along dim 0 rather than holding a 3-D window.
@@ -25,8 +25,17 @@
 //      read in place: no padded copy of the grid exists.
 //   padded window (K2/K4) reads the window from an input pre-padded with
 //      stage 0's mode at the tile's local offset; reads past the input's
-//      end are masked to 0.  `origin` only shifts the global coordinates
-//      used for ghost restoration.
+//      end (a ragged tile's) are masked to 0.  `origin` only shifts the
+//      global coordinates used for ghost restoration.
+// Small grids (K2/K4's traffic: serving buckets, grids below one window,
+// and likewise K1/K3's): the host fits the default tile to a grid smaller
+// than it, and packs a batch of such grids of rank 1-2 several to a CTA
+// (CasperArgs.pack, P): their windows are stacked along the spare dim 0
+// (extent 1, halo 0), so a tap keeps its linear offset, no tap crosses
+// grids, and one box walk of the rank-3 instance covers all P grids in
+// each application.  P fills the card where the batch allows, keeps two
+// CTAs' buffers per SM, and gives every thread a point of the last
+// application.
 // After every application but the last, the ghosts left in the
 // intermediate (by global coordinate) are restored to the extension of
 // the NEXT stage to run, stages[(k+1) % n], as
@@ -60,13 +69,17 @@
 // stages read their taps per point.  Each thread forms two points
 // before it stores either, so their loads overlap.
 //
-// Loads: an interior tile of a pad-free f32/f64 launch whose grid rows
-// are 16-byte aligned (decided by the host before the launch, args.async_load)
-// copies its window with 16-byte cp.async, no register round trip; every
-// other tile loads element by element.  Two CTAs fit on an SM at the 2-D
-// default tile in f64, so one CTA's load overlaps the other's compute (a
-// window prefetched by persistent CTAs would leave one: measured, the
-// load overlaps all but about a tenth of the block already).
+// Loads: a window that needs no boundary test (a pad-free interior tile's,
+// a padded tile's inside its input) is a copy: in an f32/f64 launch whose
+// input rows are 16-byte aligned (decided by the host before the launch,
+// args.async_load) by 16-byte cp.async, no register round trip; in a
+// padded f32/f64 launch of unaligned rows by a 4/8-byte cp.async per
+// element, no test either; else element by element.  Every other tile
+// loads element by element through the boundary index map or the mask.
+// Two CTAs fit on an SM at the 2-D default tile in f64, so one CTA's load
+// overlaps the other's compute (a window prefetched by persistent CTAs
+// would leave one: measured, the load overlaps all but about a tenth of
+// the block already).
 //
 // Arithmetic: f64 results must be bit-identical to the reference oracle.
 // Every product is rounded on its own and added to an accumulator that
@@ -136,8 +149,11 @@ struct CasperArgs {
   int sweeps;
   int batch;
   int n_stages;
-  int async_load;                // 1: interior windows by 16-byte cp.async
+  int async_load;                // windows needing no test: 0 element by element,
+                                 // 1 by 16-byte cp.async, 2 by a 4/8-byte
+                                 // cp.async per element (padded only)
   int stream;                    // 1: rank 3, one stage, streamed along dim 0
+  int pack;                      // grids per CTA (ranks 1-2, one tile per grid)
   int n_foff;                    // factor offsets in use (foff_lin, foff_dz)
   int grid[3];                   // global grid extents (ghost restoration)
   int tile[3];
@@ -145,7 +161,8 @@ struct CasperArgs {
   int src[3];                    // input extents per batch element
   int out[3];                    // output extents per batch element
   int origin[3];                 // padded: global coordinate of the output origin
-  int* tiles;                    // null, or counters: interior tiles, rim tiles
+  int* tiles;                    // null, or counters: interior tiles, rim
+                                 // tiles, CTAs per load kind (4), packed CTAs
   CasperStage stage[CASPER_MAX_STAGES];
   int tap_lin[2][CASPER_MAX_TAPS];   // tap offsets in buffer 0 / buffer 1
   int term_fac[CASPER_MAX_TERMS];    // first factor of each term
@@ -164,9 +181,11 @@ struct CasperArgs {
 // element at window coordinate (j0, j1, j2) sits at
 // j0 * plane[b] + j1 * row + j2 + base[b] of buffer b.  Rows are rounded
 // up to 16 bytes of storage (`vec` elements, 1 for bf16) and start at
-// column `lead`, so that an aligned chunk of a grid row lands on an
-// aligned chunk of the buffer when every tile's window starts at a
-// column congruent to -sweeps*H (mod vec).
+// column `lead`, so that an aligned chunk of an input row lands on an
+// aligned chunk of the buffer: a pad-free window starts at a grid column
+// congruent to -sweeps*H (mod vec), a padded one at its tile's column of
+// the padded input, 0 (mod vec).  A CTA of `pack` grids (ranks 1-2, whose
+// dim 0 has extent 1 and halo 0) stacks their windows along dim 0.
 struct Layout {
   int lead, row;
   int plane[2], base[2], elems[2];
@@ -178,8 +197,9 @@ __host__ __device__ __forceinline__ Layout layout_of(const CasperArgs& a) {
   const int* h = a.stage[0].halo;
   int win[3];
   for (int d = 0; d < 3; ++d) win[d] = a.tile[d] + 2 * a.sweeps * a.halo[d];
+  win[0] *= a.pack;
   Layout l;
-  l.lead = (vec - (a.sweeps * a.halo[2]) % vec) % vec;
+  l.lead = a.padded ? 0 : (vec - (a.sweeps * a.halo[2]) % vec) % vec;
   l.row = (l.lead + win[2] + vec - 1) / vec * vec;
   l.plane[0] = win[1] * l.row;
   l.plane[1] = (win[1] - 2 * h[1]) * l.row;
@@ -234,6 +254,18 @@ __device__ __forceinline__ int reflect_index(int g, int n) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// an asynchronous copy of one 4- or 8-byte element
+template <int N>
+__device__ __forceinline__ void cp_async_elem(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(N)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -430,20 +462,21 @@ struct AnyStage {
 // column -1, column +1), each thread computing a strip of M rows of one
 // column: the center column is read once for the strip's M + 2 rows and
 // held in registers, so a point costs 3 shared-memory loads instead of 5.
-// Every point's sum is formed in tap order, as FixedTaps forms it.  (The
-// streamed rank-3 kernel runs rank 3's seven taps so: Star7Op.)
-template <int M, typename T, typename Put>
-__device__ __forceinline__ void star_strips(const T* __restrict__ x, int row, const int* cur,
-                                            const int* c, const CasperArgs& a,
+// Every point's sum is formed in tap order, as FixedTaps forms it.  The
+// box's dim 0 holds the grids of a packed CTA (R = 3).  (The streamed
+// rank-3 kernel runs rank 3's seven taps so: Star7Op.)
+template <int R, int M, typename T, typename Put>
+__device__ __forceinline__ void star_strips(const T* __restrict__ x, int plane, int row,
+                                            const int* cur, const int* c, const CasperArgs& a,
                                             const CasperStage& st, Put&& put) {
   T k[5];
 #pragma unroll
   for (int t = 0; t < 5; ++t) k[t] = T(a.tap_c[st.tap_first + t]);
   const int strips = (cur[1] + M - 1) / M;
-  for_box<2>(1, strips, cur[2], [&](int, int sq, int q2) {
+  for_box<R>(cur[0], strips, cur[2], [&](int q0, int sq, int q2) {
     const int q1 = sq * M;
     const int rows = min(M, cur[1] - q1);
-    const T* __restrict__ p = x + (c[1] + q1) * row + c[2] + q2;
+    const T* __restrict__ p = x + (c[0] + q0) * plane + (c[1] + q1) * row + c[2] + q2;
     T col[M + 2];
 #pragma unroll
     for (int i = 0; i < M + 2; ++i) col[i] = i <= rows + 1 ? p[(i - 1) * row] : T(0);
@@ -457,7 +490,7 @@ __device__ __forceinline__ void star_strips(const T* __restrict__ x, int row, co
         acc = add_rn(acc, mul_rn(k[2], col[m + 2]));
         acc = add_rn(acc, mul_rn(k[3], pm[-1]));
         acc = add_rn(acc, mul_rn(k[4], pm[1]));
-        put(0, q1 + m, q2, acc);
+        put(q0, q1 + m, q2, acc);
       }
     }
   });
@@ -476,52 +509,71 @@ casper_chain_kernel(const S* __restrict__ in, S* __restrict__ out,
   T* const sm = reinterpret_cast<T*>(smem_raw);
   const int row = ly.row;
 
-  // Which tile: blockIdx.x = batch element * tiles + tile, tiles with
-  // dim 2 fastest.
+  // Which tile: blockIdx.x = group * tiles + tile, tiles with dim 2
+  // fastest; a group is `pack` consecutive batch elements.
   const int nt2 = (a.out[2] + a.tile[2] - 1) / a.tile[2];
   const int nt1 = (a.out[1] + a.tile[1] - 1) / a.tile[1];
   const int ntiles = nt1 * nt2 * ((a.out[0] + a.tile[0] - 1) / a.tile[0]);
-  const int item = blockIdx.x / ntiles;
+  const int item = blockIdx.x / ntiles * a.pack;
   int lin = blockIdx.x % ntiles;
   int base[3];
   base[2] = (lin % nt2) * a.tile[2];
   lin /= nt2;
   base[1] = (lin % nt1) * a.tile[1];
   base[0] = (lin / nt1) * a.tile[0];
+  // A packed CTA (R = 3 instance, ranks 1-2, one tile per grid) carries
+  // np grids along dim 0, whose extent is 1 and halo 0: dim 0 of the
+  // tile, the grid and the input and output extents becomes np, and
+  // since one batch element's data follows the previous one's, dim-0
+  // coordinate j addresses grid item + j.  No tap crosses grids.
+  // (only the rank-3 instance runs packed launches: the host sends them
+  // there, so the rank-1/2 instances compile without this path)
+  const bool packed = R == 3 && a.pack > 1;
+  const int np = min(a.pack, a.batch - item);
+  const int tl[3] = {packed ? np : a.tile[0], a.tile[1], a.tile[2]};
+  const int gd[3] = {packed ? np : a.grid[0], a.grid[1], a.grid[2]};
+  const int sx[3] = {packed ? np : a.src[0], a.src[1], a.src[2]};
+  const int ox0 = packed ? np : a.out[0];
 
   const int sweeps = a.sweeps;
   int win[3], gorg[3], full[3], rem[3];
-  bool interior = true;
+  bool interior = true, inside = true;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     full[d] = sweeps * a.halo[d];
     rem[d] = full[d];                                   // ghost depth left
-    win[d] = a.tile[d] + 2 * full[d];
+    win[d] = tl[d] + 2 * full[d];
     gorg[d] = (a.padded ? a.origin[d] : 0) + base[d];  // global coord of tile origin
-    interior = interior && gorg[d] - full[d] >= 0 && gorg[d] + a.tile[d] + full[d] <= a.grid[d];
+    interior = interior && gorg[d] - full[d] >= 0 && gorg[d] + tl[d] + full[d] <= gd[d];
+    inside = inside && base[d] + win[d] <= sx[d];       // padded: window in the input
   }
-  if (a.tiles != nullptr && threadIdx.x == 0) atomicAdd(a.tiles + (interior ? 0 : 1), 1);
   const CasperStage& first = a.stage[0];
   const T fill0 = first.mode == MODE_CONSTANT ? Acc<S>::rounded(first.value) : T(0);
 
   // ---- load the window (stage 0's extension) into buffer 0 ----------------
+  // A window that needs no boundary test -- a pad-free interior tile's,
+  // or a padded tile's that lies inside its input (all but the ragged
+  // end) -- is a plain copy: by 16-byte cp.async, by a cp.async per
+  // element, or through registers (bf16, widened); kind 3 is the rest.
   const size_t src_elems = (size_t)a.src[0] * a.src[1] * a.src[2];
   const S* __restrict__ src = in + (size_t)item * src_elems;
   T* const w0 = sm + ly.base[0];
   const int pl0 = ly.plane[0];
-  if (a.padded) {
-    for_box<R>(win[0], win[1], win[2], [&](int j0, int j1, int j2) {
-      const int l0 = base[0] + j0, l1 = base[1] + j1, l2 = base[2] + j2;
-      const bool inside = l0 < a.src[0] && l1 < a.src[1] && l2 < a.src[2];
-      w0[j0 * pl0 + j1 * row + j2] =
-          inside ? Acc<S>::load(src[((size_t)l0 * a.src[1] + l1) * a.src[2] + l2]) : T(0);
-    });
-  } else if (interior) {
-    const S* __restrict__ g = src + ((size_t)(gorg[0] - full[0]) * a.src[1] + (gorg[1] - full[1])) *
-                                        a.src[2] + (gorg[2] - full[2]);
+  const bool copy = a.padded ? inside : interior;
+  const int kind = !copy ? 3 : a.async_load == 1 ? 0 : a.async_load == 2 ? 1 : 2;
+  if (a.tiles != nullptr && threadIdx.x == 0) {
+    atomicAdd(a.tiles + (interior ? 0 : 1), 1);
+    atomicAdd(a.tiles + 2 + kind, 1);
+    if (np > 1) atomicAdd(a.tiles + 6, 1);
+  }
+  if (copy) {
+    const int c0 = a.padded ? base[0] : gorg[0] - full[0];
+    const int c1 = a.padded ? base[1] : gorg[1] - full[1];
+    const int c2 = a.padded ? base[2] : gorg[2] - full[2];
+    const S* __restrict__ g = src + ((size_t)c0 * sx[1] + c1) * sx[2] + c2;
     bool copied = false;
     if constexpr (sizeof(S) >= 4) {
-      if (a.async_load) {
+      if (kind == 0) {
         // 16-byte chunks from the aligned column at or below the window's
         // first; the row pitch leaves room for the chunks past either end
         constexpr int vec = 16 / sizeof(S);
@@ -530,7 +582,14 @@ casper_chain_kernel(const S* __restrict__ in, S* __restrict__ out,
         T* const s16 = sm;
         for_box<R>(win[0], win[1], chunks, [&](int j0, int j1, int ch) {
           cp_async16(s16 + j0 * pl0 + j1 * row + ch * vec,
-                     g16 + (size_t)(j0 * a.src[1] + j1) * a.src[2] + ch * vec);
+                     g16 + (size_t)(j0 * sx[1] + j1) * sx[2] + ch * vec);
+        });
+        cp_async_wait_all();
+        copied = true;
+      } else if (kind == 1) {
+        for_box<R>(win[0], win[1], win[2], [&](int j0, int j1, int j2) {
+          cp_async_elem<sizeof(S)>(w0 + j0 * pl0 + j1 * row + j2,
+                                   g + (size_t)(j0 * sx[1] + j1) * sx[2] + j2);
         });
         cp_async_wait_all();
         copied = true;
@@ -539,26 +598,35 @@ casper_chain_kernel(const S* __restrict__ in, S* __restrict__ out,
     if (!copied) {
       for_box<R>(win[0], win[1], win[2], [&](int j0, int j1, int j2) {
         w0[j0 * pl0 + j1 * row + j2] =
-            Acc<S>::load(g[(size_t)(j0 * a.src[1] + j1) * a.src[2] + j2]);
+            Acc<S>::load(g[(size_t)(j0 * sx[1] + j1) * sx[2] + j2]);
       });
     }
+  } else if (a.padded) {
+    // a ragged tile: reads past the padded input's end are 0
+    for_box<R>(win[0], win[1], win[2], [&](int j0, int j1, int j2) {
+      const int l0 = base[0] + j0, l1 = base[1] + j1, l2 = base[2] + j2;
+      const bool in_src = l0 < sx[0] && l1 < sx[1] && l2 < sx[2];
+      w0[j0 * pl0 + j1 * row + j2] =
+          in_src ? Acc<S>::load(src[((size_t)l0 * sx[1] + l1) * sx[2] + l2]) : T(0);
+    });
   } else {
     for_box<R>(win[0], win[1], win[2], [&](int j0, int j1, int j2) {
       int gi[3] = {gorg[0] - full[0] + j0, gorg[1] - full[1] + j1, gorg[2] - full[2] + j2};
-      bool inside = true;
+      bool in_grid = true;
 #pragma unroll
       for (int d = 3 - R; d < 3; ++d) {
+        if (R == 3 && d < 3 - a.rank) continue;  // a packed CTA's dim 0 indexes its grids
         if (first.mode == MODE_PERIODIC) {
-          gi[d] = wrap_index(gi[d], a.grid[d]);
+          gi[d] = wrap_index(gi[d], gd[d]);
         } else if (first.mode == MODE_REFLECT) {
-          gi[d] = reflect_index(gi[d], a.grid[d]);
+          gi[d] = reflect_index(gi[d], gd[d]);
         } else {
-          inside = inside && gi[d] >= 0 && gi[d] < a.grid[d];
+          in_grid = in_grid && gi[d] >= 0 && gi[d] < gd[d];
         }
       }
       w0[j0 * pl0 + j1 * row + j2] =
-          inside ? Acc<S>::load(src[((size_t)gi[0] * a.src[1] + gi[1]) * a.src[2] + gi[2]])
-                 : fill0;
+          in_grid ? Acc<S>::load(src[((size_t)gi[0] * sx[1] + gi[1]) * sx[2] + gi[2]])
+                  : fill0;
     });
   }
   __syncthreads();
@@ -576,7 +644,7 @@ casper_chain_kernel(const S* __restrict__ in, S* __restrict__ out,
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
         rem[d] -= st.halo[d];                  // ghost depth left after this one
-        cur[d] = a.tile[d] + 2 * rem[d];
+        cur[d] = tl[d] + 2 * rem[d];
         c[d] = full[d] - rem[d];               // window coordinate of cur's origin
         g0[d] = gorg[d] - rem[d];
       }
@@ -594,14 +662,14 @@ casper_chain_kernel(const S* __restrict__ in, S* __restrict__ out,
       // positions taking the fill of a zero/constant next stage
       auto put_last = [&](int q0, int q1, int q2, T v) {
         const int o0 = base[0] + q0, o1 = base[1] + q1, o2 = base[2] + q2;
-        if (o0 < a.out[0] && o1 < a.out[1] && o2 < a.out[2])
+        if (o0 < ox0 && o1 < a.out[1] && o2 < a.out[2])
           dst[((size_t)o0 * a.out[1] + o1) * a.out[2] + o2] = Acc<S>::store(v);
       };
       auto put_fill = [&](int q0, int q1, int q2, T v) {
         const int ga = g0[0] + q0, gb = g0[1] + q1, gc = g0[2] + q2;
-        const bool inside = ga >= 0 && ga < a.grid[0] && gb >= 0 && gb < a.grid[1] &&
-                            gc >= 0 && gc < a.grid[2];
-        xout[(c[0] + q0) * pout + (c[1] + q1) * row + c[2] + q2] = inside ? v : fill;
+        const bool in_grid = ga >= 0 && ga < gd[0] && gb >= 0 && gb < gd[1] &&
+                             gc >= 0 && gc < gd[2];
+        xout[(c[0] + q0) * pout + (c[1] + q1) * row + c[2] + q2] = in_grid ? v : fill;
       };
       auto put_keep = [&](int q0, int q1, int q2, T v) {
         xout[(c[0] + q0) * pout + (c[1] + q1) * row + c[2] + q2] = v;
@@ -612,8 +680,8 @@ casper_chain_kernel(const S* __restrict__ in, S* __restrict__ out,
             return pt(xin, (c[0] + q0) * pin + (c[1] + q1) * row + c[2] + q2);
           }, put);
         };
-        if (R == 2 && st.star == 2) {
-          star_strips<CASPER_STRIP>(xin, row, cur, c, a, st, put);
+        if (R >= 2 && st.star == 2) {
+          star_strips<R, CASPER_STRIP>(xin, pin, row, cur, c, a, st, put);
         } else if (st.n_terms == 0 && st.n_taps == 5) {
           run(FixedTaps<T, 5>(a, st, bi));
         } else if (st.n_terms == 0 && st.n_taps == 3) {
@@ -642,14 +710,14 @@ casper_chain_kernel(const S* __restrict__ in, S* __restrict__ out,
 #pragma unroll
         for (int d = 3 - R; d < 3; ++d) {
           const int lo = min(max(-g0[d], 0), cur[d]);
-          const int hi = min(max(g0[d] + cur[d] - a.grid[d], 0), cur[d] - lo);
+          const int hi = min(max(g0[d] + cur[d] - gd[d], 0), cur[d] - lo);
           if (lo + hi == 0) continue;
           int box[3] = {cur[0], cur[1], cur[2]};
           box[d] = lo + hi;
           for_box<R>(box[0], box[1], box[2], [&](int q0, int q1, int q2) {
             int q[3] = {q0, q1, q2};
             const int qd = q[d] < lo ? q[d] : cur[d] - hi + (q[d] - lo);
-            int from = reflect_index(g0[d] + qd, a.grid[d]) - g0[d];
+            int from = reflect_index(g0[d] + qd, gd[d]) - g0[d];
             from = from < 0 ? 0 : (from > cur[d] - 1 ? cur[d] - 1 : from);
             q[d] = qd;
             const int to = (c[0] + q[0]) * pout + (c[1] + q[1]) * row + c[2] + q[2];
@@ -759,17 +827,6 @@ static size_t stream_smem_bytes(const CasperArgs* a) {
              sizeof(int);
 }
 
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// an asynchronous copy of one 4- or 8-byte element
-template <int N>
-__device__ __forceinline__ void cp_async_elem(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(N)
-               : "memory");
-}
 
 // f(x1, x2) on every point of an n1 x n2 plane, NTH threads, the walk
 // started without an integer division
@@ -1212,11 +1269,12 @@ static size_t smem_bytes(const CasperArgs* a) {
   return ((size_t)l.elems[0] + (size_t)l.elems[1]) * sizeof(T);
 }
 
-// CTAs of a launch: every tile of every batch element, all on gridDim.x
-// (at most 2**31 - 1; repro_torch.core.plan.launch_blocks mirrors this),
-// so a batch is not held to gridDim.y's 65,535.  0 when it does not fit.
+// CTAs of a launch: every tile of every group of `pack` batch elements,
+// all on gridDim.x (at most 2**31 - 1; repro_torch.core.plan.launch_blocks
+// mirrors this), so a batch is not held to gridDim.y's 65,535.  0 when it
+// does not fit.
 static unsigned int launch_blocks(const CasperArgs* a) {
-  long long blocks = a->batch;
+  long long blocks = (a->batch + a->pack - 1) / a->pack;
   for (int d = 0; d < 3; ++d) blocks *= (a->out[d] + a->tile[d] - 1) / a->tile[d];
   return blocks < (1LL << 31) ? (unsigned int)blocks : 0u;
 }
@@ -1249,15 +1307,23 @@ static int launch(int device, const void* in, void* out, const CasperArgs* a,
                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  // the host's rule for the cp.async path, checked: a window that does
-  // not start on the layout's lead, or a row or base not 16-byte aligned
+  // the host's rules for the cp.async paths, checked: a window that does
+  // not start on the layout's lead, or a row or base not 16-byte aligned;
+  // a copy per element only into the padded entry's f32/f64 windows
   const int vec = sizeof(S) >= 4 ? 16 / (int)sizeof(S) : 1;
-  if (a->async_load && (sizeof(S) < 4 || a->padded || a->tile[2] % vec ||
-                        (a->src[2] * sizeof(S)) % 16 || (uintptr_t)in % 16))
+  if (a->async_load == 1 && (sizeof(S) < 4 || a->tile[2] % vec ||
+                             (a->src[2] * sizeof(S)) % 16 || (uintptr_t)in % 16))
+    return (int)cudaErrorInvalidValue;
+  if ((a->async_load == 2 && (sizeof(S) < 4 || !a->padded)) || a->async_load > 2)
     return (int)cudaErrorInvalidValue;
   if (a->stream && (a->rank != 3 || a->n_stages != 1)) return (int)cudaErrorInvalidValue;
+  // packing: ranks 1-2 only, each grid one tile
+  if (a->pack < 1 ||
+      (a->pack > 1 && (a->rank > 2 || a->tile[1] < a->out[1] || a->tile[2] < a->out[2])))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<S>(a);
-  switch (a->rank) {
+  // a packed CTA walks its grids as dim 0: the rank-3 instance
+  switch (a->pack > 1 ? 3 : a->rank) {
     case 1: return launch_rank<S, 1>(in, out, a, smem, stream);
     case 2: return launch_rank<S, 2>(in, out, a, smem, stream);
     case 3: return launch_rank<S, 3>(in, out, a, smem, stream);

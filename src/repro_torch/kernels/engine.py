@@ -33,7 +33,10 @@ rounded once at the store, as the reference accumulates).  K1/K2 of a
 rank-3 spec stream each tile plane by plane along dim 0
 (:func:`repro_torch.core.plan.stream_layout`); a tile there is a chunk of
 ``tile[0]`` planes of an xy tile.  A launch puts every tile of every
-batch element on one grid axis (:func:`repro_torch.core.plan.launch_blocks`).
+batch element on one grid axis (:func:`repro_torch.core.plan.launch_blocks`);
+the default tile is fitted to a grid smaller than it, and a batch of such
+grids of rank 1-2 packs several into one CTA
+(:func:`repro_torch.core.plan.pack_factor`).
 """
 from __future__ import annotations
 
@@ -59,8 +62,9 @@ LAUNCHES: dict[str, int] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 SOURCE = "stencil.cu"
 
 #: Launch records kept while :func:`count_tiles` is on: per K1-K4 launch,
-#: the kernel, its load path, a device counter of the interior and rim
-#: tiles it ran, and the shared memory it asked for beside the plan's.
+#: the kernel, its load path and pack factor, device counters of its
+#: tiles, load kinds and packed CTAs, and the shared memory it asked for
+#: beside the plan's.
 _TILE_RECORDS: list | None = None
 
 # Argument pools (taps and factored terms are pooled across the stages).
@@ -103,7 +107,8 @@ class CasperArgs(ctypes.Structure):
         ("padded", ctypes.c_int), ("rank", ctypes.c_int),
         ("sweeps", ctypes.c_int), ("batch", ctypes.c_int),
         ("n_stages", ctypes.c_int), ("async_load", ctypes.c_int),
-        ("stream", ctypes.c_int), ("n_foff", ctypes.c_int),
+        ("stream", ctypes.c_int), ("pack", ctypes.c_int),
+        ("n_foff", ctypes.c_int),
         ("grid", _I3), ("tile", _I3), ("halo", _I3), ("src", _I3),
         ("out", _I3), ("origin", _I3),
         ("tiles", ctypes.c_void_p),
@@ -248,10 +253,23 @@ def check_kernel_args(spec) -> None:
     _pack_stages(CasperArgs(), spec)
 
 
+#: ``CasperArgs.async_load`` per load path
+#: (:func:`repro_torch.core.plan.load_path`).
+_ASYNC_LOAD = {"plain": 0, "async": 1, "elem": 2}
+
+#: The load kinds a CTA counts on the card, in counter order after the
+#: interior and rim tiles: its window copied by 16-byte ``cp.async``, by a
+#: 4- or 8-byte ``cp.async`` per element, element by element through
+#: registers, or element by element with a boundary test (masked past a
+#: padded input's end, mapped through a pad-free grid's index map).
+LOAD_KINDS = ("async16", "elem", "plain", "tested")
+
+
 @functools.lru_cache(maxsize=1024)
 def _args(spec, padded: bool, sweeps: int, batch: int,
           grid_shape: tuple, tile: tuple, src: tuple, out: tuple,
-          origin: tuple, itemsize: int, async_load: bool) -> CasperArgs:
+          origin: tuple, itemsize: int, async_load: int,
+          pack: int = 1) -> CasperArgs:
     """Pack one launch's arguments; every rank is carried as rank 3."""
     if max(grid_shape + src + out) >= 2 ** 31:
         raise ValueError("the CUDA kernels take extents below 2**31 per dim")
@@ -260,6 +278,7 @@ def _args(spec, padded: bool, sweeps: int, batch: int,
     a.padded, a.rank, a.sweeps, a.batch = int(padded), spec.ndim, sweeps, batch
     a.async_load = int(async_load)
     a.stream = int(_plan.streams(spec))
+    a.pack = pack
     a.grid[:] = _rank3(grid_shape, pad, 1)
     a.tile[:] = _rank3(tile, pad, 1)
     a.halo[:] = _rank3(spec.halo, pad, 0)
@@ -267,7 +286,8 @@ def _args(spec, padded: bool, sweeps: int, batch: int,
     a.out[:] = _rank3(out, pad, 1)
     a.origin[:] = _rank3(origin, pad, 0)
     layout = (_plan.stream_layout(tile, spec, sweeps, itemsize) if a.stream
-              else _plan.kernel_layout(tile, spec, sweeps, itemsize))
+              else _plan.kernel_layout(tile, spec, sweeps, itemsize,
+                                       padded=padded, pack=pack))
     _pack_stages(a, spec, layout)
     return a
 
@@ -276,22 +296,31 @@ def _launch(kernel: str, spec, src: torch.Tensor, out: torch.Tensor, *,
             sweeps: int, tile: tuple, grid_shape: tuple, out_shape: tuple,
             origin: tuple) -> None:
     """Launch ``kernel`` (K1-K4: padded for K2/K4) on the current
-    stream.  A pad-free launch loads its interior windows on the path
-    :func:`repro_torch.core.plan.load_path` fixes from the shape, tile,
-    dtype and alignment; padded windows load element by element."""
-    _plan.launch_blocks(out_shape, tile, src.shape[0])
-    lib = _lib()
+    stream.  The windows that need no boundary test load on the path
+    :func:`repro_torch.core.plan.load_path` fixes from the input's shape,
+    the tile, dtype and alignment (the streamed rank-3 kernel's padded
+    planes keep their own element copies), and a batch of small grids of
+    rank 1-2 packs :func:`repro_torch.core.plan.pack_factor` grids into
+    each CTA."""
     padded = kernel in ("K2", "K4")
+    streamed = _plan.streams(spec)
     itemsize = src.element_size()
-    path = "plain" if padded else _plan.load_path(grid_shape, tile, itemsize,
-                                                  src.data_ptr())
-    a = _args(spec, padded, sweeps, src.shape[0], grid_shape, tile,
-              tuple(src.shape[1:]), out_shape, origin, itemsize,
-              path == "async")
+    batch = src.shape[0]
+    src_shape = tuple(src.shape[1:])
+    pack = 1 if streamed else _plan.pack_factor(
+        spec, out_shape, tile, sweeps, itemsize, batch, padded=padded)
+    _plan.launch_blocks(out_shape, tile, batch, pack)
+    lib = _lib()
+    path = ("plain" if padded and streamed
+            else _plan.load_path(src_shape, tile, itemsize, src.data_ptr(),
+                                 padded=padded))
+    a = _args(spec, padded, sweeps, batch, grid_shape, tile, src_shape,
+              out_shape, origin, itemsize, _ASYNC_LOAD[path], pack)
     counter = None
     if _TILE_RECORDS is not None:
         a = CasperArgs.from_buffer_copy(a)
-        counter = torch.zeros(2, dtype=torch.int32, device=src.device)
+        counter = torch.zeros(3 + len(LOAD_KINDS), dtype=torch.int32,
+                              device=src.device)
         a.tiles = counter.data_ptr()
     fn = getattr(lib, _ENTRY[src.dtype])
     stream = torch.cuda.current_stream(src.device).cuda_stream
@@ -303,31 +332,37 @@ def _launch(kernel: str, spec, src: torch.Tensor, out: torch.Tensor, *,
     LAUNCHES[kernel] += 1
     if counter is not None:
         _TILE_RECORDS.append({
-            "kernel": kernel, "path": path, "stream": bool(a.stream),
-            "tiles": counter,
+            "kernel": kernel, "path": path, "stream": streamed,
+            "pack": pack, "tiles": counter,
             "smem_launch": lib.casper_smem_bytes(ctypes.addressof(a),
                                                  itemsize),
-            "smem_plan": _plan.smem_bytes(tile, spec, sweeps, itemsize)})
+            "smem_plan": _plan.smem_bytes(tile, spec, sweeps, itemsize,
+                                          padded=padded, pack=pack)})
 
 
 def count_tiles(on: bool = True) -> None:
     """Start (clearing what was kept) or stop keeping a record of every
-    K1-K4 launch: its kernel, load path, whether it streamed (rank 3),
-    the interior and rim tiles it ran (device counters, read by
-    :func:`tile_records`) and its shared memory beside
+    K1-K4 launch: its kernel, load path, pack factor, whether it
+    streamed (rank 3), device counters of the interior and rim tiles it
+    ran, of its CTAs by load kind (:data:`LOAD_KINDS`; the streamed
+    kernel counts none) and of its CTAs that carried more than one grid
+    (read by :func:`tile_records`), and its shared memory beside
     :func:`repro_torch.core.plan.smem_bytes`."""
     global _TILE_RECORDS
     _TILE_RECORDS = [] if on else None
 
 
 def tile_records() -> list[dict]:
-    """The launches recorded since :func:`count_tiles`, with their tile
-    counters read back (``interior``, ``rim``)."""
+    """The launches recorded since :func:`count_tiles`, with their
+    counters read back: ``interior``, ``rim``, ``loads`` (CTAs per load
+    kind) and ``packed`` (CTAs of more than one grid)."""
     out = []
     for r in _TILE_RECORDS or ():
-        interior, rim = r["tiles"].tolist()
+        counts = r["tiles"].tolist()
         out.append({k: v for k, v in r.items() if k != "tiles"}
-                   | {"interior": interior, "rim": rim})
+                   | {"interior": counts[0], "rim": counts[1],
+                      "loads": dict(zip(LOAD_KINDS, counts[2:-1])),
+                      "packed": counts[-1]})
     return out
 
 
@@ -534,8 +569,8 @@ def _window_sweep(spec, window, out_shape, origin, grid_shape, tile,
         raise ValueError(f"sweeps must be >= 1, got {sweeps}")
     w, batched = _batched(spec, window, "window")
     itemsize = w.element_size()
-    tile = _plan.normalize_tile(spec, tile, sweeps, itemsize)
     out_shape = tuple(int(n) for n in out_shape)
+    tile = _plan.normalize_tile(spec, tile, sweeps, itemsize, out_shape)
     grid_shape = tuple(int(n) for n in grid_shape)
     origin = tuple(int(o) for o in origin)
     wide = tuple(sweeps * h for h in spec.halo)

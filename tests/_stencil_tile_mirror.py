@@ -1,4 +1,4 @@
-"""CPU mirror of the pad-free stencil kernel's tile logic (``csrc/stencil.cu``).
+"""CPU mirror of the stencil kernels' tile logic (``csrc/stencil.cu``).
 
 The kernel splits its tiles into two kinds, uniformly per CTA:
 
@@ -16,7 +16,9 @@ The kernel splits its tiles into two kinds, uniformly per CTA:
 This module walks the same decisions in torch (numpy-free, no JAX), one
 tile at a time, with the arithmetic of ``repro_torch.core.ref`` (tap or
 factored order), so the tests can hold the design against the reference
-on the CPU, where the kernel cannot run.
+on the CPU, where the kernel cannot run.  :func:`window_kernel_block`
+walks the window kernel's CTAs on both entries at the level of its shared
+memory: fitted tiles, several grids per CTA, linear tap offsets.
 """
 import itertools
 
@@ -335,7 +337,7 @@ def tabled_apply(spec, flat, at, table):
     (innermost first), the terms summed from zero."""
     taps, foffs = table
     terms = (None if spec.structure == "dense"
-             else _classify(3, spec.taps).compute_terms)
+             else _classify(spec.ndim, spec.taps).compute_terms)
     zero = torch.zeros(at.shape, dtype=flat.dtype)
     if not terms:
         acc = zero
@@ -363,3 +365,170 @@ def tabled_apply(spec, flat, at, table):
     for v in values:
         total = total + v
     return total
+
+
+# ---------------------------------------------------------------------------
+# The window kernel's CTAs in its shared memory (ranks 1-3, both entries)
+# ---------------------------------------------------------------------------
+def _stage_tables(args, k, b):
+    """Stage ``k``'s linear tap and factor offsets in buffer ``b`` of the
+    packed argument block, in the order ``apply_point`` reads them."""
+    st = args.stage[k]
+    taps = [args.tap_lin[b][i] for i in range(st.tap_first,
+                                              st.tap_first + st.n_taps)]
+    foffs = []
+    for t in range(st.term_first, st.term_first + st.n_terms):
+        for f in range(args.term_fac[t], args.term_fac[t] + args.term_nf[t]):
+            first = args.fac_first[f]
+            foffs += [args.foff_lin[b][j]
+                      for j in range(first, first + args.fac_n[f])]
+    return taps, foffs
+
+
+def window_kernel_block(spec, src, tile, sweeps, *, itemsize=None,
+                        origin=None, grid_shape=None, out_shape=None):
+    """One fused block of ``sweeps`` applications of ``spec`` (a spec or
+    a fusable pipeline) on a batch ``src`` of shape ``(B, *S)``, CTA by
+    CTA as the window kernel runs it: ``src`` is the unpadded grids
+    (pad-free, K1/K3), or with ``origin`` and ``grid_shape`` windows
+    pre-padded by ``sweeps*H`` whose interiors ``out_shape`` sit at
+    ``origin`` of the global grid (padded, K2/K4).
+
+    The pack factor, the argument block (linear tap offsets) and the
+    layout come from the port (:func:`repro_torch.core.plan.pack_factor`,
+    ``kernels.engine._args``, :func:`repro_torch.core.plan.kernel_layout`)
+    at ``itemsize`` (default ``src``'s: the layout depends on it, the
+    values do not).  A CTA stacks the windows of its ``np`` grids along
+    dim 0 of one flat shared array (buffer 1 after buffer 0), evaluates
+    every point of each application's box by the linear offsets of
+    ``apply_point`` in tap or factored order, asserts that every read
+    stays in the buffer it reads and, for a packed CTA, in its own grid's
+    plane, and restores a rim tile's ghosts in the next stage's mode
+    (:func:`restore_rim` on the box, by global coordinate).  Returns
+    ``(out, stats)``: ``stats`` counts the CTAs, the packed ones, the
+    windows copied (a pad-free interior tile's, a padded tile's inside its
+    input) and tested (the rest), and the points the applications
+    formed; ``pack`` is the pack factor."""
+    from repro_torch.core import plan as tplan
+    from repro_torch.kernels import engine as teng
+    padded = origin is not None
+    stages = as_stages(spec)
+    nd = spec.ndim
+    batch = src.shape[0]
+    src_shape = tuple(src.shape[1:])
+    out_shape = tuple(out_shape or src_shape)
+    grid_shape = tuple(grid_shape or src_shape)
+    origin = tuple(origin or (0,) * nd)
+    itemsize = itemsize or src.element_size()
+    deep = tuple(sweeps * h for h in spec.halo)
+    pack = 1 if nd == 3 else tplan.pack_factor(
+        spec, out_shape, tile, sweeps, itemsize, batch, padded=padded)
+    args = teng._args(spec, padded, sweeps, batch, grid_shape, tuple(tile),
+                      src_shape, out_shape, origin, itemsize, 0, pack)
+    ly = tplan.kernel_layout(tile, spec, sweeps, itemsize, padded=padded,
+                             pack=pack)
+    tables = [[_stage_tables(args, k, b) for b in range(2)]
+              for k in range(len(stages))]
+    acc = torch.float64 if src.dtype == torch.float64 else torch.float32
+    out = torch.empty((batch,) + out_shape, dtype=src.dtype)
+    stats = {"ctas": 0, "packed": 0, "copied": 0, "tested": 0, "points": 0,
+             "pack": pack}
+    win = tuple(t + 2 * w for t, w in zip(tile, deep))
+
+    def carried(n_p, ext):
+        """A box of ``n_p`` grids of extents ``ext`` as rank 3: the grids
+        along dim 0 for rank 1-2, none for rank 3 (one grid per CTA)."""
+        if nd == 3:
+            return tuple(ext)
+        return (n_p,) + (1,) * (2 - nd) + tuple(ext)
+
+    def at(b, c3, cur3):
+        """Flat positions of the box ``cur3`` at window coordinate ``c3``
+        of buffer ``b``."""
+        org = (ly.elems[0] if b else 0) + ly.base[b]
+        q = torch.meshgrid(*[torch.arange(n) for n in cur3], indexing="ij")
+        return (org + (c3[0] + q[0]) * ly.plane[b]
+                + (c3[1] + q[1]) * ly.row + c3[2] + q[2])
+
+    for item in range(0, batch, pack):
+        n_p = min(pack, batch - item)
+        grids = src[item:item + n_p]
+        for base in tile_origins(out_shape, tile):
+            g_org = [o + b for o, b in zip(origin, base)] if padded \
+                else list(base)
+            interior = is_interior(g_org, tile, deep, grid_shape)
+            stats["ctas"] += 1
+            stats["packed"] += n_p > 1
+            if padded:
+                idx = [torch.arange(b, b + w) for b, w in zip(base, win)]
+                x = grids[(slice(None),) + tuple(torch.meshgrid(
+                    *[i.clamp(max=n - 1) for i, n in zip(idx, src_shape)],
+                    indexing="ij"))]
+                for d, (i, n) in enumerate(zip(idx, src_shape)):
+                    shape = [1] * nd
+                    shape[d] = win[d]
+                    x = torch.where((i < n).reshape(shape), x, 0.0)
+                inside = all(b + w <= n
+                             for b, w, n in zip(base, win, src_shape))
+            elif interior:
+                x = grids[(slice(None),) + tuple(
+                    slice(o - w, o + t + w)
+                    for o, t, w in zip(base, tile, deep))]
+                inside = True
+            else:
+                x = torch.stack([_gather_window(
+                    gr, base, tile, deep, stages[0].boundary_mode,
+                    stages[0].boundary_value) for gr in grids])
+                inside = False
+            stats["copied" if inside else "tested"] += 1
+            flat = torch.zeros(ly.elems[0] + ly.elems[1], dtype=acc)
+            flat[at(0, (0, 0, 0), carried(n_p, win))] = \
+                x.to(acc).reshape(carried(n_p, win))
+            full3 = (0,) * (3 - nd) + deep
+            rem3 = list(full3)
+            t3 = carried(n_p, tile)
+            step, total = 0, sweeps * len(stages)
+            for _ in range(sweeps):
+                for k, st in enumerate(stages):
+                    bi = step & 1
+                    halo3 = (0,) * (3 - nd) + tuple(st.halo)
+                    rem3 = [r - h for r, h in zip(rem3, halo3)]
+                    cur3 = tuple(t + 2 * r for t, r in zip(t3, rem3))
+                    c3 = tuple(f - r for f, r in zip(full3, rem3))
+                    pos = at(bi, c3, cur3)
+                    taps, foffs = tables[k][bi]
+                    lo = ly.elems[0] if bi else 0
+                    hi = lo + ly.elems[bi]
+                    data = lo + ly.lead
+                    for off in taps + foffs:
+                        assert lo <= int((pos + off).min()) \
+                            and int((pos + off).max()) < hi, off
+                        if nd < 3:      # no tap reaches another grid
+                            plane = torch.div(pos + off - data,
+                                              ly.plane[bi],
+                                              rounding_mode="floor")
+                            assert torch.equal(plane, torch.arange(
+                                cur3[0]).reshape(-1, 1, 1).expand(cur3))
+                    v = tabled_apply(st, flat, pos, (taps, foffs))
+                    stats["points"] += v.numel()
+                    step += 1
+                    # (grids, *spatial extents) of this application
+                    vb = v.reshape((cur3[0] if nd < 3 else 1,)
+                                   + cur3[3 - nd:])
+                    if step == total:
+                        keep = tuple(slice(0, min(t, n - o)) for o, t, n in
+                                     zip(base, tile, out_shape))
+                        region = tuple(slice(o, o + kk.stop)
+                                       for o, kk in zip(base, keep))
+                        out[(slice(item, item + n_p),) + region] = \
+                            vb[(slice(None),) + keep].to(src.dtype)
+                        continue
+                    if not interior:
+                        nxt = stages[(k + 1) % len(stages)]
+                        vb = restore_rim(vb, nxt.boundary_mode,
+                                         nxt.boundary_value,
+                                         [o - r for o, r in
+                                          zip(g_org, rem3[3 - nd:])],
+                                         grid_shape, cur3[3 - nd:])
+                    flat[at(bi ^ 1, c3, cur3)] = vb.reshape(cur3)
+    return out, stats

@@ -25,11 +25,20 @@ held against the reference through its CPU mirror
   ``plan.default_tile`` picks the same way every time;
 * the launch geometry (``plan.launch_blocks``) puts a batch of 70,000
   grids on one launch, and the default periodic budget sends every
-  periodic grid the device holds to K1.
+  periodic grid the device holds to K1;
+* small grids on the window kernel: the default tile fitted to an
+  output smaller than it (``plan.normalize_tile``), the grids packed per
+  CTA (``plan.pack_factor``), the shared memory of a packed CTA and the
+  padded windows' lead, the padded entry's ``cp.async`` rule, the
+  small-grid strategy as measured, and the points the window kernel's
+  CTAs form per output on the serving shapes (``window_kernel_block`` in
+  the mirror) against a fitted tile's.
 
 Inputs come from ``np.random.default_rng``; JAX f64 is scoped with
 ``jax.enable_x64(True)``.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +58,7 @@ from repro.core import ref as jref
 from repro_torch import spec_from_reference
 from repro_torch.core import plan as tplan
 from repro_torch.core import ref as tref
+from repro_torch.core.stencil import as_stages
 from repro_torch.kernels import engine as teng
 
 MODES = ("zero", "constant", "periodic", "reflect")
@@ -437,15 +447,16 @@ def test_stream_layout_fits_and_default_tile_is_stable(itemsize, sweeps):
     ("star33_3d", (37, 45, 101), 4, 21, "pad-free"),
     ("star33_3d", (256, 256, 64), 4, 32, "pad-free"),
     ("heat3d", (9, 40, 40), 4, 1, "pad-free"),
-    ("heat3d", (8, 40, 40), 4, 32, "padded-window"),
+    ("heat3d", (8, 40, 40), 4, 8, "padded-window"),
 ])
 def test_default_chunk_fits_a_shallow_grid(name, shape, sweeps, chunk,
                                            strategy):
     """On a grid shallower than a 32-plane chunk's window, the default
     tile's chunk is cut to the depth less ``2*sweeps*halo[0]``, so the
     window stays inside the grid and the plan stays pad-free (K1); a grid
-    with no plane to spare keeps the chunk and takes the padded window.
-    The plan, the strategy rule and the wrapper agree on the tile."""
+    with no plane to spare takes the padded window, its chunk fitted to
+    the grid's depth.  The plan, the strategy rule and the wrapper agree
+    on the tile."""
     from repro_torch import PAPER_STENCILS
     spec = PAPER_STENCILS[name].with_boundary("reflect")
     tile = tplan.normalize_tile(spec, None, sweeps, 8, shape)
@@ -527,3 +538,222 @@ def test_default_periodic_budget_sends_periodic_grids_to_k1():
     plan = tplan.lower(per, (2048, 2048), torch.float64, backend="cuda",
                        sweeps=4, device="cpu")
     assert plan.ghost_strategy == "pad-free"
+
+
+# ---------------------------------------------------------------------------
+# Small grids on the window kernel: fitted tiles, several grids per CTA,
+# padded windows copied by cp.async
+# ---------------------------------------------------------------------------
+_DTYPES = {8: torch.float64, 4: torch.float32, 2: torch.bfloat16}
+
+
+def _serving_spec(name):
+    from repro_torch import PAPER_PIPELINES, PAPER_STENCILS
+    if name == "advect2d":
+        return PAPER_PIPELINES["advect_diffuse2d"].stages[0]
+    return PAPER_STENCILS.get(name) or PAPER_PIPELINES[name]
+
+
+@pytest.mark.parametrize("name,shape,itemsize,tile", [
+    ("jacobi2d", (8, 8), 8, (8, 8)),
+    ("jacobi2d", (8, 8), 4, (8, 8)),
+    ("jacobi2d", (32, 64), 8, (32, 64)),
+    ("jacobi2d", (3, 7), 8, (3, 8)),        # the row to a 16-byte chunk
+    ("jacobi2d", (3, 7), 4, (3, 8)),
+    ("jacobi2d", (3, 7), 2, (3, 7)),        # bf16: a chunk of one
+    ("jacobi2d", (40, 500), 8, (40, 64)),   # one dim cut
+    ("jacobi2d", (77, 301), 8, (64, 64)),   # none
+    ("jacobi1d", (512,), 8, (512,)),
+    ("jacobi1d", (5,), 4, (8,)),
+    ("jacobi1d", (10007,), 8, (4096,)),
+    ("reaction_diffusion2d", (32, 64), 8, (32, 64)),
+    ("heat3d", (8, 12, 16), 8, (8, 12, 16)),
+    ("heat3d", (8, 12, 15), 4, (8, 12, 16)),
+])
+def test_default_tile_is_fitted_to_a_small_output(name, shape, itemsize,
+                                                  tile):
+    """A dim of the output shorter than the default tile's cuts the tile
+    to it, the row rounded up to a whole 16-byte chunk; the plan, the
+    strategy rule and the wrapper take the same tile, and an explicit
+    tile is taken as it is."""
+    spec = _serving_spec(name)
+    assert tplan.normalize_tile(spec, None, 4, itemsize, shape) == tile
+    plan = tplan.lower(spec, shape, _DTYPES[itemsize], backend="cuda",
+                       sweeps=4, device="cpu")
+    assert plan.tile == tile
+    explicit = (2,) * spec.ndim
+    assert tplan.normalize_tile(spec, explicit, 4, itemsize, shape) \
+        == explicit
+
+
+@pytest.mark.parametrize("name,shape,itemsize,batches,packs", [
+    # (batch of 70,000, 4,096, 48, 3, 1) -> grids per CTA
+    ("jacobi2d", (8, 8), 8, (70000, 4096, 48, 3, 1), (30, 16, 4, 3, 1)),
+    ("jacobi2d", (8, 8), 4, (70000, 4096, 48, 3, 1), (54, 16, 4, 3, 1)),
+    ("jacobi2d", (32, 64), 8, (70000, 4096, 48, 3, 1), (2, 2, 1, 1, 1)),
+    ("jacobi2d", (32, 64), 4, (70000, 4096, 48, 3, 1), (5, 4, 1, 1, 1)),
+    ("jacobi1d", (512,), 8, (70000, 4096, 48, 3, 1), (13, 8, 1, 1, 1)),
+    ("jacobi1d", (512,), 4, (70000, 4096, 48, 3, 1), (27, 16, 1, 1, 1)),
+    ("reaction_diffusion2d", (32, 64), 8, (70000, 4096), (1, 1)),
+    ("reaction_diffusion2d", (32, 64), 4, (70000, 4096), (3, 3)),
+    ("heat3d", (8, 12, 16), 8, (70000, 4096), (1, 1)),      # streamed
+    ("jacobi2d", (64, 72), 8, (70000, 4096), (1, 1)),       # two tiles
+])
+def test_pack_factor_rule(name, shape, itemsize, batches, packs):
+    """Grids per CTA: only a rank-1/2 grid that one tile covers packs, at
+    most as many as keep two CTAs' buffers in an SM's shared memory; at
+    that cap the batch takes W waves of the card's 264 resident CTAs
+    (132 SMs x 2), and a CTA carries the fewest grids that still finish
+    in W waves (jacobi1d (512,) x 4096 in f64: 8 per CTA, 512 CTAs in
+    two full waves, not 13 and a second wave of 52), but at least as
+    many as give each of the 256 threads a point of the last application
+    and never more than the batch."""
+    spec = _serving_spec(name)
+    tile = tplan.normalize_tile(spec, None, 4, itemsize, shape)
+    per = tplan.smem_bytes(tile, spec, 4, itemsize, padded=True)
+    budget = (tplan._pm.H100_SMEM_PER_SM // tplan.CTAS_PER_SM
+              - tplan._pm.H100_SMEM_RESERVED_PER_BLOCK)
+    wave = tplan._pm.H100_SMS * tplan.CTAS_PER_SM
+    for batch, want in zip(batches, packs):
+        p = tplan.pack_factor(spec, shape, tile, 4, itemsize, batch,
+                              padded=True)
+        assert p == want, batch
+        assert p <= batch and (p == 1 or p * per <= budget)
+        if p > max(1, -(-256 // math.prod(tile))):
+            # as few waves as at the cap, and one grid fewer per CTA
+            # would take more
+            def waves(k):
+                return -(-batch // (k * wave))
+            assert waves(p) == waves(budget // per) < waves(p - 1)
+        assert tplan.smem_bytes(tile, spec, 4, itemsize, padded=True,
+                                pack=p) == p * per
+        assert tplan.launch_blocks(shape, tile, batch, p) == -(-batch // p) \
+            * math.prod(-(-n // t) for n, t in zip(shape, tile))
+
+
+@settings(max_examples=EXAMPLES, deadline=None, derandomize=True)
+@given(st.integers(0, 10 ** 6), st.integers(1, 2), st.integers(1, 4),
+       st.sampled_from((2, 4, 8)), st.integers(1, 40))
+def test_smem_bytes_with_pack_and_the_padded_lead(seed, ndim, sweeps,
+                                                  itemsize, pack):
+    """A packed CTA's buffers are its grids' stacked along dim 0, so its
+    shared memory is ``pack`` times one grid's, as the layout counts it;
+    a padded window starts on its tile's own column (``lead`` 0), so its
+    rows are never longer than a pad-free window's."""
+    pipe = random_pipeline(seed, ndim, False, 1 + seed % 3)
+    rng = np.random.default_rng(seed)
+    tile = tuple(int(t) for t in rng.integers(1, 40, size=ndim))
+    acc = max(itemsize, 4)
+    for padded in (False, True):
+        ly = tplan.kernel_layout(tile, pipe, sweeps, itemsize, padded=padded,
+                                 pack=pack)
+        one = tplan.kernel_layout(tile, pipe, sweeps, itemsize,
+                                  padded=padded)
+        assert ly.row == one.row and ly.plane == one.plane
+        assert ly.elems == tuple(pack * e for e in one.elems)
+        assert tplan.smem_bytes(tile, pipe, sweeps, itemsize, padded=padded,
+                                pack=pack) == sum(ly.elems) * acc \
+            == pack * tplan.smem_bytes(tile, pipe, sweeps, itemsize,
+                                       padded=padded)
+    pad_ly = tplan.kernel_layout(tile, pipe, sweeps, itemsize, padded=True)
+    free_ly = tplan.kernel_layout(tile, pipe, sweeps, itemsize)
+    assert pad_ly.lead == 0 and pad_ly.row <= free_ly.row
+
+
+@pytest.mark.parametrize("shape,tile,itemsize,ptr,path", [
+    ((16, 16), (8, 8), 8, 0, "async"),        # 8x8 f64 at sweeps=4
+    ((16, 16), (8, 8), 4, 0, "async"),
+    ((40, 72), (32, 64), 8, 0, "async"),      # (32, 64) at sweeps=4
+    ((520,), (512,), 4, 0, "async"),
+    ((2056, 2056), (64, 64), 8, 0, "async"),  # the 2048^2 periodic row
+    ((85, 309), (64, 64), 8, 0, "elem"),      # 2472-byte rows
+    ((16, 18), (8, 10), 4, 0, "elem"),        # 72-byte rows
+    ((16, 16), (8, 8), 8, 8, "elem"),         # data not aligned
+    ((16, 16), (8, 6), 4, 0, "elem"),         # tile row of 24 bytes
+    ((16, 16), (8, 8), 2, 0, "plain"),        # bf16: widened
+])
+def test_padded_load_path_rule(shape, tile, itemsize, ptr, path):
+    """A padded launch copies the windows inside its input by 16-byte
+    cp.async where its rows, tile row and data are 16-byte aligned, else
+    by a cp.async per element (f32/f64) or through registers (bf16); the
+    pad-free rule keeps element-by-element loads for what is not
+    aligned."""
+    assert tplan.load_path(shape, tile, itemsize, ptr, padded=True) == path
+    assert tplan.load_path(shape, tile, itemsize, ptr) == \
+        ("async" if path == "async" else "plain")
+
+
+# the serving mix's grids (repro.serve.loadgen.mixed_requests) and the
+# points per grid a block of sweeps=4 computed with the default tile:
+# every application forms tile + 2*rem per dim
+_SERVING = (("jacobi2d", "zero", (8, 8), 17976),
+            ("jacobi2d", "zero", (32, 64), 17976),
+            ("jacobi1d", "zero", (512,), 16396),
+            ("reaction_diffusion2d", "reflect", (32, 64), 40496),
+            ("advect2d", "periodic", (32, 64), 17976))
+
+
+@pytest.mark.parametrize("name,boundary,shape,before", _SERVING)
+def test_points_per_output_on_the_serving_shapes(name, boundary, shape,
+                                                 before):
+    """The window kernel's CTAs on a batch of serving grids (the mirror's
+    count of the points every application forms, both entries) compute
+    at most 1.2x the points per output of a tile fitted to the grid,
+    where the default tile computed up to 36x."""
+    from _stencil_tile_mirror import window_kernel_block
+    spec = _serving_spec(name)
+    assert {s.boundary for s in as_stages(spec)} == {boundary}
+    sweeps, batch = 4, 3
+    tile = tplan.normalize_tile(spec, None, sweeps, 8, shape)
+    stages = as_stages(spec)
+    rem, fitted = [sweeps * h for h in spec.halo], 0
+    for _ in range(sweeps):
+        for st_ in stages:
+            rem = [r - h for r, h in zip(rem, st_.halo)]
+            fitted += math.prod(n + 2 * r for n, r in zip(shape, rem))
+    default = tplan.default_tile(spec, sweeps, 8)
+    rem, old = [sweeps * h for h in spec.halo], 0
+    for _ in range(sweeps):
+        for st_ in stages:
+            rem = [r - h for r, h in zip(rem, st_.halo)]
+            old += math.prod(t + 2 * r for t, r in zip(default, rem))
+    assert old == before and old / fitted > 1.8
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (batch,) + shape))
+    wide = tuple(sweeps * h for h in spec.halo)
+    win = tref.pad_boundary(x, wide, spec.boundary_mode, spec.boundary_value)
+    for kwargs, src in (({}, x), ({"origin": (0,) * spec.ndim,
+                                   "grid_shape": shape,
+                                   "out_shape": shape}, win)):
+        got, stats = window_kernel_block(spec, src, tile, sweeps, **kwargs)
+        assert stats["points"] <= 1.2 * batch * fitted
+        assert torch.equal(got, teng.stencil_sweep_plain(spec, x, tile,
+                                                         sweeps))
+
+
+@pytest.mark.parametrize("name,shape,itemsize,strategy", [
+    ("jacobi2d", (8, 8), 8, "padded-window"),
+    ("jacobi2d", (32, 64), 4, "padded-window"),
+    ("jacobi1d", (512,), 4, "padded-window"),
+    ("reaction_diffusion2d", (32, 64), 8, "padded-window"),
+    ("heat3d", (8, 12, 16), 4, "padded-window"),
+    ("advect2d", (32, 64), 4, "pad-free"),          # periodic: K1
+    ("jacobi2d", (72, 72), 8, "pad-free"),          # one window
+])
+def test_small_grid_strategy_rule_as_measured(name, shape, itemsize,
+                                              strategy):
+    """Grids smaller than one window (the serving mix) keep the padded
+    window (K2/K4 and the host pad), the reference's rule: K1/K3 on the
+    unpadded grids, with the same fitted, packed tiles, did not win on
+    every such batch on the card.  Periodic grids run pad-free."""
+    from repro.core import plan as jplan
+    spec = _serving_spec(name)
+    assert tplan.ghost_strategy_for(spec, shape, itemsize, 4, None) \
+        == strategy
+    plan = tplan.lower(spec, shape, _DTYPES[itemsize], backend="cuda",
+                       sweeps=4, device="cpu")
+    assert plan.ghost_strategy == strategy
+    ref = (J_PIPES["advect_diffuse2d"].stages[0] if name == "advect2d"
+           else J_SPECS.get(name) or J_PIPES[name])
+    assert jplan.ghost_strategy_for(ref, shape, itemsize, 4, plan.tile) \
+        == strategy

@@ -104,3 +104,87 @@ def test_masked_window_sweeps_f64_bitwise(rank, structure, boundary, sweeps):
 @pytest.mark.parametrize("rank,structure", RANK_STRUCTURES)
 def test_masked_window_sweeps_f32_tolerance(rank, structure, boundary):
     _masked_sweeps_case(rank, boundary, structure, 2, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# The window kernel's fitted, packed CTAs (tests/_stencil_tile_mirror.py)
+# ---------------------------------------------------------------------------
+# (grid, shard output, shard origin, batches): a grid the size of the
+# shard and the shard both fit one fitted tile, so a batch packs several
+# grids per CTA; one batch size leaves a ragged last CTA, the other fills
+# every CTA
+PACK_CASES = {1: ((37,), (13,), (9,), (23, 38)),
+              2: ((21, 26), (9, 11), (5, 7), (7, 6))}
+PACK_NAMES = ("jacobi1d", "7pt1d", "jacobi2d", "blur2d",
+              "reaction_diffusion2d", "advect_diffuse2d")
+
+
+def _ref_spec(name, boundary):
+    from repro.core import PAPER_PIPELINES as J_PIPES
+    return (J_SPECS.get(name) or J_PIPES[name]).with_boundary(boundary)
+
+
+def _oracle(ref, a, sweeps):
+    """``repro.core.ref`` on each grid of the batch ``a`` (x64)."""
+    run = jref.run_pipeline if hasattr(ref, "stages") else jref.run_iterations
+    with jax.enable_x64(True):
+        return np.asarray(jax.jit(jax.vmap(
+            lambda g: run(ref, g, sweeps)))(jnp.asarray(a)))
+
+
+@pytest.mark.parametrize("sweeps", [1, 2, 4])
+@pytest.mark.parametrize("boundary", BOUNDARIES)
+@pytest.mark.parametrize("name", PACK_NAMES)
+def test_packed_window_mirror_matches_reference(name, boundary, sweeps):
+    """Fitted tiles and several grids per CTA, both entries: the mirror
+    of the window kernel's shared memory (linear tap offsets of the
+    packed argument block, windows stacked along dim 0) on a batch of
+    whole small grids (pad-free, K1/K3) and of shard windows at an
+    origin (padded, K2/K4), bitwise (f64) equal to the plain versions
+    and to ``repro.core.ref`` (x64) on the grids; at sweeps=2 the first
+    shard also against ``repro``'s window sweep in interpret mode."""
+    from _stencil_tile_mirror import window_kernel_block
+    from repro.kernels import engine as jeng
+    from repro_torch.core import plan as tplan
+    from repro_torch.kernels import engine as teng
+    ref = _ref_spec(name, boundary)
+    port = spec_from_reference(ref)
+    grid, out, origin, batches = PACK_CASES[port.ndim]
+    wide = tuple(sweeps * h for h in port.halo)
+    tile = tplan.normalize_tile(port, None, sweeps, 8, out)
+    assert tile[:-1] == out[:-1] and tile[-1] == out[-1] + out[-1] % 2
+    for batch in batches:
+        rng = np.random.default_rng(batch * 10 + sweeps)
+        # pad-free: whole grids of the shard's shape
+        a = rng.standard_normal((batch,) + out)
+        x = torch.from_numpy(a)
+        got, stats = window_kernel_block(port, x, tile, sweeps)
+        assert stats["pack"] > 1 and stats["packed"] > 0
+        assert torch.equal(got, teng.stencil_sweep_plain(port, x, tile,
+                                                         sweeps))
+        np.testing.assert_array_equal(got.numpy(), _oracle(ref, a, sweeps))
+        # padded: shard windows of padded grids at `origin`
+        a = rng.standard_normal((batch,) + grid)
+        x = torch.from_numpy(a)
+        full = tref.pad_boundary(x, wide, port.boundary_mode,
+                                 port.boundary_value)
+        win = full[(slice(None),) + tuple(
+            slice(o, o + n + 2 * w) for o, n, w in zip(origin, out, wide))]
+        got, stats = window_kernel_block(port, win, tile, sweeps,
+                                         origin=origin, grid_shape=grid,
+                                         out_shape=out)
+        assert stats["pack"] > 1 and stats["packed"] > 0
+        assert torch.equal(got, teng.stencil_window_sweep_plain(
+            port, win, out, origin, grid, tile, sweeps))
+        shard = (slice(None),) + tuple(slice(o, o + n)
+                                       for o, n in zip(origin, out))
+        np.testing.assert_array_equal(got.numpy(),
+                                      _oracle(ref, a, sweeps)[shard])
+        if sweeps == 2 and batch == batches[0]:
+            sweep = (jeng.pipeline_window_sweep if hasattr(ref, "stages")
+                     else jeng.stencil_window_sweep)
+            with jax.enable_x64(True):
+                want = sweep(ref, jnp.asarray(win[0].numpy()), out, origin,
+                             grid, tile=tile, sweeps=sweeps, interpret=True)
+                np.testing.assert_array_equal(got[0].numpy(),
+                                              np.asarray(want))
