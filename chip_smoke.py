@@ -36,10 +36,14 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    and 192, groups of 24 and 32 query heads per KV head and float16
    (f32 within 2e-5; bf16 within one ulp or 4e-6, whichever is larger, of
    the plain version and of the f32 kernel on the widened inputs; f16
-   within one f16 ulp or 4e-6);
+   within one f16 ulp or 4e-6); and K1-K4 at every tile ``tile="auto"``
+   gives the main paths below (each case's block and remainder, in every
+   dtype on odd and aligned shapes, both entries) and at every other
+   candidate of ``plan.HOPPER_TILES`` that fits, for each spec and
+   pipeline above (f64);
 2. runs the engine — ``CasperEngine(spec, backend="cuda",
    sweeps=4).run(grid, iters=10)``, all f64, each bitwise equal to
-   ``backend="ref"`` on the card, on four main paths, each with the launch
+   ``backend="ref"`` on the card, on five main paths, each with the launch
    counts reset just before it and read just after:
    (a) single specs at each paper stencil's Table 3 DRAM shape (zero and
    periodic boundary, K1; periodic again with the plan's strategy forced
@@ -58,7 +62,11 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    and x 4096, jacobi1d (512,) x 4096, reaction_diffusion2d (32, 64) x
    4096 (K2/K4 with the host pad: grids below one window), advect2d
    periodic (32, 64) x 4096 (K1) and heat3d (8, 12, 16) x 4096 (the
-   streamed K2);
+   streamed K2); (e) every case of (a), (b) and (d) again through
+   ``CasperEngine(..., tile="auto")`` (the Hopper tile cost model picks
+   each plan's tile), each f64 result bitwise equal to ``backend="ref"``
+   and each kernel of the path launched, with one autotune per distinct
+   plan and none for a second identical engine;
 3. times one fused block per phase-2 case with CUDA events (median),
    beside its bound (the larger of one read and one write of the grid at
    the HBM rate and the f64 operations the contract fixes per point and
@@ -72,7 +80,15 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    ``F.scaled_dot_product_attention`` with the same band mask (the
    yardstick, never used by the port; f32 with TF32 off); a serving row
    also times its host pad and the same block on the other entry, and
-   its conv chain runs the batch as N.
+   its conv chain runs the batch as N; then, for ``tile="auto"``, the
+   copy bandwidth (1 GiB read and written) and, per phase-2 case, the
+   tuned tile's block time beside the default tile's and, on (a) and (b),
+   the analytic top 3 (``kernels.tune.measure_tiles``: all in turn, each
+   timed call after an untimed one of the same tile), the constants
+   ``kernels.tune.fit_calibration`` fits from them and the analytic top
+   under those, and ``kernels.tune.autotune_measured`` (stored under
+   ``CASPER_TUNE_CACHE`` and served from it once); the phase fails if the
+   tuned tile is slower than 1.5x the best measured in this call.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 (one entry per kernel and route: K1/K2 of 1-D/2-D specs on the window
@@ -90,6 +106,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -159,6 +176,11 @@ SWA_F32_ATOL = 2e-5     # K5 vs plain in f32: tests/test_kernels.py's bound
 SWA_BF16_FLOOR = 4e-6
 SWA_REF_BF16_ATOL = 0.08  # bf16 vs the f32 oracle: tests/test_kernels.py
 SWA_CASES = 400         # phase-1 K5 cases drawn from the matrix below
+# phase 3, tile="auto": rounds of measure_tiles, and the gate on the auto
+# tile against the best measured candidate in the same call (blocks below
+# 1 ms move up to 25% between calls, never 1.5x within one)
+TUNE_ROUNDS = 15
+AUTO_LIMIT = 1.5
 # (b, hkv, g, s, d, w, softcap, tq): head dims 112 and 192, groups of 24
 # and 32 query heads per KV head; each in f32, bf16 and f16
 SWA_WIDE = ((1, 1, 2, 100, 112, 32, 50.0, 64),
@@ -291,6 +313,7 @@ def main() -> int:
     from repro_torch.kernels import engine as keng
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import swa as kswa
+    from repro_torch.kernels import tune as ktune
     # the fuzz corpus's chains (by path: a site package may own `tests`)
     cases_path = os.path.join(ROOT, "tests", "_pipeline_cases.py")
     loader = importlib.util.spec_from_file_location("_pipeline_cases",
@@ -417,16 +440,18 @@ def main() -> int:
                       sweeps)
         return plain
 
-    def run_kernel(spec, grid, sweeps, strategy, label, dtype):
+    def run_kernel(spec, grid, sweeps, strategy, label, dtype, tile=None):
+        """The kernel ``strategy`` selects at ``tile`` (None: the default
+        tile, fitted to the grid) against its plain version."""
         before = dict(keng.LAUNCHES)
         sweep = keng.pipeline_sweep if is_pipe(spec) else keng.stencil_sweep
-        got = sweep(spec, grid, sweeps=sweeps, strategy=strategy)
+        got = sweep(spec, grid, tile=tile, sweeps=sweeps, strategy=strategy)
         torch.cuda.synchronize()
         ran = [k for k in keng.LAUNCHES if keng.LAUNCHES[k] != before[k]]
         if len(ran) != 1:
             failures.append(f"{label}: launched {ran}")
             return None
-        tile = tplan.normalize_tile(spec, None, sweeps, grid.element_size(),
+        tile = tplan.normalize_tile(spec, tile, sweeps, grid.element_size(),
                                     grid.shape[-spec.ndim:])
         if strategy is None:
             strategy = tplan.ghost_strategy_for(
@@ -476,6 +501,49 @@ def main() -> int:
         rd.stages[0].with_boundary("zero"),
         rd.stages[1].with_boundary("constant(0.75)"),
         rd.stages[0].with_boundary("reflect")))
+    # the main paths' cases (phase 2), here because phase 1 holds the
+    # kernels at the tiles tile="auto" gives them.  (a) every paper stencil
+    # at its Table 3 DRAM shape: zero (K1), periodic (K1: no host pad),
+    # and periodic forced to the padded window (K2 with its pad_boundary
+    # gather), which tiny grids, shards and slabs still need
+    cases = []
+    for n, spec in PAPER_STENCILS.items():
+        shape = DOMAIN_SIZES["DRAM"][spec.ndim]
+        cases.append((n, spec, shape, "DRAM"))
+        cases.append((n, spec.with_boundary("periodic"), shape, "DRAM"))
+        cases.append((n, spec.with_boundary("periodic"), shape, "DRAM",
+                      "padded-window"))
+    cases.append(("jacobi2d", PAPER_STENCILS["jacobi2d"], (8192, 8192),
+                  "HBM"))
+    cases.append(("heat3d", PAPER_STENCILS["heat3d"], (512, 512, 256),
+                  "HBM"))
+    # (b) pipelines
+    nonfusable = StencilPipeline("advect_react", (
+        PAPER_PIPELINES["advect_diffuse2d"].stages[0], rd.stages[1]))
+    ad = PAPER_PIPELINES["advect_diffuse2d"]
+    pcases = [("reaction_diffusion2d", rd, (2048, 2048), "DRAM"),
+              ("reaction_diffusion2d", rd, (8192, 8192), "HBM"),
+              ("advect_diffuse2d", ad, (2048, 2048), "DRAM"),
+              ("advect_diffuse2d", ad, (2048, 2048), "DRAM", "padded-window"),
+              ("advect_diffuse2d", ad, (1024, 1024), "L3"),
+              ("mixed_rd", mixed, (2048, 2048), "DRAM"),
+              ("advect_react", nonfusable, (2048, 2048), "DRAM")]
+    # (d) serving: batches of small grids, one launch per fused block (the
+    # reference's serving mix, src/repro/serve/loadgen.py: BENCH_5's
+    # shapes; a bucket of 48 jacobi2d requests and buckets of 4096), and
+    # 70,000 grids of 8x8
+    advect2d = PAPER_PIPELINES["advect_diffuse2d"].stages[0]
+    scases = [("jacobi2d", PAPER_STENCILS["jacobi2d"], (70000, 8, 8),
+               "serving"),
+              ("jacobi2d", PAPER_STENCILS["jacobi2d"], (48, 32, 64),
+               "serving"),
+              ("jacobi2d", PAPER_STENCILS["jacobi2d"], (4096, 32, 64),
+               "serving"),
+              ("jacobi1d", PAPER_STENCILS["jacobi1d"], (4096, 512), "serving"),
+              ("reaction_diffusion2d", rd, (4096, 32, 64), "serving"),
+              ("advect2d", advect2d, (4096, 32, 64), "serving"),
+              ("heat3d", PAPER_STENCILS["heat3d"], (4096, 8, 12, 16),
+               "serving")]
     chains = [(f"corpus seed {c[0]}", random_pipeline(*c[:4]), c[4])
               for c in REGRESSION_CORPUS]
     for label, pipe, sweeps in chains + [("mixed_rd", mixed, 1),
@@ -559,6 +627,54 @@ def main() -> int:
             f"{F32_ATOL} of plain: "
             f"{not any(f.startswith(label) for f in failures)}")
     del g
+    # the tiles tile="auto" gives the main paths (phase 2e: each case's
+    # block of 4 sweeps and remainder of 2, f64; a staged chain's stages
+    # at 1), each kernel at them on the odd and aligned shapes in every
+    # dtype and on both entries; then a sample of the other candidates
+    # (every fitted HOPPER_TILES entry that fits, of every spec and
+    # pipeline above at sweeps=4, one boundary each in turn, f64)
+    t0 = time.time()
+    tuned = {}
+    for c in cases + pcases + scases:
+        gshape = tuple(c[2][len(c[2]) - c[1].ndim:])
+        if is_pipe(c[1]) and not c[1].fusable:
+            runs = [(st, 1) for st in c[1].stages]
+        else:
+            runs = [(c[1], 4), (c[1], 2)]
+        for spec, sw in runs:
+            tuner = ktune.autotune_pipeline if is_pipe(spec) else ktune.autotune
+            tile = tuner(spec, gshape, sw, 8).tile
+            tuned.setdefault((spec, tile), set()).add(sw)
+    n_tuned = 0
+    for (spec, tile), sws in tuned.items():
+        for dtype, shapes in itertools.product(DTYPES, (odd, aligned)):
+            g = randn(shapes[spec.ndim], dtype, gen)
+            for sw in sorted(sws):
+                for strategy in ("pad-free", "padded-window"):
+                    run_kernel(spec, g, sw, strategy,
+                               f"tuned {spec.name} {tile} {dtype} "
+                               f"{tuple(g.shape)} s{sw}", dtype, tile)
+                    n_tuned += 1
+    n_sampled = 0
+    for i, (label, spec0) in enumerate(specs + [("mixed_rd", mixed)]):
+        spec = spec0.with_boundary(BOUNDARIES[i % 4]) \
+            if label != "mixed_rd" else spec0
+        for shapes in (odd, aligned):
+            g = randn(shapes[spec.ndim], torch.float64, gen)
+            for tile in ktune.candidate_tiles(spec.ndim, g.shape, spec=spec,
+                                              sweeps=4, itemsize=8):
+                if tplan.smem_bytes(tile, spec, 4, 8) \
+                        > tplan._pm.H100_SMEM_PER_BLOCK:
+                    continue
+                for strategy in ("pad-free", "padded-window"):
+                    run_kernel(spec, g, 4, strategy,
+                               f"candidate {label} "
+                               f"{getattr(spec, 'boundary', '')} {tile} "
+                               f"{tuple(g.shape)}", torch.float64, tile)
+                    n_sampled += 1
+    log(f"phase 1: {n_tuned} cases at the {len(tuned)} tuned tiles of the "
+        f"main paths ({sorted({t for _, t in tuned})}), {n_sampled} at the "
+        f"other candidates, max |err| {max_err} ({time.time() - t0:.1f}s)")
     # every launch so far: its tiles by kind, its load path, and its
     # shared memory (the C library's) against plan.smem_bytes
     tiles, stream_tiles = {}, {}
@@ -725,13 +841,14 @@ def main() -> int:
         that no remainder block re-lowers to the default strategy."""
         return 8 if len(case) > 4 else 10
 
-    def drive(cases, label):
+    def drive(cases, label, tile=None):
         """Run each case once with the counts reset just before and read
         just after: through ``CasperEngine.run``, or a forced row's plan
         through ``run_plan``; then hold each result against
-        ``backend="ref"`` on the card."""
+        ``backend="ref"`` on the card.  ``tile``: the engines' tile
+        request (None: the default tile; "auto": the autotuner's)."""
         grids = [randn(c[2], torch.float64, gen) for c in cases]
-        engines = [CasperEngine(c[1], backend="cuda", sweeps=4)
+        engines = [CasperEngine(c[1], backend="cuda", sweeps=4, tile=tile)
                    for c in cases]
         plans = [plan_of(eng, c, g) for eng, c, g in zip(engines, cases,
                                                          grids)]
@@ -763,9 +880,12 @@ def main() -> int:
             if not (equal and finite and tuple(out.shape) == tuple(shape)):
                 failures.append(f"phase 2{label} {n} {boundary} {shape}: "
                                 f"equal {equal} finite {finite}")
+            plan = plan_of(eng, c, g)
             results.append({"stencil": n, "boundary": boundary,
                             "shape": list(shape), "level": level,
-                            "kernel": kernel_of(plan_of(eng, c, g)),
+                            "kernel": kernel_of(plan),
+                            "tile": None if plan.tile is None
+                            else list(plan.tile),
                             "iters": iters_of(c),
                             "bitwise_equal_ref": equal,
                             "launches_per_run": k})
@@ -782,59 +902,60 @@ def main() -> int:
                 (True, "pad-free"): "K3", (True, "padded-window"): "K4"}[
                     (plan.is_pipeline, plan.ghost_strategy)]
 
-    # every paper stencil at its Table 3 DRAM shape: zero (K1), periodic
-    # (K1: no host pad), and periodic forced to the padded
-    # window (K2 with its pad_boundary gather), which tiny grids, shards
-    # and slabs still need
-    cases = []
-    for n, spec in PAPER_STENCILS.items():
-        shape = DOMAIN_SIZES["DRAM"][spec.ndim]
-        cases.append((n, spec, shape, "DRAM"))
-        cases.append((n, spec.with_boundary("periodic"), shape, "DRAM"))
-        cases.append((n, spec.with_boundary("periodic"), shape, "DRAM",
-                      "padded-window"))
-    cases.append(("jacobi2d", PAPER_STENCILS["jacobi2d"], (8192, 8192),
-                  "HBM"))
-    cases.append(("heat3d", PAPER_STENCILS["heat3d"], (512, 512, 256),
-                  "HBM"))
     grids, plans, results, launches = drive(cases, "a")
     if min(launches[k] for k in ("K1", "K2")) < 1:
         raise SystemExit(f"phase 2a: a kernel of the path never ran: "
                          f"{launches}")
-    nonfusable = StencilPipeline("advect_react", (
-        PAPER_PIPELINES["advect_diffuse2d"].stages[0], rd.stages[1]))
-    ad = PAPER_PIPELINES["advect_diffuse2d"]
-    pcases = [("reaction_diffusion2d", rd, (2048, 2048), "DRAM"),
-              ("reaction_diffusion2d", rd, (8192, 8192), "HBM"),
-              ("advect_diffuse2d", ad, (2048, 2048), "DRAM"),
-              ("advect_diffuse2d", ad, (2048, 2048), "DRAM", "padded-window"),
-              ("advect_diffuse2d", ad, (1024, 1024), "L3"),
-              ("mixed_rd", mixed, (2048, 2048), "DRAM"),
-              ("advect_react", nonfusable, (2048, 2048), "DRAM")]
     pgrids, pplans, presults, plaunches = drive(pcases, "b")
     if min(plaunches[k] for k in ("K1", "K3", "K4")) < 1:
         raise SystemExit(f"phase 2b: a kernel of the path never ran: "
                          f"{plaunches}")
-    # serving: batches of small grids, one launch per fused block (the
-    # reference's serving mix, src/repro/serve/loadgen.py: BENCH_5's
-    # shapes; a bucket of 48 jacobi2d requests and buckets of 4096), and
-    # 70,000 grids of 8x8
-    advect2d = PAPER_PIPELINES["advect_diffuse2d"].stages[0]
-    scases = [("jacobi2d", PAPER_STENCILS["jacobi2d"], (70000, 8, 8),
-               "serving"),
-              ("jacobi2d", PAPER_STENCILS["jacobi2d"], (48, 32, 64),
-               "serving"),
-              ("jacobi2d", PAPER_STENCILS["jacobi2d"], (4096, 32, 64),
-               "serving"),
-              ("jacobi1d", PAPER_STENCILS["jacobi1d"], (4096, 512), "serving"),
-              ("reaction_diffusion2d", rd, (4096, 32, 64), "serving"),
-              ("advect2d", advect2d, (4096, 32, 64), "serving"),
-              ("heat3d", PAPER_STENCILS["heat3d"], (4096, 8, 12, 16),
-               "serving")]
     sgrids, splans, sresults, slaunches = drive(scases, "d")
     if sum(slaunches.values()) < len(scases):
         raise SystemExit(f"phase 2d: a kernel of the path never ran: "
                          f"{slaunches}")
+    # (e) tile="auto": the same cases through engines that tune their
+    # tiles; one autotune per distinct plan (a forced row reuses its
+    # periodic row's), none for a second identical engine
+    at0 = tplan.plan_cache_stats()
+    auto_runs = {}
+    for key, cs, paths in (("a", cases, ("K1", "K2")),
+                           ("b", pcases, ("K1", "K3", "K4")),
+                           ("d", scases, ())):
+        got = drive(cs, f"e (2{key}, tile='auto')", tile="auto")
+        auto_runs[key] = got
+        if any(got[3][k] < 1 for k in paths) or sum(got[3].values()) < 1:
+            failures.append(f"phase 2e ({key}): a kernel of the path never "
+                            f"ran: {got[3]}")
+        for c, r, r_auto in zip(cs, {"a": results, "b": presults,
+                                     "d": sresults}[key], got[2]):
+            log(f"  2e {c[0]} {r['boundary']} {tuple(c[2])}"
+                f"{' forced ' + c[4] if len(c) > 4 else ''}: tile "
+                f"{r['tile']} (default) -> {r_auto['tile']} (auto), "
+                f"{r_auto['kernel']}, launches {r_auto['launches_per_run']}")
+    at1 = tplan.plan_cache_stats()
+    auto_plans = [k for k in tplan.PLAN_CACHE.keys()
+                  if k[5] == "auto" and k[3] == "cuda"
+                  and getattr(k[0], "fusable", True)]
+    tuned_here = at1["autotune_calls"] - at0["autotune_calls"]
+    log(f"phase 2e: autotune_calls {tuned_here} for {len(auto_plans)} "
+        f"distinct tile='auto' plans (lowers {at1['lowers'] - at0['lowers']})")
+    if tuned_here != len(auto_plans):
+        failures.append(f"phase 2e: {tuned_here} autotunes for "
+                        f"{len(auto_plans)} plans")
+    for key, cs in (("a", cases), ("b", pcases), ("d", scases)):
+        for c, g in zip(cs, auto_runs[key][0]):
+            CasperEngine(c[1], backend="cuda", sweeps=4,
+                         tile="auto").run(g, iters=10)
+    torch.cuda.synchronize()
+    at2 = tplan.plan_cache_stats()
+    log(f"phase 2e: second identical engines: autotune_calls "
+        f"{at2['autotune_calls'] - at1['autotune_calls']}, lowers "
+        f"{at2['lowers'] - at1['lowers']}")
+    if (at2["autotune_calls"], at2["lowers"]) != (at1["autotune_calls"],
+                                                   at1["lowers"]):
+        failures.append("phase 2e: a second identical engine lowered or "
+                        "tuned again")
     # the card against the host oracle on a small input
     small = randn((37, 45, 101), torch.float64, gen)
     spec = PAPER_STENCILS["star33_3d"].with_boundary("reflect")
@@ -1016,6 +1137,137 @@ def main() -> int:
                f"entry ({'K1/K3' if plan.ghost_strategy != 'pad-free' else 'pad + K2/K4'}) {other_ms:.4f}"))
     if failures:
         raise SystemExit("phase 3 failed:\n" + "\n".join(failures))
+
+    # ---- phase 3, tile="auto": the tuned tile against the default and
+    # the measured candidates, all timed in turn (kernels.tune.measure_tiles)
+    x = torch.empty(2 ** 27, dtype=torch.float64, device="cuda")
+    y = torch.empty_like(x)
+    x.fill_(1.0)
+    y.copy_(x)
+    copy_s = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y.copy_(x)
+        end.record()
+        end.synchronize()
+        copy_s.append(start.elapsed_time(end) / 1e3)
+    copy_bw = 2 * x.numel() * 8 / min(copy_s)
+    del x, y
+    torch.cuda.empty_cache()
+    log(f"phase 3 tuning: copy bandwidth {copy_bw:.4g} B/s (1 GiB read + 1 "
+        f"GiB written, best of 10) | card {smi}")
+    tune_cache = os.path.join(ROOT, "build", "tune_cache")
+    shutil.rmtree(tune_cache, ignore_errors=True)
+    os.environ[ktune.TUNE_CACHE_ENV] = tune_cache
+    ktune.TUNE_DISK_CACHE.reset()
+    tuning = []
+    for key, cs, res, gs, dplans in (("a", cases, results, grids, plans),
+                                     ("b", pcases, presults, pgrids, pplans),
+                                     ("d", scases, sresults, sgrids, splans)):
+        for c, r, g, dplan, aplan in zip(cs, res, gs, dplans,
+                                         auto_runs[key][1]):
+            spec, shape = c[1], tuple(c[2])
+            forced = c[4] if len(c) > 4 else None
+            gshape = shape[len(shape) - spec.ndim:]
+            batch = math.prod(shape) // math.prod(gshape)
+            default = dplan.tile
+            row = {"case": f"2{key} {c[0]} {r['boundary']} {list(shape)}"
+                           + (f" forced {forced}" if forced else ""),
+                   "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+            if not aplan.fused:
+                # a staged chain: its stage plans' tiles, auto vs default
+                ms_auto = time_ms(lambda: tplan.execute(aplan, g), 25)
+                ms_def = time_ms(lambda: tplan.execute(dplan, g), 25)
+                row.update(auto_ms=ms_auto, default_ms=ms_def,
+                           stage_tiles_auto=[list(aplan.stage_plan(k).tile)
+                                             for k in range(len(spec.stages))],
+                           stage_tiles_default=[
+                               list(dplan.stage_plan(k).tile)
+                               for k in range(len(spec.stages))])
+                log(f"  tune {row['case']} (staged): auto {ms_auto:.4f} ms "
+                    f"(stages {row['stage_tiles_auto']}), default "
+                    f"{ms_def:.4f} ({row['stage_tiles_default']}) | bound "
+                    f"{r['bound_ms']:.4f}")
+                tuning.append(row)
+                continue
+            auto = aplan.tile
+            tuner = (ktune.autotune_pipeline if is_pipe(spec)
+                     else ktune.autotune)
+            analytic = tuner(spec, gshape, 4, 8)
+            top3 = [t for t, cst in analytic.table if math.isfinite(cst)][:3]
+            tiles = list(dict.fromkeys(
+                [auto] + (top3 if key != "d" else []) + [default]))
+            timed = dict(ktune.measure_tiles(spec, g, tiles, 4, TUNE_ROUNDS,
+                                             forced))
+            best = min(timed, key=timed.get)
+            ratio = timed[auto] / timed[best]
+            row.update(default=list(default), auto=list(auto),
+                       default_ms=timed[default] * 1e3,
+                       auto_ms=timed[auto] * 1e3, best=list(best),
+                       best_ms=timed[best] * 1e3, auto_over_best=ratio,
+                       measured={str(t): v * 1e3 for t, v in timed.items()},
+                       analytic_ms={str(t): cst * 1e3
+                                    for t, cst in analytic.table[:3]})
+            if key != "d":
+                # the fitted constants, and the analytic top under them
+                cal = ktune.fit_calibration(copy_bw, [
+                    {"n_ctas": tplan.launch_blocks(gshape, t, batch),
+                     "seconds": v} for t, v in timed.items()])
+                os.environ[tplan._pm.CALIBRATION_ENV] = json.dumps(cal)
+                try:
+                    cal_top = tuner(spec, gshape, 4, 8).tile
+                finally:
+                    del os.environ[tplan._pm.CALIBRATION_ENV]
+                if cal_top not in timed:
+                    pair = dict(ktune.measure_tiles(spec, g, [cal_top, auto],
+                                                    4, TUNE_ROUNDS, forced))
+                    cal_ms = pair[cal_top] / pair[auto] * timed[auto] * 1e3
+                else:
+                    cal_ms = timed[cal_top] * 1e3
+                row.update(fitted=cal, calibrated_top=list(cal_top),
+                           calibrated_top_ms=cal_ms,
+                           calibrated_over_best=cal_ms / (timed[best] * 1e3))
+                if not forced:
+                    # the measured tuner itself, and its disk cache
+                    m = ktune.autotune_measured(spec, g, 4, top_k=3,
+                                                reps=TUNE_ROUNDS)
+                    again = ktune.autotune_measured(spec, g, 4, top_k=3,
+                                                    reps=TUNE_ROUNDS)
+                    if again.table != m.table:
+                        failures.append(f"{row['case']}: CASPER_TUNE_CACHE "
+                                        "did not serve the stored tune")
+                    row["autotune_measured"] = m.as_dict()
+                if ratio > AUTO_LIMIT:
+                    failures.append(f"phase 3 {row['case']}: auto {auto} "
+                                    f"{timed[auto] * 1e3:.4f} ms is "
+                                    f"{ratio:.2f}x the best measured "
+                                    f"{best} {timed[best] * 1e3:.4f}")
+            log(f"  tune {row['case']}: default {default} "
+                f"{timed[default] * 1e3:.4f} ms, auto {auto} "
+                f"{timed[auto] * 1e3:.4f} ms, best {best} "
+                f"{timed[best] * 1e3:.4f} ms (auto/best {ratio:.3f})"
+                + (f" | top-3 {top3}, fitted {cal}, calibrated top "
+                   f"{cal_top} {cal_ms:.4f} ms"
+                   + (f", autotune_measured {m.tile}" if not forced else "")
+                   if key != "d" else "")
+                + f" | bound {r['bound_ms']:.4f} | card {smi}")
+            tuning.append(row)
+    worst = max(t.get("auto_over_best", 0) for t in tuning
+                if t["case"][:2] in ("2a", "2b"))
+    log(f"phase 3 tuning: CASPER_TUNE_CACHE {ktune.TUNE_DISK_CACHE.as_dict()}"
+        f"; worst auto/best on 2a/2b {worst:.3f} (gate {AUTO_LIMIT})")
+    del os.environ[ktune.TUNE_CACHE_ENV]
+    n_measured = sum("autotune_measured" in t for t in tuning)
+    if ktune.TUNE_DISK_CACHE.as_dict() != {"hits": n_measured,
+                                           "misses": n_measured,
+                                           "stores": n_measured}:
+        failures.append(f"phase 3 tuning: CASPER_TUNE_CACHE counters "
+                        f"{ktune.TUNE_DISK_CACHE.as_dict()} for {n_measured} "
+                        "measured tunes, each stored once and served once")
+    if failures:
+        raise SystemExit("phase 3 tuning failed:\n" + "\n".join(failures))
 
     # ---- the kernels line: one representative main-path case each ------
     def kernel_entry(kname, spec, g, window_call, launches, launches_of):
@@ -1346,6 +1598,8 @@ def main() -> int:
                    "serving_cases": sresults, "swa_phase1_cases": n_swa,
                    "swa_launches": alaunches, "swa_cases": swa_results,
                    "k5_details": k5_details, "kernels": kernels,
+                   "copy_bw": copy_bw, "tuning": tuning,
+                   "auto_cases": {k: v[2] for k, v in auto_runs.items()},
                    "seconds": time.time() - t_start}, fh, indent=1)
     log(f"total {time.time() - t_start:.1f}s")
     print(smi)

@@ -22,6 +22,11 @@ one single-sweep K1/K2 launch per stage.
 
 Backends: ``"ref"`` (the torch oracle chain) and ``"cuda"`` (the fused
 hand-written kernels K1-K4; on a CPU device their plain versions run).
+``tile=None`` takes the default Hopper tile, fitted to a small grid;
+``tile="auto"`` ranks the candidate tiles by the Hopper cost model once
+per plan (:mod:`repro_torch.kernels.tune`,
+``CasperEngine(spec, backend="cuda", sweeps=4, tile="auto")``); an
+explicit tile is taken as it is.
 ``device=None`` means ``"cuda"`` and raises where CUDA is missing; pass
 ``device="cpu"`` to run on the host.  The engine is frozen after
 ``__init__``.
@@ -29,7 +34,7 @@ hand-written kernels K1-K4; on a CPU device their plain versions run).
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import Literal, Sequence
 
 import numpy as np
 import torch
@@ -59,7 +64,7 @@ class CasperEngine:
         segment: SegmentConfig | None = None,
         device=None,
         sweeps: int = 1,
-        tile: Sequence[int] | None = None,
+        tile: Sequence[int] | Literal["auto"] | None = None,
     ):
         if sweeps < 1:
             raise ValueError(f"sweeps must be >= 1, got {sweeps}")
@@ -67,8 +72,6 @@ class CasperEngine:
             raise _plan.not_ported("vm")
         if backend not in _plan.BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
-        if tile == "auto":
-            raise _plan.not_ported("auto")
         self.spec = spec
         self.backend = backend
         self.segment = segment or SegmentConfig()

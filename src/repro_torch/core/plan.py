@@ -20,16 +20,19 @@ Differences from the reference, by design:
 * ``interpret`` is replaced by ``device`` (part of the plan key);
 * the kernel tile defaults to the first Hopper tile whose two shared
   memory window buffers fit 227 KB (:func:`default_tile`), cut to a grid
-  smaller than it (:func:`normalize_tile`), and an
+  smaller than it (:func:`fit_tile`); ``tile="auto"`` ranks the same
+  candidates, each fitted likewise, by the Hopper cost model
+  (:mod:`repro_torch.kernels.tune`, counted in
+  ``PLAN_CACHE.autotune_calls``); an
   explicit tile that does not fit — or a chain for which no tile fits,
   or whose taps exceed the kernels' argument pools — is refused here, at
   lowering time, on every device;
 * ``lax.scan`` over the fused blocks is a Python loop.
 
 What the port does not have yet raises ``NotImplementedError`` naming
-its ROADMAP item: ``tile="auto"`` (item 6), grids past the device budget
-that would stream from the host (item 7), ``mesh`` (item 9), strict
-static verification (item 10) and ``backend="vm"`` (item 11).
+its ROADMAP item: grids past the device budget that would stream from
+the host (item 7), ``mesh`` (item 9), strict static verification (item
+10) and ``backend="vm"`` (item 11).
 """
 from __future__ import annotations
 
@@ -69,7 +72,10 @@ GHOST_STRATEGIES = ("pad", "pad-free", "padded-window", "staged")
 #: Candidate kernel tiles per rank, largest first.  One CTA owns one
 #: tile; the innermost dim is a multiple of the 32-thread warp so loads
 #: coalesce.  :func:`default_tile` takes the first whose working set fits
-#: one block's shared memory at the plan's ``sweeps`` and itemsize.  The
+#: one block's shared memory at the plan's ``sweeps`` and itemsize;
+#: ``tile="auto"`` ranks them all, each fitted to the grid
+#: (:mod:`repro_torch.kernels.tune`), and on an H100 ranked the default
+#: first on every main-path case (``tools/tile_probe.py``).  The
 #: square 64x64 leads in 2-D: it recomputes less halo than 32x128 (9.9
 #: against 10.3 points per output for reaction_diffusion2d at sweeps=4)
 #: and still leaves room for two CTAs per SM in f64.  In 3-D a tile is a
@@ -93,7 +99,6 @@ HOPPER_TILES: dict[int, tuple[tuple[int, ...], ...]] = {
 
 #: ROADMAP items named by what this slice leaves out.
 _NOT_PORTED = {
-    "auto": "tile='auto' (the autotuner): ROADMAP Queue 1 item 6",
     "stream": "grids past the device budget (stream-from-host slab "
               "streaming): ROADMAP Queue 1 item 7",
     "mesh": "distributed plans (mesh / deep halo exchange): ROADMAP "
@@ -382,31 +387,42 @@ def default_tile(spec, sweeps: int = 1, itemsize: int = 4
         "lower sweeps")
 
 
-def normalize_tile(spec: StencilSpec, tile: Sequence[int] | int | None,
-                   sweeps: int = 1, itemsize: int = 4,
-                   shape: Sequence[int] | None = None) -> tuple[int, ...]:
-    """Default / int-promote / validate a kernel tile for ``spec``.  The
-    default tile is fitted to an output of ``shape``: a streamed spec's
-    chunk ``tile[0]`` is first cut to the grid's depth less the window's
+def fit_tile(spec, tile: Sequence[int], sweeps: int, itemsize: int,
+             shape: Sequence[int]) -> tuple[int, ...]:
+    """``tile`` fitted to an output of ``shape``: a streamed spec's chunk
+    ``tile[0]`` is first cut to the grid's depth less the window's
     ``2*sweeps*halo[0]`` planes (when that leaves at least one), so the
     window stays inside a shallow grid and the grid pad-free; then every
     dim longer than the output's is cut to it, the row rounded up to the
     layout's 16-byte chunk (so the ``lead`` rule and the ``cp.async``
     path still hold), and the kernel stages the grid's own window instead
-    of a default tile's.  An explicit ``tile`` is taken as it is."""
+    of a larger tile's.  The default tile and every ``tile="auto"``
+    candidate are fitted by this rule (``spec=None``: no chunk cut)."""
+    tile = tuple(tile)
+    if spec is not None and streams(spec):
+        fit = shape[-3] - 2 * sweeps * spec.halo[0]
+        if 1 <= fit < tile[0]:
+            tile = (fit,) + tile[1:]
+    vec = _chunk(itemsize)
+    return tuple(min(t, n) for t, n in zip(tile[:-1], shape[:-1])) \
+        + (min(tile[-1], -(-shape[-1] // vec) * vec),)
+
+
+def normalize_tile(spec: StencilSpec, tile: Sequence[int] | int | None,
+                   sweeps: int = 1, itemsize: int = 4,
+                   shape: Sequence[int] | None = None) -> tuple[int, ...]:
+    """Default / int-promote / validate a kernel tile for ``spec``.  The
+    default tile is fitted to an output of ``shape`` (:func:`fit_tile`).
+    An explicit ``tile`` is taken as it is; ``"auto"`` is resolved once
+    per plan by :func:`lower`, never here."""
     if tile is None:
         tile = default_tile(spec, sweeps, itemsize)
-        if shape is not None:
-            if streams(spec):
-                fit = shape[-3] - 2 * sweeps * spec.halo[0]
-                if 1 <= fit < tile[0]:
-                    tile = (fit,) + tile[1:]
-            vec = _chunk(itemsize)
-            tile = tuple(min(t, n) for t, n in zip(tile[:-1], shape[:-1])) \
-                + (min(tile[-1], -(-shape[-1] // vec) * vec),)
-        return tile
+        return tile if shape is None else fit_tile(spec, tile, sweeps,
+                                                   itemsize, shape)
     if tile == "auto":
-        raise not_ported("auto")
+        raise ValueError("tile='auto' is resolved by plan.lower (the "
+                         "autotuner, repro_torch.kernels.tune); pass the "
+                         "resolved tile here")
     if isinstance(tile, int):
         tile = (tile,)
     tile = tuple(int(t) for t in tile)
@@ -531,7 +547,8 @@ class ExecutionPlan:
 # ---------------------------------------------------------------------------
 class PlanCache:
     """LRU cache of lowered plans with observable counters (``hits``,
-    ``misses``, ``lowers`` and ``evictions``)."""
+    ``misses``, ``lowers``, ``autotune_calls`` — the tile autotunes
+    lowering ran for ``tile="auto"`` — and ``evictions``)."""
 
     def __init__(self, maxsize: int = 512):
         self.maxsize = maxsize
@@ -540,6 +557,7 @@ class PlanCache:
         self.hits = 0
         self.misses = 0
         self.lowers = 0
+        self.autotune_calls = 0
         self.evictions = 0
 
     def __len__(self) -> int:
@@ -563,7 +581,8 @@ class PlanCache:
                 self.evictions += 1
 
     def get_or_lower(self, key, factory):
-        """Atomic miss → lower → insert under the cache lock."""
+        """Atomic miss → lower → insert under the cache lock (the
+        counters, and any autotune the factory runs, included)."""
         with self._lock:
             hit = self.get(key)
             if hit is not None:
@@ -574,6 +593,11 @@ class PlanCache:
             self.put(key, plan)
             return plan
 
+    def keys(self):
+        """Current keys, least- to most-recently used."""
+        with self._lock:
+            return list(self._store)
+
     def stats(self) -> dict:
         with self._lock:
             total = self.hits + self.misses
@@ -583,6 +607,7 @@ class PlanCache:
                 "hits": self.hits,
                 "misses": self.misses,
                 "lowers": self.lowers,
+                "autotune_calls": self.autotune_calls,
                 "evictions": self.evictions,
                 "hit_rate": self.hits / total if total else 0.0,
             }
@@ -590,7 +615,8 @@ class PlanCache:
     def clear(self) -> None:
         with self._lock:
             self._store.clear()
-            self.hits = self.misses = self.lowers = self.evictions = 0
+            self.hits = self.misses = self.lowers = 0
+            self.autotune_calls = self.evictions = 0
 
 
 #: Environment switch of the reference's plan verifier (``off`` /
@@ -615,8 +641,8 @@ def plan_cache_stats() -> dict:
 
 
 def canonical_tile_request(tile) -> object:
-    """Hashable canonical form of a tile request: ``None`` or a tuple of
-    ints (``"auto"`` passes through to be refused by :func:`lower`)."""
+    """Hashable canonical form of a tile request: ``"auto"``, ``None`` or
+    a tuple of ints."""
     if tile is None or tile == "auto":
         return tile
     if isinstance(tile, int):
@@ -676,8 +702,6 @@ def lower(spec: StencilSpec | StencilPipeline, shape: Sequence[int], dtype,
     if len(shape) != spec.ndim:
         raise ValueError(f"shape rank {len(shape)} != spec ndim {spec.ndim}")
     tile_req = canonical_tile_request(tile)
-    if tile_req == "auto":
-        raise not_ported("auto")
     dev = canonical_device(device)
     key = plan_key(spec, shape, dtype, backend, sweeps, tile_req, dev)
     return PLAN_CACHE.get_or_lower(
@@ -690,7 +714,9 @@ def _lower_uncached(spec, shape, dtype, backend, sweeps, tile_req,
     """One plan for a spec or a pipeline.  A pipeline's halo is the sum
     of its stage radii and its initial extension is stage 0's; a chain
     that is not fusable lowers ``fused=False`` with strategy
-    ``"staged"``, and its stage plans decide everything else."""
+    ``"staged"``, and its stage plans decide everything else.  Runs only
+    from :meth:`PlanCache.get_or_lower`, so ``autotune_calls`` counts
+    under the cache lock."""
     halo = spec.halo
     deep = tuple(sweeps * h for h in halo)
     itemsize = torch.empty((), dtype=dtype).element_size()
@@ -702,8 +728,19 @@ def _lower_uncached(spec, shape, dtype, backend, sweeps, tile_req,
     resolved_tile = None
     ghost = "pad" if fused else "staged"        # oracle default
     if backend in KERNEL_BACKENDS and fused:
-        resolved_tile = normalize_tile(spec, tile_req, sweeps, itemsize,
-                                       shape)
+        if tile_req == "auto":
+            # the shape tuned for: the grid's (slab streaming, item 7,
+            # will pass its slab's here)
+            tune_shape = shape
+            from ..kernels import tune as _tune
+            PLAN_CACHE.autotune_calls += 1
+            autotune = _tune.autotune_pipeline if pipeline else _tune.autotune
+            resolved_tile = autotune(spec, tune_shape, sweeps=sweeps,
+                                     itemsize=itemsize,
+                                     backend=backend).tile
+        else:
+            resolved_tile = normalize_tile(spec, tile_req, sweeps, itemsize,
+                                           shape)
         _check_tile_fits(spec, resolved_tile, sweeps, itemsize)
         from ..kernels import engine as _keng
         _keng.check_kernel_args(spec)
@@ -783,3 +820,12 @@ def runner(spec, backend: str, sweeps: int, tile_req,
                      device=device)
         return run_plan(plan, grid, iters)
     return run
+
+
+def runner_cache_stats() -> dict:
+    """Hit/miss counters of the runner cache (a hit: a second engine
+    re-used the first's callable), beside the plan cache's
+    ``autotune_calls``.  The reference's ``batch_runner`` waits for
+    serving (ROADMAP Queue 1 item 8)."""
+    return {"runner": runner.cache_info()._asdict(),
+            "autotune_calls": PLAN_CACHE.stats()["autotune_calls"]}

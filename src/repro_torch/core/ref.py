@@ -19,10 +19,12 @@ fused multiply-add (``torch.add(..., alpha=c)``, ``addcmul``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .stencil import StencilSpec, _classify, as_stages, factor_taps
+from .stencil import (StencilSpec, _classify, as_stages, factor_taps,
+                      parse_boundary)
 
 
 def periodic_index(idx, n: int):
@@ -129,20 +131,33 @@ def tap_sum(windows, coeffs, dtype) -> torch.Tensor:
     return acc
 
 
-def _slice(x: torch.Tensor, starts, sizes) -> torch.Tensor:
-    """The trailing-dims block ``x[..., s:s+n, ...]``."""
+def tap_sum_numpy(windows, coeffs, dtype) -> np.ndarray:
+    """Numpy analogue of :func:`tap_sum` (independent of torch): products
+    added from zero in ``coeffs`` order, bit-equal to it in f64."""
+    dtype = np.dtype(dtype)
+    acc = np.zeros(windows[0].shape, dtype)
+    for c, w in zip(coeffs, windows):
+        acc = acc + dtype.type(c) * w
+    return acc
+
+
+def _slice(x, starts, sizes):
+    """The trailing-dims block ``x[..., s:s+n, ...]`` (a tensor or an
+    array)."""
     return x[(Ellipsis,) + tuple(slice(s, s + n)
                                  for s, n in zip(starts, sizes))]
 
 
-def factored_window_apply(x, terms, halo, out_shape, dtype) -> torch.Tensor:
+def factored_window_apply(x, terms, halo, out_shape, dtype, *,
+                          tsum=tap_sum):
     """One structure-specialized application of a factored tap set to
     window ``x`` (trailing shape ``out_shape + 2*halo``).
 
     Each term runs as sequential 1-D axis passes: a pass consumes its
     factor's radius along its axis and trims every axis that carries no
     later factor down to the interior.  Every pass and the final
-    term-sum go through :func:`tap_sum`; a single term is returned as
+    term-sum go through ``tsum`` (:func:`tap_sum`, or
+    :func:`tap_sum_numpy` on an array); a single term is returned as
     is — the order of ``repro.core.ref.factored_window_apply``.
     """
     ndim = len(out_shape)
@@ -162,12 +177,12 @@ def factored_window_apply(x, terms, halo, out_shape, dtype) -> torch.Tensor:
                 starts = [new_org[d] - org[d] + (off if d == f.axis else 0)
                           for d in range(ndim)]
                 wins.append(_slice(y, starts, ext))
-            y = tap_sum(wins, f.coeffs, dtype)
+            y = tsum(wins, f.coeffs, dtype)
             org = new_org
         vals.append(y)
     if len(vals) == 1:
         return vals[0]
-    return tap_sum(vals, (1.0,) * len(vals), dtype)
+    return tsum(vals, (1.0,) * len(vals), dtype)
 
 
 def _window_apply(x, taps, halo, cur, acc_dtype, terms) -> torch.Tensor:
@@ -321,6 +336,67 @@ def apply_stencil(spec: StencilSpec, grid: torch.Tensor) -> torch.Tensor:
     windows = [_slice(padded, [h + o for h, o in zip(halo, off)], shape)
                for off, _ in spec.taps]
     return tap_sum(windows, spec.coeffs, grid.dtype)
+
+
+def pad_boundary_numpy(grid: np.ndarray, widths, mode: str = "zero",
+                       value: float = 0.0) -> np.ndarray:
+    """Numpy analogue of :func:`pad_boundary` (``np.pad``; wrap repeats
+    and reflect folds at any depth, as the index gathers do)."""
+    pad = [(int(w), int(w)) for w in widths]
+    if mode == "zero":
+        return np.pad(grid, pad)
+    if mode == "constant":
+        return np.pad(grid, pad, constant_values=value)
+    if mode == "periodic":
+        return np.pad(grid, pad, mode="wrap")
+    if mode == "reflect":
+        return np.pad(grid, pad, mode="reflect")
+    raise ValueError(f"unknown boundary mode {mode!r}")
+
+
+def apply_stencil_numpy(spec: StencilSpec, grid: np.ndarray) -> np.ndarray:
+    """Loop-free numpy oracle (independent of torch): dispatches on
+    ``spec.structure`` as :func:`apply_stencil` does and walks the same
+    factored order, so the two are bit-equal in f64."""
+    halo = spec.halo
+    padded = pad_boundary_numpy(grid, halo, spec.boundary_mode,
+                                spec.boundary_value)
+    terms = factor_taps(spec).compute_terms
+    if terms is not None:
+        return factored_window_apply(padded, terms, halo, grid.shape,
+                                     grid.dtype, tsum=tap_sum_numpy)
+    out = np.zeros_like(grid)
+    for off, coeff in spec.taps:
+        out = out + coeff * _slice(padded, [h + o for h, o in zip(halo, off)],
+                                   grid.shape)
+    return out
+
+
+def apply_stencil_loops(spec: StencilSpec, grid: np.ndarray) -> np.ndarray:
+    """Scalar loop oracle (the paper's Fig. 2 pseudo-code), slow: for
+    tiny grids in tests only.  Out-of-grid taps are served point by point
+    from the spec's boundary mode, the most literal statement of the
+    semantics."""
+    mode, value = parse_boundary(spec.boundary)
+    out = np.zeros_like(grid)
+    shape = grid.shape
+    for p in np.ndindex(*shape):
+        acc = 0.0
+        for off, coeff in spec.taps:
+            q = tuple(pi + oi for pi, oi in zip(p, off))
+            if all(0 <= qi < ni for qi, ni in zip(q, shape)):
+                acc += coeff * grid[q]
+            elif mode == "constant":
+                acc += coeff * value
+            elif mode == "periodic":
+                acc += coeff * grid[tuple(periodic_index(qi, ni)
+                                          for qi, ni in zip(q, shape))]
+            elif mode == "reflect":
+                acc += coeff * grid[tuple(reflect_index(qi, ni)
+                                          for qi, ni in zip(q, shape))]
+            # zero: out-of-grid taps add nothing
+        out[p] = acc
+    return out
 
 
 def run_iterations(spec: StencilSpec, grid: torch.Tensor,

@@ -726,6 +726,19 @@ def pipeline_apply(pipeline: StencilPipeline, grid: torch.Tensor,
                           strategy=strategy)
 
 
+def run_sweeps(spec: StencilSpec, grid: torch.Tensor, iters: int,
+               tile: Sequence[int] | int | str | None = None,
+               sweeps: int = 1) -> torch.Tensor:
+    """``iters`` applications of ``spec`` to ``grid`` (an optional leading
+    batch dim), fused ``sweeps`` at a time on the grid's own device: one
+    ``"cuda"`` plan through the plan cache, ``q`` fused blocks and one
+    narrower remainder block (``plan.run_plan``)."""
+    plan = _plan.lower(spec, _plan._grid_shape_for(spec, grid), grid.dtype,
+                       backend="cuda", sweeps=sweeps, tile=tile,
+                       device=grid.device)
+    return _plan.run_plan(plan, grid, iters)
+
+
 def execute_plan(plan, grid: torch.Tensor) -> torch.Tensor:
     """Executor of one lowered ``"cuda"`` plan: one fused block of
     ``plan.sweeps`` applications with the plan's tile and strategy

@@ -167,13 +167,6 @@ def test_not_ported_paths_raise_with_their_roadmap_item(monkeypatch):
     from repro_torch import PAPER_PIPELINES
     spec = _port(J_SPECS["jacobi2d"])
     pipe = PAPER_PIPELINES["reaction_diffusion2d"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        CasperEngine(pipe, backend="cuda", device="cpu", tile="auto")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tplan.lower(pipe, (8, 8), torch.float64, backend="cuda",
-                    tile="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        CasperEngine(spec, backend="cuda", device="cpu", tile="auto")
     with pytest.raises(NotImplementedError, match="item 9"):
         tplan.lower(spec, (8, 8), torch.float64, mesh=object(),
                     grid_axes=("x", None), device="cpu")
