@@ -40,7 +40,13 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    gives the main paths below (each case's block and remainder, in every
    dtype on odd and aligned shapes, both entries) and at every other
    candidate of ``plan.HOPPER_TILES`` that fits, for each spec and
-   pipeline above (f64);
+   pipeline above (f64); and K2 (ranks 1-3) and K4 on the slab windows the
+   slab executor uploads by DMA from pinned memory (``casper_copy_box``),
+   each slab's origin inside a taller grid, every boundary mode, f64 and
+   f32, with slabs shallower than their overlap among them (each window
+   bitwise equal to the oracle's ``pad_boundary`` of the whole grid,
+   ``deep_halo`` wide on every dim, cut to the slab's rows; each slab to
+   the plain version);
 2. runs the engine — ``CasperEngine(spec, backend="cuda",
    sweeps=4).run(grid, iters=10)``, all f64, each bitwise equal to
    ``backend="ref"`` on the card, on five main paths, each with the launch
@@ -66,7 +72,30 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    ``CasperEngine(..., tile="auto")`` (the Hopper tile cost model picks
    each plan's tile), each f64 result bitwise equal to ``backend="ref"``
    and each kernel of the path launched, with one autotune per distinct
-   plan and none for a second identical engine;
+   plan and none for a second identical engine; (f) slab streaming: six
+   grids past a forced ``CASPER_SLAB_BUDGET`` (jacobi2d zero 32768^2
+   under 2 GiB, periodic 8192^2 under 128 MiB, heat3d 1024x512x512 and
+   reaction_diffusion2d 16384^2 under 512 MiB, the staged advect2d ->
+   rd_react chain at 8192^2 under 128 MiB, star33_3d reflect with slabs
+   shallower than their overlap), each bitwise equal to the same engine
+   in core on the card, its result on the host and its peak device
+   memory within its budget; two more grids, each just past a budget
+   that the old rule (input and output only, one grid of a batch only)
+   would have run in core, under the same checks: jacobi2d zero
+   1048576x8 (K2's padded copy does not fit) and a batch of 8 jacobi2d
+   reflect 2048^2 grids under the in-core block of 3 (run on the card
+   three grids at a time); logged with the host's RAM, the host link
+   (1 GiB pinned copies each way alone, both at once, and the pitched
+   upload), and per case the slabs, the bytes each way, one block's time
+   beside its link bound (the larger of the bytes each way over their
+   rate and the block's device bound) and the in-core alternative (grid
+   up, in-core block, grid down), pinning and staging; one block under
+   ``torch.profiler`` must show an H2D copy overlapping a K2 launch and a
+   D2H copy (the trace goes to ``build/slab_trace.json``); (g)
+   ``backend="vm"`` on the card: every paper stencil and pipeline at its
+   Table 3 L2 shape x 4 boundaries, bitwise equal to the VM on the host
+   with equal counters and within 1e-12 of ``backend="ref"``, beside the
+   paper model's tables (the paper's machines, not the card);
 3. times one fused block per phase-2 case with CUDA events (median),
    beside its bound (the larger of one read and one write of the grid at
    the HBM rate and the f64 operations the contract fixes per point and
@@ -93,12 +122,14 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 (one entry per kernel and route: K1/K2 of 1-D/2-D specs on the window
 kernel, K1/K2 of 3-D specs on the streamed kernel, K3, K4, K5 bf16, f16
-and f32; K2 and K4 carry the serving rows under ``rows``) before the last line, which is ``{"ok": true, "device": {...}}``.  Full
+and f32; K2 and K4 carry the serving rows under ``rows``; K2, K2 rank 3
+and K4 count their phase-2f slab launches) before the last line, which is ``{"ok": true, "device": {...}}``.  Full
 results go to ``build/chip_smoke.json``.  Exits non-zero, printing
 no result, when CUDA is missing or any check fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import itertools
@@ -228,6 +259,36 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+@contextlib.contextmanager
+def forced_budget(n_bytes: int):
+    """``CASPER_SLAB_BUDGET`` for whatever lowers inside (the plan key
+    carries it, so forced plans never collide with default ones)."""
+    old = os.environ.get("CASPER_SLAB_BUDGET")
+    os.environ["CASPER_SLAB_BUDGET"] = str(int(n_bytes))
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("CASPER_SLAB_BUDGET", None)
+        else:
+            os.environ["CASPER_SLAB_BUDGET"] = old
+
+
+def wall_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Median wall time of ``fn`` (which returns once its result is on
+    the host) over ``reps`` calls after ``warmup``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def randn(shape, dtype, gen):
     return torch.randn(shape, dtype=torch.float64, device="cuda",
                        generator=gen).to(dtype)
@@ -307,11 +368,14 @@ def main() -> int:
     t_start = time.time()
     from repro_torch import (CasperEngine, DOMAIN_SIZES, PAPER_PIPELINES,
                              PAPER_STENCILS, StencilPipeline)
+    from repro_torch.core import perfmodel as tpm
     from repro_torch.core import plan as tplan
     from repro_torch.core import ref as tref
+    from repro_torch.core import vm as tvm
     from repro_torch.kernels import _build
     from repro_torch.kernels import engine as keng
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import stream as kstream
     from repro_torch.kernels import swa as kswa
     from repro_torch.kernels import tune as ktune
     # the fuzz corpus's chains (by path: a site package may own `tests`)
@@ -675,6 +739,83 @@ def main() -> int:
     log(f"phase 1: {n_tuned} cases at the {len(tuned)} tuned tiles of the "
         f"main paths ({sorted({t for _, t in tuned})}), {n_sampled} at the "
         f"other candidates, max |err| {max_err} ({time.time() - t0:.1f}s)")
+    # slab windows (phase 2f's path): K2 of ranks 1-3 and K4 on the
+    # windows the slab executor builds on the card (DMAs of the mapped
+    # host rows from pinned memory, fill rows and ghosts on the device),
+    # each with its slab's origin inside a taller grid; every boundary
+    # mode, f64 and f32, under a budget of a few slabs and under one that
+    # makes the overlap deeper than a slab (slabs of 1-2 rows); each
+    # plan's first two, middle and last two slabs.  Each window is held
+    # bitwise against the oracle's pad_boundary of the whole grid
+    # (deep_halo wide on every dim) cut to the slab's rows, each slab
+    # against the kernel's plain version.
+    slab_specs = [(PAPER_STENCILS["jacobi1d"], (4099,)),
+                  (PAPER_STENCILS["blur2d"], (203, 97)),
+                  (PAPER_STENCILS["heat3d"], (70, 19, 45)),
+                  (PAPER_STENCILS["star33_3d"], (90, 40, 44)),
+                  (rd, (150, 66)), (ad, (150, 66))]
+    n_slab = 0
+    deep_slabs = 0
+    up = torch.cuda.Stream()
+    for spec0, shape in slab_specs:
+        for boundary, dtype in itertools.product(
+                BOUNDARIES, (torch.float64, torch.float32)):
+            spec = spec0.with_boundary(boundary)
+            host = randn(shape, dtype, gen).cpu()
+            pinned = host.pin_memory()
+            isz = host.element_size()
+            deep = tuple(4 * h for h in spec.halo)
+            padded = tref.pad_boundary(host, deep, spec.boundary_mode,
+                                       spec.boundary_value)
+            for budget in (host.numel() * isz,
+                           tpm.slab_resident_bytes(2, shape, deep, isz)):
+                with forced_budget(budget):
+                    plan = tplan.lower(spec, shape, dtype, backend="cuda",
+                                       sweeps=4)
+                if not plan.streams_from_host:
+                    failures.append(f"phase 1 slab {spec.name} {shape}: "
+                                    f"{plan.ghost_strategy} under {budget}")
+                    continue
+                k = len(plan.slabs)
+                for j in sorted({0, 1, k // 2, k - 2, k - 1} & set(range(k))):
+                    start, stop = plan.slabs[j]
+                    ov = plan.slab_overlap
+                    deep_slabs += stop - start < ov
+                    label = (f"phase 1 slab {spec.name} {boundary} {dtype} "
+                             f"{shape} slab {j}/{k} rows [{start}, {stop}) "
+                             f"overlap {ov}")
+                    w = kstream._empty_window(plan, stop - start + 2 * ov,
+                                              "cuda")
+                    up.wait_stream(torch.cuda.current_stream())  # the fill
+                    with torch.cuda.stream(up):
+                        kstream._upload(plan, pinned, w, start, stop, up)
+                    up.synchronize()
+                    if not torch.equal(w.cpu(),
+                                       padded[start:stop + 2 * ov]):
+                        failures.append(f"{label}: window != the padded "
+                                        "grid's rows")
+                        continue
+                    out_shape = (stop - start,) + tuple(shape[1:])
+                    origin = (start,) + (0,) * (spec.ndim - 1)
+                    fn, pfn = ((keng.pipeline_window_sweep,
+                                keng.pipeline_window_sweep_plain)
+                               if is_pipe(spec) else
+                               (keng.stencil_window_sweep,
+                                keng.stencil_window_sweep_plain))
+                    kname = "K4" if is_pipe(spec) else "K2"
+                    err = compare(kname, fn(spec, w, out_shape, origin, shape,
+                                            plan.tile, 4),
+                                  pfn(spec, w, out_shape, origin, shape,
+                                      plan.tile, 4), dtype, label)
+                    if tplan.streams(spec):
+                        max_err["K2 rank 3"] = max(max_err["K2 rank 3"], err)
+                    n_slab += 1
+    log(f"phase 1: {n_slab} slab-window cases (K2 ranks 1-3, K4; windows "
+        f"uploaded by DMA, {deep_slabs} with the overlap deeper than the "
+        f"slab), max |err| K2 {max_err['K2']}, K2 rank 3 "
+        f"{max_err['K2 rank 3']}, K4 {max_err['K4']}")
+    if not deep_slabs:
+        failures.append("phase 1 slab: no slab shallower than its overlap")
     # every launch so far: its tiles by kind, its load path, and its
     # shared memory (the C library's) against plan.smem_bytes
     tiles, stream_tiles = {}, {}
@@ -970,6 +1111,376 @@ def main() -> int:
         f"mixed_rd (77,301): {'phase 2: card' not in ' '.join(failures)}")
     if failures:
         raise SystemExit("phase 2 failed:\n" + "\n".join(failures))
+
+    # ---- phase 2f: grids past the device budget, streamed in slabs ------
+    t0 = time.time()
+    with open("/proc/meminfo") as fh:
+        mem = {line.split(":")[0]: int(line.split()[1]) * 1024
+               for line in fh if line.startswith(("MemTotal",
+                                                  "MemAvailable"))}
+    dev_free, dev_total = torch.cuda.mem_get_info()
+    log(f"phase 2f: host RAM {mem.get('MemTotal', 0) / 2**30:.1f} GiB, "
+        f"{mem.get('MemAvailable', 0) / 2**30:.1f} GiB available; device "
+        f"{dev_free / 2**30:.1f} of {dev_total / 2**30:.1f} GiB free | card "
+        f"{smi}")
+
+    def link_rates():
+        """The host link, 1 GiB pinned copies (median of 5): each way
+        alone, both at once on two streams (each way's bytes over the
+        pair's time), and the slab executor's pitched upload (rows of
+        8192 doubles into windows 8200 wide, ``casper_copy_box``)."""
+        n = 2 ** 27
+        hb = [torch.empty(n, dtype=torch.float64, pin_memory=True)
+              for _ in range(2)]
+        db = [torch.empty(n, dtype=torch.float64, device="cuda")
+              for _ in range(2)]
+        s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+        padded = torch.empty((n // 8192, 8200), dtype=torch.float64,
+                             device="cuda")
+
+        def both():
+            with torch.cuda.stream(s1):
+                db[0].copy_(hb[0], non_blocking=True)
+            with torch.cuda.stream(s2):
+                hb[1].copy_(db[1], non_blocking=True)
+
+        def pitched():
+            kstream._copy_rows(padded[:, 4:8196], hb[0].view(-1, 8192), s1)
+        gib = 2 ** 30
+        out = {
+            "h2d_Bps": gib / wall_ms(
+                lambda: db[0].copy_(hb[0], non_blocking=True), 5) * 1e3,
+            "d2h_Bps": gib / wall_ms(
+                lambda: hb[1].copy_(db[1], non_blocking=True), 5) * 1e3,
+            "both_each_Bps": gib / wall_ms(both, 5) * 1e3,
+            "pitched_h2d_Bps": gib / wall_ms(pitched, 5) * 1e3,
+        }
+        del hb, db, padded
+        torch.cuda.empty_cache()
+        return out
+
+    link = link_rates()
+    log(f"phase 2f: link (1 GiB pinned copies): H2D {link['h2d_Bps'] / 1e9:.2f}"
+        f" GB/s, D2H {link['d2h_Bps'] / 1e9:.2f} GB/s alone; both at once "
+        f"{link['both_each_Bps'] / 1e9:.2f} GB/s each way; pitched H2D "
+        f"(casper_copy_box) {link['pitched_h2d_Bps'] / 1e9:.2f} GB/s | card "
+        f"{smi}")
+    star = PAPER_STENCILS["star33_3d"].with_boundary("reflect")
+    star_shape = (80, 48, 56)
+    # (label, spec, shape, budget): every case sweeps=4, iters=10 (two
+    # blocks and a remainder of 2)
+    fcases = [
+        ("jacobi2d zero", PAPER_STENCILS["jacobi2d"], (32768, 32768),
+         2 * 2 ** 30),
+        ("jacobi2d periodic", PAPER_STENCILS["jacobi2d"].with_boundary(
+            "periodic"), (8192, 8192), 128 * 2 ** 20),
+        ("heat3d zero", PAPER_STENCILS["heat3d"], (1024, 512, 512),
+         512 * 2 ** 20),
+        ("reaction_diffusion2d", rd, (16384, 16384), 512 * 2 ** 20),
+        ("advect2d -> rd_react (staged)", nonfusable, (8192, 8192),
+         128 * 2 ** 20),
+        ("star33_3d reflect", star, star_shape,
+         tpm.slab_resident_bytes(4, star_shape, (8, 8, 8), 8)),
+    ]
+    hosts, wants = [], []
+    for label, spec, shape, budget in fcases:
+        g = randn(shape, torch.float64, gen)
+        host = torch.empty(shape, dtype=torch.float64, pin_memory=True)
+        host.copy_(g)
+        del g
+        # the same engine in core on the card, without the forced budget
+        want = CasperEngine(spec, backend="cuda", sweeps=4).run(host, 10)
+        wants.append(want.cpu())
+        hosts.append(host)
+        del want
+        torch.cuda.empty_cache()
+    log(f"phase 2f: inputs and in-core runs of {len(fcases)} cases in "
+        f"{time.time() - t0:.1f}s")
+    fresults = []
+    keng.reset_launches()
+    for (label, spec, shape, budget), host, want in zip(fcases, hosts,
+                                                        wants):
+        with forced_budget(budget):
+            eng = CasperEngine(spec, backend="cuda", sweeps=4)
+            plan = eng.plan_for(shape, torch.float64)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(keng.LAUNCHES)
+            t1 = time.perf_counter()
+            out = eng.run(host, iters=10)
+            torch.cuda.synchronize()
+            run_ms = (time.perf_counter() - t1) * 1e3
+            peak = torch.cuda.max_memory_allocated() - base
+            # a staged chain's slabs are its stage plans'
+            slab_plan = (plan if plan.streams_from_host
+                         else plan.stage_plan(0))
+            streams = plan.needs_host_streaming
+        staging = dict(kstream.LAST_RUN)
+        equal = out.device.type == "cpu" and torch.equal(out, want)
+        grid_bytes = host.numel() * 8
+        r = {"case": label, "spec": spec.name, "shape": list(shape),
+             "grid_bytes": grid_bytes, "budget": budget,
+             "strategy": plan.ghost_strategy,
+             "slabs": len(slab_plan.slabs or ()),
+             "slab_len": (slab_plan.slabs[0][1] - slab_plan.slabs[0][0]
+                          if slab_plan.slabs else None),
+             "overlap": slab_plan.slab_overlap, "tile": slab_plan.tile,
+             "bitwise_equal_in_core": equal,
+             "result_device": str(out.device), "peak_device_bytes": peak,
+             "run_ms": run_ms, "staging": staging,
+             "launches_per_run": {k: keng.LAUNCHES[k] - before[k]
+                                  for k in keng.LAUNCHES
+                                  if keng.LAUNCHES[k] != before[k]}}
+        fresults.append(r)
+        if not (equal and out.device.type == "cpu" and peak <= budget
+                and streams):
+            failures.append(f"phase 2f {label} {shape}: equal {equal}, "
+                            f"result on {out.device}, peak {peak} of "
+                            f"budget {budget}, {plan.ghost_strategy}")
+        del out
+    flaunches = dict(keng.LAUNCHES)
+    log(f"phase 2f: engine.run(iters=10, sweeps=4) on {len(fcases)} grids "
+        f"past their forced budgets; launches {flaunches}; "
+        f"{sum(r['bitwise_equal_in_core'] for r in fresults)}/{len(fresults)}"
+        " bitwise equal to the in-core run on the card")
+    if min(flaunches[k] for k in ("K2", "K4")) < 1:
+        failures.append(f"phase 2f: a kernel of the path never ran: "
+                        f"{flaunches}")
+    del wants
+    # the in-core decision's repairs, each grid just past a budget that
+    # the old rule (input and output of one grid) ran in core: a grid
+    # narrower than a window, whose K2 padded copy does not fit beside its
+    # input and output, and a batch whose grids fit one at a time but not
+    # together (run on the card a part of the batch at a time)
+    j2 = PAPER_STENCILS["jacobi2d"]
+    narrow = (1 << 20, 8)
+    rcases = [("jacobi2d zero, K2's padded copy", j2, narrow,
+               tpm.incore_resident_bytes(narrow, 8) + 32 * 2 ** 20),
+              ("jacobi2d reflect, batch of 8", j2.with_boundary("reflect"),
+               (8, 2048, 2048), None)]
+    rresults = []
+    for label, spec, shape, budget in rcases:
+        g = randn(shape, torch.float64, gen).cpu()
+        want = CasperEngine(spec, backend="cuda", sweeps=4).run(g, 10).cpu()
+        if budget is None:              # the in-core block of 3 grids
+            budget = tplan.incore_device_bytes(tplan.lower(
+                spec, shape[1:], torch.float64, backend="cuda", sweeps=4), 3)
+        torch.cuda.empty_cache()
+        with forced_budget(budget):
+            eng = CasperEngine(spec, backend="cuda", sweeps=4)
+            plan = eng.plan_for(shape[-2:], torch.float64)
+            on_host = tplan.stays_on_host(plan, g)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            out = eng.run(g, iters=10)
+            torch.cuda.synchronize()
+            run_ms = (time.perf_counter() - t1) * 1e3
+            peak = torch.cuda.max_memory_allocated() - base
+        equal = out.device.type == "cpu" and torch.equal(out, want)
+        r = {"case": label, "shape": list(shape), "budget": budget,
+             "grid_bytes": g.numel() * 8, "strategy": plan.ghost_strategy,
+             "slabs": len(plan.slabs or ()), "stays_on_host": on_host,
+             "bitwise_equal_in_core": equal, "peak_device_bytes": peak,
+             "run_ms": run_ms}
+        rresults.append(r)
+        log(f"  2f {label:30s} {str(tuple(shape)):18s} grid "
+            f"{r['grid_bytes'] / 2**20:.0f} MiB, budget "
+            f"{budget / 2**20:.1f} MiB: {plan.ghost_strategy}, "
+            f"{r['slabs']} slabs, on the host {on_host}, peak device "
+            f"{peak / 2**20:.1f} MiB, bitwise equal to in core {equal}, "
+            f"run(iters=10) {run_ms:.1f} ms | card {smi}")
+        if not (equal and on_host and peak <= budget):
+            failures.append(f"phase 2f {label} {shape}: equal {equal}, "
+                            f"on the host {on_host}, peak {peak} of budget "
+                            f"{budget}")
+        del g, want, out
+    # per case: one streamed block beside the host link and the in-core
+    # alternative (the grid up, the in-core block, the grid down)
+    for r, (label, spec, shape, budget), host in zip(fresults, fcases,
+                                                     hosts):
+        with forced_budget(budget):
+            plan = CasperEngine(spec, backend="cuda",
+                                sweeps=4).plan_for(shape, torch.float64)
+            traffic = kstream.host_device_traffic(plan, 4)
+            blocks = kstream._block_plans(plan, 4)
+            block_ms = wall_ms(
+                lambda: kstream.run_plan_streamed(plan, host, 4), 3)
+            issue_ms = kstream.LAST_RUN["issue_ms"]
+        in_plan = CasperEngine(spec, backend="cuda",
+                               sweeps=4).plan_for(shape, torch.float64)
+        back = torch.empty_like(host, pin_memory=True)
+        incore_ms = wall_ms(lambda: back.copy_(tplan.execute(
+            in_plan, host.to("cuda", non_blocking=True))), 3)
+        del back
+        torch.cuda.empty_cache()
+        dev_ms = 0.0
+        for p in blocks:
+            ops = (math.prod(shape) * p.sweeps
+                   * p.spec.structured_flops_per_point())
+            dev_ms += max(2 * r["grid_bytes"] / hbm_bw,
+                          ops / (peak_f64 / 2)) * 1e3
+        h2d_ms = traffic["slab_h2d_bytes"] / link["h2d_Bps"] * 1e3
+        d2h_ms = traffic["slab_d2h_bytes"] / link["d2h_Bps"] * 1e3
+        # the same with both directions at their rate when run together
+        both_ms = max(traffic["slab_h2d_bytes"], traffic["slab_d2h_bytes"]) \
+            / link["both_each_Bps"] * 1e3
+        r.update(block_ms=block_ms, h2d_bytes=traffic["slab_h2d_bytes"],
+                 d2h_bytes=traffic["slab_d2h_bytes"],
+                 h2d_GBps=traffic["slab_h2d_bytes"] / block_ms / 1e6,
+                 d2h_GBps=traffic["slab_d2h_bytes"] / block_ms / 1e6,
+                 link_bound_ms=max(h2d_ms, d2h_ms, dev_ms),
+                 link_bound_by=max((h2d_ms, "H2D"), (d2h_ms, "D2H"),
+                                   (dev_ms, "device"))[1],
+                 device_bound_ms=dev_ms, in_core_ms=incore_ms,
+                 link_bound_both_ms=max(both_ms, dev_ms), issue_ms=issue_ms)
+        log(f"  2f {label:30s} {str(tuple(shape)):18s} grid "
+            f"{r['grid_bytes'] / 2**20:.0f} MiB, budget "
+            f"{budget / 2**20:.1f} MiB: {r['slabs']} slabs of "
+            f"{r['slab_len']}, overlap {r['overlap']}, peak device "
+            f"{r['peak_device_bytes'] / 2**20:.1f} MiB | block "
+            f"{block_ms:.2f} ms (H2D {r['h2d_bytes'] / 2**20:.0f} MiB at "
+            f"{r['h2d_GBps']:.2f} GB/s, D2H {r['d2h_bytes'] / 2**20:.0f} MiB"
+            f" at {r['d2h_GBps']:.2f} GB/s) | link bound "
+            f"{r['link_bound_ms']:.2f} ms ({r['link_bound_by']}; device "
+            f"{dev_ms:.3f}; at the both-at-once rate {both_ms:.2f}), host "
+            f"issue {issue_ms:.2f} ms | in core (up, block, down) {incore_ms:.2f} ms | "
+            f"run(iters=10) {r['run_ms']:.1f} ms, pinning "
+            f"{r['staging']['pin_ms']:.1f} ms, staging "
+            f"{r['staging']['stage_ms']:.1f} ms | card {smi}")
+    # one traced block: an H2D copy must overlap a K2 launch and a D2H copy
+    from torch.profiler import ProfilerActivity, profile
+    t_label, t_spec, t_shape, t_budget = fcases[1]
+    with forced_budget(t_budget):
+        t_plan = tplan.lower(t_spec, t_shape, torch.float64, backend="cuda",
+                             sweeps=4)
+    t_traffic = kstream.host_device_traffic(t_plan)
+    kstream.execute_plan(t_plan, hosts[1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kstream.execute_plan(t_plan, hosts[1])
+        torch.cuda.synchronize()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    trace_path = os.path.join(ROOT, "build", "slab_trace.json")
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as fh:
+        events = [e for e in json.load(fh).get("traceEvents", [])
+                  if e.get("ph") == "X" and "dur" in e]
+
+    def spans(pred):
+        return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                for e in events if pred(e)]
+
+    def meet(a, b):
+        return a[0] < b[1] and b[0] < a[1]
+
+    h2d = spans(lambda e: e.get("cat") == "gpu_memcpy"
+                and "HtoD" in e.get("name", ""))
+    d2h = spans(lambda e: e.get("cat") == "gpu_memcpy"
+                and "DtoH" in e.get("name", ""))
+    k2 = spans(lambda e: e.get("cat") == "kernel"
+               and "casper_" in e.get("name", ""))
+    both = [h for h in h2d if any(meet(h, k) for k in k2)
+            and any(meet(h, d) for d in d2h)]
+
+    def busy(iv):
+        """Time (us) covered by the union of the intervals ``iv``."""
+        total, end = 0.0, -math.inf
+        for a, b in sorted(iv):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+    device = spans(lambda e: e.get("cat") in ("kernel", "gpu_memcpy",
+                                              "gpu_memset"))
+    span = (max(b for _, b in device) - min(a for a, _ in device)
+            if device else 0.0)
+    trace_info = {"case": t_label, "h2d_copies": len(h2d),
+                  "d2h_copies": len(d2h), "k2_launches": len(k2),
+                  "h2d_overlapping_k2_and_d2h": len(both),
+                  "k2_overlapping_h2d": sum(any(meet(k, h) for h in h2d)
+                                            for k in k2),
+                  "k2_overlapping_d2h": sum(any(meet(k, d) for d in d2h)
+                                            for k in k2),
+                  "span_ms": span / 1e3,
+                  "h2d_busy_ms": busy(h2d) / 1e3,
+                  "d2h_busy_ms": busy(d2h) / 1e3,
+                  "kernel_busy_ms": busy(k2) / 1e3,
+                  "h2d_bytes": t_traffic["slab_h2d_bytes"],
+                  "h2d_GBps_while_busy": t_traffic["slab_h2d_bytes"]
+                  / max(busy(h2d), 1e-9) / 1e3}
+    log(f"phase 2f: trace of one streamed block ({t_label} {t_shape}, "
+        f"{len(t_plan.slabs)} slabs): {trace_info}")
+    if not both:
+        failures.append(f"phase 2f: the trace shows no H2D copy overlapping "
+                        f"a K2 launch and a D2H copy: {trace_info}")
+    del hosts
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
+    torch.cuda.empty_cache()
+    log(f"phase 2f: {time.time() - t0:.1f}s")
+
+    # ---- phase 2g: backend="vm", the software SPU, on the card ----------
+    t0 = time.time()
+    vcases = [(n, s, DOMAIN_SIZES["L2"][s.ndim])
+              for n, s in PAPER_STENCILS.items()]
+    vcases += [(n, p, DOMAIN_SIZES["L2"][p.ndim])
+               for n, p in PAPER_PIPELINES.items()]
+    vresults = []
+    vm_err = 0.0
+    for (n, spec0, shape), boundary in itertools.product(vcases,
+                                                         BOUNDARIES):
+        spec = spec0.with_boundary(boundary)
+        g = randn(shape, torch.float64, gen)
+        out = CasperEngine(spec, backend="vm", sweeps=4).run(g, iters=6)
+        card_plan = tplan.lower(spec, shape, torch.float64, backend="vm",
+                                sweeps=4)
+        cpu_plan = tplan.lower(spec, shape, torch.float64, backend="vm",
+                               sweeps=4, device="cpu")
+        _, card_count = tvm.execute_plan(card_plan, g, 6)
+        cpu_out, cpu_count = tvm.execute_plan(cpu_plan, g.cpu(), 6)
+        want = CasperEngine(spec, backend="ref", sweeps=4).run(g, iters=6)
+        err = (out - want).abs().max().item()
+        vm_err = max(vm_err, err)
+        equal = torch.equal(out.cpu(), cpu_out)
+        same = card_count.as_dict() == cpu_count.as_dict()
+        vresults.append({"spec": n, "boundary": boundary,
+                         "shape": list(shape), "on": str(out.device),
+                         "bitwise_equal_cpu_vm": equal,
+                         "counters_equal": same,
+                         "max_abs_err_ref": err,
+                         "counters": card_count.as_dict()})
+        if not (equal and same and err <= 1e-12
+                and out.device.type == "cuda"):
+            failures.append(f"phase 2g {n} {boundary} {shape}: bitwise "
+                            f"{equal}, counters {same}, |vm - ref| {err}")
+    log(f"phase 2g: backend='vm' on the card, {len(vresults)} cases (each "
+        f"paper stencil and pipeline at its Table 3 L2 shape x "
+        f"{len(BOUNDARIES)} boundaries, iters=6): "
+        f"{sum(r['bitwise_equal_cpu_vm'] for r in vresults)} bitwise equal "
+        f"to the VM on the CPU, "
+        f"{sum(r['counters_equal'] for r in vresults)} with equal counters, "
+        f"max |vm - ref| {vm_err:.3g} (atol 1e-12) in "
+        f"{time.time() - t0:.1f}s")
+    speed, energy = tpm.speedup_table(), tpm.energy_table()
+    paper_model = {}
+    for n in speed:
+        for level in ("L2", "L3", "DRAM"):
+            paper_model[f"{n} {level}"] = {
+                "speedup_model": speed[n][level],
+                "speedup_paper": tpm.paper_speedup(n, level),
+                "energy_model": energy[n][level],
+                "energy_paper": tpm.paper_energy_ratio(n, level)}
+    log("phase 2g: model of the paper's machines (Table 2 CPU vs Casper; "
+        "not card numbers): speedup model/paper, energy model/paper: "
+        + "; ".join(f"{k} {v['speedup_model']:.2f}/{v['speedup_paper']:.2f},"
+                    f" {v['energy_model']:.2f}/{v['energy_paper']:.2f}"
+                    for k, v in paper_model.items()))
+    if failures:
+        raise SystemExit("phase 2f/2g failed:\n" + "\n".join(failures))
 
     # ---- phase 2c: sliding-window attention at gemma2-27b's width --------
     cfg = GEMMA2_LOCAL
@@ -1397,6 +1908,15 @@ def main() -> int:
                 f"({row['bound_by']}) | plain {row['plain_ms']:.2f} | "
                 f"library {row['library_ms']:.3f} | launches "
                 f"{row['launches']}")
+    # the slab executor's launches (phase 2f): K2 of 1-D/2-D specs and of
+    # stage slabs, K2 rank 3 (heat3d, star33_3d), K4 (rd)
+    for e in kernels:
+        n2f = sum(r["launches_per_run"].get(
+            "K4" if e["name"] == "K4" else "K2", 0) for r in fresults
+            if (len(r["shape"]) == 3) == (e["name"] == "K2 rank 3"))
+        if e["name"] in ("K2", "K2 rank 3", "K4"):
+            e["launches"] += n2f
+            e["launches_of"] += " and 2f (slabs)"
     # the other entries' launches in the serving path
     for e in kernels:
         kname, pred = {"K1": ("K1", flat), "K3": ("K3", flat),
@@ -1600,6 +2120,11 @@ def main() -> int:
                    "k5_details": k5_details, "kernels": kernels,
                    "copy_bw": copy_bw, "tuning": tuning,
                    "auto_cases": {k: v[2] for k, v in auto_runs.items()},
+                   "link": link, "slab_cases": fresults,
+                   "slab_launches": flaunches, "slab_trace": trace_info,
+                   "slab_repairs": rresults,
+                   "vm_cases": vresults, "paper_model": paper_model,
+                   "host_ram": mem,
                    "seconds": time.time() - t_start}, fh, indent=1)
     log(f"total {time.time() - t_start:.1f}s")
     print(smi)

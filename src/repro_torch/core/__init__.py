@@ -1,4 +1,5 @@
-"""Casper core of the PyTorch port: specs, torch oracle, plans, engine."""
+"""Casper core of the PyTorch port: specs, torch oracle, plans, the
+software SPU, engine."""
 from .stencil import (StencilSpec, StencilPipeline, PAPER_STENCILS,
                       PAPER_PIPELINES, DOMAIN_SIZES, jacobi1d,
                       jacobi2d, seven_point_1d, blur2d, heat3d, star33_3d,
@@ -13,6 +14,7 @@ from .streams import plan_streams, StreamPlan
 from .isa import (assemble, assemble_pipeline, assemble_any, decode, Instr,
                   Program, PipelineProgram)
 from .segment import SegmentConfig, access_counts, remote_fraction
+from .vm import SpuVM, run_program
 from .engine import CasperEngine
 
 __all__ = [
@@ -25,7 +27,7 @@ __all__ = [
     "apply_stencil", "run_iterations", "pad_boundary",
     "plan_streams", "StreamPlan",
     "assemble", "assemble_pipeline", "assemble_any", "decode", "Instr",
-    "Program", "PipelineProgram",
+    "Program", "PipelineProgram", "SpuVM", "run_program",
     "SegmentConfig", "access_counts", "remote_fraction", "CasperEngine",
     "ExecutionPlan", "PLAN_CACHE", "PlanCache", "lower", "plan_cache_stats",
     "execute", "run_plan", "ghost_strategy_for",

@@ -20,8 +20,16 @@ runs ``sweeps`` applications of the whole stage chain per fused block
 (K3/K4), or, for a chain that mixes periodic with non-periodic stages,
 one single-sweep K1/K2 launch per stage.
 
-Backends: ``"ref"`` (the torch oracle chain) and ``"cuda"`` (the fused
-hand-written kernels K1-K4; on a CPU device their plain versions run).
+Backends: ``"ref"`` (the torch oracle chain), ``"cuda"`` (the fused
+hand-written kernels K1-K4; on a CPU device their plain versions run)
+and ``"vm"`` (the software SPU, :mod:`repro_torch.core.vm`, in torch on
+the engine's device).  A grid whose block would not fit the device
+budget (``CASPER_SLAB_BUDGET``, default the H100's 80 GB; the block's
+input, output and any padded copy count) stays on the host and streams
+through the device in slabs (:mod:`repro_torch.kernels.stream`); so does
+a batch whose blocks fit one grid at a time but not together, which then
+runs on the device a part of the batch at a time.  ``run`` then returns
+a CPU tensor.
 ``tile=None`` takes the default Hopper tile, fitted to a small grid;
 ``tile="auto"`` ranks the candidate tiles by the Hopper cost model once
 per plan (:mod:`repro_torch.kernels.tune`,
@@ -36,7 +44,6 @@ from __future__ import annotations
 import functools
 from typing import Literal, Sequence
 
-import numpy as np
 import torch
 
 from . import plan as _plan
@@ -68,8 +75,6 @@ class CasperEngine:
     ):
         if sweeps < 1:
             raise ValueError(f"sweeps must be >= 1, got {sweeps}")
-        if backend == "vm":
-            raise _plan.not_ported("vm")
         if backend not in _plan.BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
         self.spec = spec
@@ -99,16 +104,13 @@ class CasperEngine:
             sweeps=self.sweeps if sweeps is None else sweeps,
             tile=self.tile, device=self.device)
 
-    def _on_device(self, grid) -> torch.Tensor:
-        if isinstance(grid, np.ndarray):
-            grid = torch.from_numpy(np.ascontiguousarray(grid))
-        return grid.to(self.device).contiguous()
-
     def step(self, grid) -> torch.Tensor:
-        """One fused block: ``self.sweeps`` stencil applications."""
-        g = self._on_device(grid)
-        return _plan.execute(
-            self.plan_for(_plan._grid_shape_for(self.spec, g), g.dtype), g)
+        """One fused block: ``self.sweeps`` stencil applications (on the
+        host, slab by slab, for a grid past the budget, as :meth:`run`)."""
+        plan, g = _plan.place(self.spec, grid, self.backend, self.sweeps,
+                              _plan.canonical_tile_request(self.tile),
+                              _plan.canonical_device(self.device))
+        return _plan.execute(plan, g)
 
     @functools.cached_property
     def _run(self):
@@ -122,8 +124,18 @@ class CasperEngine:
         """``iters`` total stencil applications (fused ``sweeps`` at a
         time, plus one narrower remainder block).  ``grid`` is a numpy
         array or a tensor, optionally with one leading batch dim; the
-        result is a tensor on the engine's device."""
-        return self._run(self._on_device(grid), iters)
+        result is a tensor on the engine's device.
+
+        A grid whose block would not fit the device budget is never
+        copied to the device whole: it streams from the host in slabs,
+        and the result is a CPU tensor (in pinned memory on a CUDA
+        engine).  A CUDA tensor past the budget is first copied to the
+        host.  ``CASPER_SLAB_BUDGET`` (bytes) lowers the budget, which
+        forces streaming on a grid that would fit.  The budget holds for
+        the whole batch: a batch whose grids fit one at a time but not
+        together stays on the host and runs a part at a time, its result
+        a CPU tensor too."""
+        return self._run(grid, iters)
 
     def analyze(self, *args, **kwargs):
         raise _plan.not_ported("verify")

@@ -1,24 +1,43 @@
-"""The Hopper constants that lowering reads, and the tile cost model.
+"""The Hopper constants that lowering reads, the tile cost model, the
+slab-streaming budget, and the paper's analytic model.
 
-Ported here: the budgets :func:`repro_torch.core.plan.lower` and the
-kernel wrappers' launch geometry consult, the measured calibration
-(``CASPER_CALIBRATION``, the reference's ``perfmodel.py:253-334``) and
-the Hopper tile cost of the kernels K1-K4 as ``csrc/stencil.cu`` builds
-them (:func:`cuda_tile_cost`, :func:`cuda_pipeline_tile_cost`), which
-ranks tiles for ``tile="auto"`` (:mod:`repro_torch.kernels.tune`).  The
-Casper/CPU/GPU analytic model of ``repro.core.perfmodel`` (Tables 4-6)
-waits for ROADMAP Queue 1 item 11.
+Three parts, each on its own machine:
+
+* **The H100 this port runs on** (every ``H100_*`` name): the budgets
+  :func:`repro_torch.core.plan.lower` and the kernel wrappers' launch
+  geometry consult, the measured calibration (``CASPER_CALIBRATION``,
+  the reference's ``perfmodel.py:253-334``) and the Hopper tile cost of
+  the kernels K1-K4 as ``csrc/stencil.cu`` builds them
+  (:func:`cuda_tile_cost`, :func:`cuda_pipeline_tile_cost`), which ranks
+  tiles for ``tile="auto"`` (:mod:`repro_torch.kernels.tune`).
+* **The device budget** (``CASPER_SLAB_BUDGET``): the in-core rule
+  (:func:`incore_resident_bytes`) and the slab executor's resident set
+  (:func:`slab_resident_bytes`, :func:`max_slab_len`), the reference's
+  ``perfmodel.py:358-393`` counted for the port's executor
+  (:mod:`repro_torch.kernels.stream`).
+* **The paper's modeled machines** (Table 2's CPU with Casper's SPUs in
+  its LLC, the Titan V GPU of §7.1 and the HMC PIMS of §8.4): the
+  first-order model behind Figures 10-13 and Tables 5-6
+  (:func:`cpu_sweep`, :func:`casper_sweep`, :func:`gpu_sweep`,
+  :func:`pims_sweep`, :func:`speedup_table`, :func:`energy_table`),
+  copied from ``repro.core.perfmodel`` (``:28-207``, ``:750-847``) float
+  for float.  Its constants describe those machines, never the H100.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
 import os
 
-#: H100 SXM device memory, 80 GB (NVIDIA H100 data sheet).  A grid larger
-#: than this (or than ``CASPER_SLAB_BUDGET``) would need out-of-core slab
-#: streaming, which the port does not have yet (ROADMAP Queue 1 item 7).
+from .isa import Program, assemble
+from .segment import SegmentConfig, remote_fraction
+from .stencil import DOMAIN_SIZES, PAPER_STENCILS, StencilSpec
+
+#: H100 SXM device memory, 80 GB (NVIDIA H100 data sheet): the default
+#: device budget.  A block whose device set (:func:`incore_resident_bytes`)
+#: exceeds it, or ``CASPER_SLAB_BUDGET``, streams from the host in slabs.
 H100_HBM_BYTES = 80 * 10 ** 9
 
 #: H100 SXM HBM3 bandwidth, 3.35 TB/s (NVIDIA H100 data sheet).
@@ -67,6 +86,95 @@ def slab_budget_bytes() -> int:
     if budget < 1:
         raise ValueError(f"{SLAB_BUDGET_ENV} must be >= 1 byte, got {raw!r}")
     return budget
+
+
+#: The CUDA caching allocator's accounting (what
+#: ``torch.cuda.memory_allocated`` counts): every block is a whole number
+#: of 512-byte granules, and a block of more than 1 MiB is cut from a
+#: larger cached one only when more than 1 MiB would remain, so it may
+#: carry up to 1 MiB more than asked for.
+ALLOC_GRANULE = 512
+ALLOC_SPLIT = 2 ** 20
+
+
+def _allocated(n_bytes: int) -> int:
+    """The most the allocator counts for a request of ``n_bytes``."""
+    n = -(-int(n_bytes) // ALLOC_GRANULE) * ALLOC_GRANULE
+    return n + ALLOC_SPLIT if n > ALLOC_SPLIT else n
+
+
+def incore_resident_bytes(shape, itemsize: int, pad=None,
+                          extra: int = 0) -> int:
+    """Device bytes one in-core block allocates at once, each tensor
+    counted as the allocator may count it (:func:`_allocated`): the input
+    grid, the output grid and, where the block pads (``pad``: the ghost
+    widths per dim of the ``pad_boundary`` copy K2/K4 read, or the
+    oracle's per-application pad), the padded copy; plus ``extra`` more
+    tensors the block holds beside them (the oracle's temporaries, a
+    staged chain's block input), each counted at the padded copy's size
+    (the grid's without ``pad``), which bounds every one of them.  The
+    reference compares the grid alone with its budget (``plan.py:558``),
+    so a grid between half the budget and the budget was judged to fit
+    and then could not."""
+    n = math.prod(shape)
+    grid = _allocated(n * itemsize)
+    padded = grid if pad is None else _allocated(
+        math.prod(m + 2 * p for m, p in zip(shape, pad)) * itemsize)
+    return 2 * grid + (0 if pad is None else padded) + extra * padded
+
+
+def _slab_row_bytes(shape: tuple[int, ...], deep_halo: tuple[int, ...],
+                    itemsize: int) -> int:
+    """Bytes of one outermost-axis row of a slab window: dims 1.. ride
+    along whole, ghost-padded ``deep_halo[d]`` on each side."""
+    row = itemsize
+    for d in range(1, len(shape)):
+        row *= shape[d] + 2 * deep_halo[d]
+    return row
+
+
+def slab_resident_bytes(slab_len: int, shape: tuple[int, ...],
+                        deep_halo: tuple[int, ...], itemsize: int,
+                        extra: int = 0) -> int:
+    """Device bytes the slab executor (:mod:`repro_torch.kernels.stream`)
+    allocates for slabs of ``slab_len`` rows: a ring of two windows
+    (``slab_len + 2*deep_halo[0]`` outermost rows, dims 1.. ghost-padded;
+    slab ``k+1`` uploads into one while K2/K4 reads slab ``k`` from the
+    other) and a ring of two output slabs (slab ``k`` is written into one
+    while slab ``k-1`` downloads from the other), one tensor per ring,
+    plus ``extra`` window-sized temporaries the slab's compute holds (0
+    for K2/K4, which write into the ring; the oracle's window core for
+    ``backend="ref"`` holds several), each counted as the allocator may
+    count it (:func:`_allocated`).
+
+    The reference counts ``2*window + out`` (``perfmodel.py:372``): its
+    download of slab ``k-1`` is a blocking ``np.asarray`` that frees that
+    output before slab ``k+1`` is staged.  Here the download runs on a
+    stream of its own beside the upload and the kernel, so the output it
+    reads stays allocated while the next one is written."""
+    row = _slab_row_bytes(shape, deep_halo, itemsize)
+    window = (slab_len + 2 * deep_halo[0]) * row
+    out_bytes = slab_len * itemsize * math.prod(shape[1:])
+    return (_allocated(2 * window) + _allocated(2 * out_bytes)
+            + extra * _allocated(window))
+
+
+def max_slab_len(shape: tuple[int, ...], deep_halo: tuple[int, ...],
+                 itemsize: int, budget: int, extra: int = 0) -> int:
+    """Largest outermost slab length whose resident set
+    (:func:`slab_resident_bytes`, which grows with the length) fits
+    ``budget``, clamped to 1 (a single-row slab cannot shrink, so a
+    budget below even that still streams row by row) and to the grid's
+    extent."""
+    lo, hi = 1, int(shape[0])
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if slab_resident_bytes(mid, shape, deep_halo, itemsize,
+                               extra) <= budget:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
 
 
 # ----------------------------------------------------------------------------
@@ -322,3 +430,291 @@ def _cuda_cost(spec, shape, tile, sweeps, itemsize) -> float:
                            for n, h in zip(shape, spec.halo))
         cost += share * launch + (math.prod(shape) + padded) * itemsize / bw
     return cost
+
+
+# ============================================================================
+# The paper's modeled machines (paper §7, Table 2) — not the H100
+# ============================================================================
+# The first-order bottleneck model behind the paper's Figures 10-13 and
+# Tables 5-6, copied from ``repro.core.perfmodel`` float for float.  The
+# paper evaluates Casper in gem5; this model re-derives its results from
+# Table 2's constants.  Every constant below describes one of the paper's
+# machines — a 16-core 2 GHz CPU whose LLC slices each hold one SPU, the
+# NVIDIA Titan V of §7.1, the HMC PIMS of §8.4 — and none is this port's
+# card (the H100's are the ``H100_*`` names above).  Units: seconds,
+# bytes, Joules; one "sweep" is one stencil application over the grid.
+
+# Paper CPU (Table 2)
+FREQ = 2.0e9                     # 2 GHz
+N_CORES = 16
+N_SPUS = 16
+N_SLICES = 16
+VEC_ELEMS = 8                    # 512-bit SIMD / f64
+ELEM = 8                         # bytes per element (double)
+LINE = 64                        # bytes per cache line
+
+# Paper CPU: peak f64 FLOP/s, the paper's Fig. 1 horizontal line.
+CPU_PEAK_FLOPS = 537.6e9
+# Fig. 1: all stencils achieve <20% of peak; stencil compute retires at a
+# fraction of peak even when not memory-bound. CALIBRATED to Fig. 1 / [42].
+CPU_COMPUTE_EFFICIENCY = 0.25
+
+# Paper CPU cache capacities.
+L1_BYTES = 32 * 1024
+L2_BYTES = 256 * 1024            # per core
+LLC_BYTES = 32 * 1024 * 1024     # shared, 16 slices x 2 MB
+
+# Paper CPU aggregate bandwidths (derived from Table 2 port widths).
+L2_BW = N_CORES * 64 * FREQ      # 2048 GB/s: 1 load port x 64 B x 16 cores
+LLC_CPU_BW = N_SLICES * 64 * FREQ / 2.0   # CPU-side LLC bw; /2 CALIBRATED
+                                          # (NoC round-trip + MSHR limits)
+LLC_LOCAL_BW = N_SLICES * 64 * FREQ       # SPU-side: local slice, no NoC
+DRAM_BW = 4 * 25.6e9             # 4 x DDR4-3200 channels
+
+# Paper CPU and SPU energies (Table 2).
+E_CPU_INSTR = 0.08e-9
+E_SPU_INSTR = 0.016e-9
+E_L1_HIT, E_L1_MISS = 15e-12, 33e-12
+E_L2_HIT, E_L2_MISS = 46e-12, 93e-12
+E_L3_HIT, E_L3_MISS = 945e-12, 1904e-12
+E_DRAM = 160e-9                  # per 64 B read/write
+
+# Paper Casper: remote-slice service penalty for SPU loads, in cycles of
+# extra occupancy per remote vector load (NoC hop + remote slice port
+# contention, partially hidden by the 10-entry load queue). CALIBRATED to
+# Table 5 3-D rows.
+REMOTE_PENALTY_CYCLES = 10.0
+
+# Paper GPU (Titan V, §7.1/§8.3): 652.8 GB/s HBM2, 7.45 f64 TFLOP/s,
+# 815 mm^2 — the paper's baseline GPU, not the H100.
+GPU_BW = 652.8e9
+GPU_PEAK_FLOPS = 7.45e12
+GPU_AREA_MM2 = 815.0
+GPU_LAUNCH_S = 3.3e-6            # kernel launch + sync floor; CALIBRATED to
+                                 # Table 5 GPU L2 rows (~4k cycles @ 1.2 GHz)
+GPU_FREQ = 1.2e9                 # for converting Table 5 GPU cycles
+
+# Paper Casper hardware additions (§8.6): 16 SPUs + unaligned-load logic.
+CASPER_AREA_MM2 = 16 * 0.146 + 16 * 0.14   # = 4.58 (paper rounds to 4.65)
+
+# Paper PIMS (§8.4): performance bounded by HMC atomic-op throughput
+# [156,157]. CALIBRATED so cache-resident speedup averages ~5.5x (Fig. 13).
+PIMS_ATOMICS_PER_S = 35e9
+PIMS_INTERNAL_BW = 320e9         # HMC internal bandwidth for streaming
+
+# Baseline-CPU pathologies reported in §8.1 that a first-order model cannot
+# derive: the Blur2D DRAM dataset suffers prefetcher-induced evictions (LLC
+# hit rate 2%, 4x more DRAM accesses). Taken from the paper's own analysis.
+CPU_DRAM_TRAFFIC_FACTOR = {"blur2d": 4.0}
+
+
+def _dataset_level(spec: StencilSpec, shape: tuple[int, ...]) -> str:
+    n_bytes = 2 * math.prod(shape) * ELEM          # in + out arrays
+    if n_bytes <= N_CORES * L2_BYTES:
+        return "L2"
+    if n_bytes <= LLC_BYTES:
+        return "L3"
+    return "DRAM"
+
+
+@functools.lru_cache(maxsize=256)
+def _remote_fraction(spec: StencilSpec, shape: tuple[int, ...],
+                     seg: SegmentConfig) -> float:
+    """:func:`repro_torch.core.segment.remote_fraction`, memoized: it walks
+    every access of the grid, and each table asks for every cell twice."""
+    return remote_fraction(spec, shape, seg)
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepCost:
+    """One modeled sweep on one of the paper's machines."""
+
+    seconds: float
+    energy_j: float
+    bottleneck: str
+    detail: dict
+
+    @property
+    def cycles(self) -> float:
+        return self.seconds * FREQ
+
+
+def cpu_sweep(spec: StencilSpec, shape: tuple[int, ...]) -> SweepCost:
+    """One sweep on the paper's baseline CPU (Table 2)."""
+    n = math.prod(shape)
+    level = _dataset_level(spec, shape)
+    flops = 2.0 * spec.n_taps * n
+    t_compute = flops / (CPU_PEAK_FLOPS * CPU_COMPUTE_EFFICIENCY)
+
+    # Streaming traffic: read input once, write + write-allocate output.
+    traffic = 3.0 * n * ELEM
+    times = {"compute": t_compute}
+    if level == "L2":
+        times["L2"] = traffic / L2_BW
+    elif level == "L3":
+        times["L2"] = traffic / L2_BW
+        times["LLC"] = traffic / LLC_CPU_BW
+    else:
+        dram_traffic = traffic * CPU_DRAM_TRAFFIC_FACTOR.get(spec.name, 1.0)
+        times["L2"] = traffic / L2_BW
+        times["LLC"] = traffic / LLC_CPU_BW
+        times["DRAM"] = dram_traffic / DRAM_BW
+    bottleneck = max(times, key=times.get)
+    seconds = times[bottleneck]
+
+    # Energy: per-element L1 work + line-granular traffic down the hierarchy.
+    loads_stores = (spec.n_taps + 1) * n
+    instrs = 1.4 * loads_stores          # ld/st + MAC + loop overhead mix;
+                                         # CALIBRATED to Table 4 CPU rows
+    lines = traffic / LINE
+    energy = instrs * E_CPU_INSTR + loads_stores * E_L1_HIT
+    if level in ("L3", "DRAM"):
+        energy += lines * (E_L2_MISS + E_L3_HIT)
+    else:
+        energy += lines * E_L2_HIT
+    if level == "DRAM":
+        dram_lines = lines * CPU_DRAM_TRAFFIC_FACTOR.get(spec.name, 1.0)
+        energy += dram_lines * (E_L3_MISS - E_L3_HIT) + dram_lines * E_DRAM
+    return SweepCost(seconds, energy, bottleneck,
+                     {"level": level, "times": times, "instrs": instrs})
+
+
+def casper_sweep(
+    spec: StencilSpec,
+    shape: tuple[int, ...],
+    program: Program | None = None,
+    seg: SegmentConfig | None = None,
+    unaligned_hw: bool = True,
+) -> SweepCost:
+    """One sweep on the paper's Casper (16 SPUs in the LLC slices)."""
+    n = math.prod(shape)
+    level = _dataset_level(spec, shape)
+    program = program or assemble(spec)
+    seg = seg or SegmentConfig()
+    n_instr = program.n_instrs
+
+    vectors = n / VEC_ELEMS
+    loads = program.loads_per_vector()
+    vec_loads = loads["with_casper"] if unaligned_hw else loads["without_casper"]
+
+    # Issue/bandwidth term: the SPU pipeline retires one vector op per cycle
+    # and its local slice supplies one 64 B window per cycle -> the two rates
+    # are matched by construction (§3.1), so cycles/vector = max(instr, loads).
+    cyc_per_vec = max(n_instr, vec_loads)
+
+    # Remote-slice accesses (only at block boundaries under the linear hash).
+    rf = _remote_fraction(spec, tuple(shape), seg)
+    cyc_per_vec += rf * vec_loads * REMOTE_PENALTY_CYCLES
+
+    t_spu = vectors * cyc_per_vec / (N_SPUS * FREQ)
+    times = {"spu": t_spu}
+    traffic = 3.0 * n * ELEM
+    if level == "DRAM":
+        times["DRAM"] = traffic / DRAM_BW
+    bottleneck = max(times, key=times.get)
+    seconds = times[bottleneck]
+
+    # Energy: SPU instructions + per-element LLC accesses (+ DRAM fills).
+    llc_accesses = (n_instr + 1) * n     # every tap load + the output store
+    energy = (vectors * n_instr * N_SPUS / N_SPUS) * E_SPU_INSTR \
+        + llc_accesses * E_L3_HIT
+    if level == "DRAM":
+        energy += (traffic / LINE) * (E_L3_MISS - E_L3_HIT + E_DRAM)
+    return SweepCost(seconds, energy, bottleneck,
+                     {"level": level, "times": times,
+                      "remote_fraction": rf, "cyc_per_vec": cyc_per_vec})
+
+
+def gpu_sweep(spec: StencilSpec, shape: tuple[int, ...]) -> SweepCost:
+    """One sweep on the paper's Titan V."""
+    n = math.prod(shape)
+    traffic = 3.0 * n * ELEM
+    t = max(GPU_LAUNCH_S, traffic / GPU_BW,
+            2.0 * spec.n_taps * n / GPU_PEAK_FLOPS)
+    bottleneck = "launch" if t == GPU_LAUNCH_S else "HBM"
+    return SweepCost(t, float("nan"), bottleneck, {})
+
+
+def pims_sweep(spec: StencilSpec, shape: tuple[int, ...]) -> SweepCost:
+    """One sweep on the paper's HMC PIMS."""
+    n = math.prod(shape)
+    atomics = spec.n_taps * n            # one atomic MAC-equivalent per tap
+    t_atomic = atomics / PIMS_ATOMICS_PER_S
+    t_bw = 3.0 * n * ELEM / PIMS_INTERNAL_BW
+    t = max(t_atomic, t_bw)
+    return SweepCost(t, float("nan"),
+                     "atomics" if t == t_atomic else "internal_bw", {})
+
+
+def speedup_table() -> dict[str, dict[str, float]]:
+    """Fig. 10: Casper speedup over the CPU baseline, per stencil x level
+    (the paper's machines, modeled)."""
+    out: dict[str, dict[str, float]] = {}
+    for name, spec in PAPER_STENCILS.items():
+        out[name] = {}
+        for level in ("L2", "L3", "DRAM"):
+            shape = DOMAIN_SIZES[level][spec.ndim]
+            out[name][level] = (cpu_sweep(spec, shape).seconds
+                                / casper_sweep(spec, shape).seconds)
+    return out
+
+
+def energy_table() -> dict[str, dict[str, float]]:
+    """Fig. 11: Casper energy normalized to the CPU baseline (the paper's
+    machines, modeled)."""
+    out: dict[str, dict[str, float]] = {}
+    for name, spec in PAPER_STENCILS.items():
+        out[name] = {}
+        for level in ("L2", "L3", "DRAM"):
+            shape = DOMAIN_SIZES[level][spec.ndim]
+            out[name][level] = (casper_sweep(spec, shape).energy_j
+                                / cpu_sweep(spec, shape).energy_j)
+    return out
+
+
+# The paper's reported results for validation (Table 5 cycles -> speedups).
+PAPER_TABLE5_CYCLES = {
+    # stencil: {level: (cpu, gpu, casper)}
+    "jacobi1d": {"L2": (13358, 4030, 4569), "L3": (95251, 36134, 33220),
+                 "DRAM": (3838447, 135360, 4370993)},
+    "7pt1d": {"L2": (14702, 4108, 8449), "L3": (125138, 36594, 66393),
+              "DRAM": (5715526, 139320, 4514872)},
+    "jacobi2d": {"L2": (26457, 4646, 7658), "L3": (178032, 37248, 58734),
+                 "DRAM": (8720011, 140160, 3931701)},
+    "blur2d": {"L2": (95428, 6950, 55764), "L3": (742734, 41318, 446300),
+               "DRAM": (22729495, 153480, 5454431)},
+    "heat3d": {"L2": (39029, 5184, 29572), "L3": (296436, 36633, 286675),
+               "DRAM": (7986968, 140856, 6784185)},
+    "star33_3d": {"L2": (115884, 6758, 100243), "L3": (1009021, 52491,
+                                                       1385955),
+                  "DRAM": (9060219, 278784, 13420984)},
+}
+
+PAPER_TABLE6_ENERGY = {
+    "jacobi1d": {"L2": (0.00012, 0.000468), "L3": (0.00113, 0.00341),
+                 "DRAM": (0.2631221, 0.3114322)},
+    "7pt1d": {"L2": (0.000144, 0.000629), "L3": (0.00145, 0.00469),
+              "DRAM": (0.28253, 0.59888)},
+    "jacobi2d": {"L2": (0.000256, 0.00073), "L3": (0.002, 0.0055),
+                 "DRAM": (0.3483945, 0.8809648)},
+    "blur2d": {"L2": (0.0009, 0.0015), "L3": (0.0075, 0.0118),
+               "DRAM": (0.64639877, 1.19655244)},
+    "heat3d": {"L2": (0.000386, 0.001737), "L3": (0.003364, 0.014002),
+               "DRAM": (0.469465, 1.4752518)},
+    "star33_3d": {"L2": (0.0011542, 0.0028739), "L3": (0.010266, 0.027749),
+                  "DRAM": (0.4424779, 1.8090142)},
+}
+
+# NOTE: Table 5/6 cycle & energy counts are for the benchmark's full run
+# (multiple sweeps + setup); we validate on *ratios* (speedup, normalized
+# energy), which cancel the sweep count.
+
+
+def paper_speedup(stencil: str, level: str) -> float:
+    cpu, _, casper = PAPER_TABLE5_CYCLES[stencil][level]
+    return cpu / casper
+
+
+def paper_energy_ratio(stencil: str, level: str) -> float:
+    cpu, casper = PAPER_TABLE6_ENERGY[stencil][level]
+    return casper / cpu

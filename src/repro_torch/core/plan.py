@@ -3,17 +3,22 @@
 The counterpart of ``repro.core.plan`` for one device.
 ``lower(spec, shape, dtype, *, backend, sweeps, tile, device)`` resolves,
 once, everything a backend needs — the tap factorization, the
-boundary-ghost strategy, the tile, the halo depth and the assembled SPU
-program — and memoizes the frozen plan in the process-wide
-:data:`PLAN_CACHE`.  ``spec`` is a :class:`StencilSpec` or a
-:class:`StencilPipeline`; a pipeline's fetched halo is the per-dim sum of
+boundary-ghost strategy, the tile, the halo depth, the slab cover of a
+grid past the device budget and the assembled SPU program — and
+memoizes the frozen plan in the process-wide :data:`PLAN_CACHE`.
+``spec`` is a :class:`StencilSpec` or a :class:`StencilPipeline`; a
+pipeline's fetched halo is the per-dim sum of
 its stage radii, and a chain that mixes periodic with non-periodic
 stages lowers ``fused=False`` to the ``"staged"`` strategy (one
 single-sweep stage plan per stage).  The backends are thin executors of
 the plan: ``repro_torch.core.ref.execute_plan`` (``"ref"``, the torch
-oracle) and ``repro_torch.kernels.engine.execute_plan`` (``"cuda"``, the
+oracle), ``repro_torch.kernels.engine.execute_plan`` (``"cuda"``, the
 hand-written kernels K1-K4 on a CUDA tensor, their plain versions on a
-CPU tensor).
+CPU tensor), ``repro_torch.core.vm.execute_plan`` (``"vm"``, the
+software SPU on the tensor's device) and, for a grid past the device
+budget, ``repro_torch.kernels.stream.execute_plan`` (the slab executor:
+the grid stays on the host and streams through the device in slabs on
+K2/K4 or the oracle's window core).
 
 Differences from the reference, by design:
 
@@ -27,12 +32,27 @@ Differences from the reference, by design:
   explicit tile that does not fit — or a chain for which no tile fits,
   or whose taps exceed the kernels' argument pools — is refused here, at
   lowering time, on every device;
-* ``lax.scan`` over the fused blocks is a Python loop.
+* ``lax.scan`` over the fused blocks is a Python loop;
+* the in-core decision charges a block's whole device set against the
+  budget (``perfmodel.incore_resident_bytes``): the input, the output
+  and, where the block pads (K2/K4's ``pad_boundary`` copy, or the
+  oracle's per-application pad), the padded copy; the oracle
+  (``"ref"``) also its temporaries and a staged chain its block's input
+  (:func:`incore_device_bytes`).  The reference charges the grid alone
+  (``plan.py:558``), so a grid between half the budget and the budget
+  was judged to fit and ran the card out of memory.  A grid past it
+  streams; the slabs' resident set is the port executor's
+  (``perfmodel.slab_resident_bytes``: rings of two windows and two
+  outputs, and the oracle window core's temporaries).  The decision is
+  the plan's alone: the runner lowers once and places the grid by it
+  (:func:`place`), frees its own device copy once the first block has
+  read it (:func:`run_owned`), and charges a leading batch whole
+  (:func:`stays_on_host`: a batch that fits one grid at a time but not
+  together runs in core a part at a time).
 
 What the port does not have yet raises ``NotImplementedError`` naming
-its ROADMAP item: grids past the device budget that would stream from
-the host (item 7), ``mesh`` (item 9), strict static verification (item
-10) and ``backend="vm"`` (item 11).
+its ROADMAP item: ``mesh`` (item 9) and strict static verification
+(item 10).
 """
 from __future__ import annotations
 
@@ -53,8 +73,9 @@ from .stencil import (Factorization, StencilPipeline, StencilSpec, as_stages,
                       factor_taps)
 
 #: The execution layers a plan can target: ``"ref"`` is the torch oracle
-#: chain, ``"cuda"`` the fused hand-written kernels.
-BACKENDS = ("ref", "cuda")
+#: chain, ``"cuda"`` the fused hand-written kernels, ``"vm"`` the
+#: software SPU (:mod:`repro_torch.core.vm`).
+BACKENDS = ("ref", "cuda", "vm")
 
 #: Backends that lower to a fused kernel (resolved tile, ghost strategy).
 KERNEL_BACKENDS = ("cuda",)
@@ -64,10 +85,16 @@ KERNEL_BACKENDS = ("cuda",)
 #: ``"pad-free"`` (K1/K3: windows loaded straight from the unpadded grid
 #: through the boundary index map), ``"padded-window"`` (K2/K4: windows
 #: read from one ``pad_boundary`` copy — grids smaller than one window,
-#: and periodic grids past the whole-grid budget) and ``"staged"``
-#: (non-fusable pipelines: the chain runs stage by stage through cached
-#: single-sweep stage plans, each choosing its own strategy).
-GHOST_STRATEGIES = ("pad", "pad-free", "padded-window", "staged")
+#: and periodic grids past the whole-grid budget), ``"stream"`` (the SPU
+#: VM: ghost stream elements served per mode at access time),
+#: ``"staged"`` (non-fusable pipelines: the chain runs stage by stage
+#: through cached single-sweep stage plans, each choosing its own
+#: strategy) and ``"stream-from-host"`` (a block whose device set
+#: exceeds the budget, ``perfmodel.slab_budget_bytes``: the grid stays
+#: on the host and streams through the device in slabs along dim 0,
+#: :mod:`repro_torch.kernels.stream`).
+GHOST_STRATEGIES = ("pad", "pad-free", "padded-window", "stream", "staged",
+                    "stream-from-host")
 
 #: Candidate kernel tiles per rank, largest first.  One CTA owns one
 #: tile; the innermost dim is a multiple of the 32-thread warp so loads
@@ -97,14 +124,11 @@ HOPPER_TILES: dict[int, tuple[tuple[int, ...], ...]] = {
         (2, 2, 32), (1, 2, 32), (1, 1, 32)),
 }
 
-#: ROADMAP items named by what this slice leaves out.
+#: ROADMAP items named by what the port leaves out.
 _NOT_PORTED = {
-    "stream": "grids past the device budget (stream-from-host slab "
-              "streaming): ROADMAP Queue 1 item 7",
     "mesh": "distributed plans (mesh / deep halo exchange): ROADMAP "
             "Queue 1 item 9",
     "verify": "the static plan verifier: ROADMAP Queue 1 item 10",
-    "vm": "backend='vm' (the software SPU): ROADMAP Queue 1 item 11",
 }
 
 
@@ -505,11 +529,35 @@ class ExecutionPlan:
     program: object                     # isa.Program / PipelineProgram
     fused: bool = True                  # False: non-fusable pipeline,
                                         # executed stage plan by stage plan
+    slabs: tuple[tuple[int, int], ...] | None = None
+                                        # stream-from-host: (start, stop)
+                                        # cover of dim 0
+    slab_overlap: int | None = None     # stream-from-host: deep_halo[0]
+    slab_budget: int | None = None      # device budget (bytes) the
+                                        # in-core decision was held to
+                                        # (ref/cuda plans)
 
     @property
     def stream_plan(self):
         """The assembled stream plan (``program.plan``)."""
         return self.program.plan
+
+    @property
+    def streams_from_host(self) -> bool:
+        """True when this plan runs out of core, slab by slab."""
+        return self.ghost_strategy == "stream-from-host"
+
+    @property
+    def needs_host_streaming(self) -> bool:
+        """True when the grid must stay on the host: the plan streams, or
+        it is a staged chain one of whose stage plans streams."""
+        if self.streams_from_host:
+            return True
+        if not self.fused and self.backend != "vm":
+            return (any(self.stage_plan(k).streams_from_host
+                        for k in range(len(self.stages)))
+                    or incore_device_bytes(self) > self.slab_budget)
+        return False
 
     @property
     def is_pipeline(self) -> bool:
@@ -691,8 +739,6 @@ def lower(spec: StencilSpec | StencilPipeline, shape: Sequence[int], dtype,
     through the process-wide :data:`PLAN_CACHE`."""
     if mesh is not None or grid_axes is not None:
         raise not_ported("mesh")
-    if backend == "vm":
-        raise not_ported("vm")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
@@ -709,43 +755,116 @@ def lower(spec: StencilSpec | StencilPipeline, shape: Sequence[int], dtype,
                                      backend, sweeps, tile_req, dev))
 
 
+def _oracle_temps(spec) -> int:
+    """Tensors the oracle holds beside an application's input, output and
+    padded copy: the tap sum's accumulator and product, and, for a
+    factored stage, its term values or a multi-factor term's previous
+    pass (``len(terms) + 2``); the largest over the stage chain."""
+    return max(2 if (terms := factor_taps(st).compute_terms) is None
+               else len(terms) + 2 for st in as_stages(spec))
+
+
+def _incore_charge(spec, backend: str, ghost: str, deep, sweeps: int,
+                   ndim: int):
+    """``(pad, extra)`` of an in-core block of a fused ref/cuda plan, for
+    ``perfmodel.incore_resident_bytes``: K2/K4 read one ``pad_boundary``
+    copy ``deep`` wide and K1/K3 none, each beside its input and output
+    only; the oracle pads before each stage application (its widest
+    stage) and holds its temporaries (:func:`_oracle_temps`) and, after
+    the first application of a block, the block's input."""
+    if backend in KERNEL_BACKENDS:
+        return (tuple(deep) if ghost == "padded-window" else None), 0
+    stages = as_stages(spec)
+    pad = tuple(max(st.halo[d] for st in stages) for d in range(ndim))
+    return pad, _oracle_temps(spec) + (sweeps * len(stages) > 1)
+
+
+def _slab_decomposition(shape, deep, itemsize, pad, extra=0,
+                        slab_extra=0):
+    """The out-of-core decision for a single-device ref/cuda plan:
+    ``(budget, slabs, overlap)``.  ``slabs`` is ``None`` while the
+    block's device set (``perfmodel.incore_resident_bytes``: input,
+    output and, with ``pad`` the ghost widths of the copy the block
+    pads, that copy; ``extra`` more tensors) fits the budget; otherwise
+    it is an exact cover of dim 0 in equal slabs (a short last slab for
+    an extent they do not divide), each sized so the slab executor's
+    resident set (``perfmodel.slab_resident_bytes``, with ``slab_extra``
+    window-sized temporaries) fits the budget, and ``overlap =
+    deep[0]``: a slab's boundary is a ``sweeps*halo`` deep halo against
+    host memory."""
+    budget = _pm.slab_budget_bytes()
+    if _pm.incore_resident_bytes(shape, itemsize, pad, extra) <= budget:
+        return budget, None, None
+    length = _pm.max_slab_len(shape, deep, itemsize, budget, slab_extra)
+    slabs = tuple((s, min(s + length, shape[0]))
+                  for s in range(0, shape[0], length))
+    return budget, slabs, deep[0]
+
+
 def _lower_uncached(spec, shape, dtype, backend, sweeps, tile_req,
                     device) -> ExecutionPlan:
     """One plan for a spec or a pipeline.  A pipeline's halo is the sum
     of its stage radii and its initial extension is stage 0's; a chain
     that is not fusable lowers ``fused=False`` with strategy
-    ``"staged"``, and its stage plans decide everything else.  Runs only
-    from :meth:`PlanCache.get_or_lower`, so ``autotune_calls`` counts
-    under the cache lock."""
+    ``"staged"``, and its stage plans decide everything else.  A ref or
+    cuda block past the budget lowers to ``"stream-from-host"`` with its
+    slab cover.  A cuda grid whose input and output alone exceed the
+    budget streams without a tile for the whole grid; otherwise the
+    grid's tile decides the strategy and so whether the padded copy is
+    charged, and a plan that then streams takes the tile of a slab.
+    Runs only from :meth:`PlanCache.get_or_lower`; every autotune it
+    runs is counted in ``autotune_calls``, under the cache lock."""
     halo = spec.halo
     deep = tuple(sweeps * h for h in halo)
     itemsize = torch.empty((), dtype=dtype).element_size()
-    if math.prod(shape) * itemsize > _pm.slab_budget_bytes():
-        raise not_ported("stream")
     pipeline = isinstance(spec, StencilPipeline)
     fused = spec.fusable if pipeline else True
 
+    def resolve_tile(tile_shape):
+        if tile_req != "auto":
+            return normalize_tile(spec, tile_req, sweeps, itemsize,
+                                  tile_shape)
+        from ..kernels import tune as _tune
+        PLAN_CACHE.autotune_calls += 1
+        autotune = _tune.autotune_pipeline if pipeline else _tune.autotune
+        return autotune(spec, tile_shape, sweeps=sweeps, itemsize=itemsize,
+                        backend=backend).tile
+
     resolved_tile = None
+    slab_budget = slabs = slab_overlap = None
     ghost = "pad" if fused else "staged"        # oracle default
-    if backend in KERNEL_BACKENDS and fused:
-        if tile_req == "auto":
-            # the shape tuned for: the grid's (slab streaming, item 7,
-            # will pass its slab's here)
-            tune_shape = shape
-            from ..kernels import tune as _tune
-            PLAN_CACHE.autotune_calls += 1
-            autotune = _tune.autotune_pipeline if pipeline else _tune.autotune
-            resolved_tile = autotune(spec, tune_shape, sweeps=sweeps,
-                                     itemsize=itemsize,
-                                     backend=backend).tile
-        else:
-            resolved_tile = normalize_tile(spec, tile_req, sweeps, itemsize,
-                                           shape)
+    if not fused:
+        if backend != "vm":
+            slab_budget = _pm.slab_budget_bytes()
+    elif backend == "vm":
+        ghost = "stream"
+    elif backend in KERNEL_BACKENDS:
+        slab_budget, slabs, slab_overlap = _slab_decomposition(
+            shape, deep, itemsize, None)
+        if slabs is None:
+            resolved_tile = resolve_tile(shape)
+            ghost = ghost_strategy_for(spec, shape, itemsize, sweeps,
+                                       resolved_tile)
+            slab_budget, slabs, slab_overlap = _slab_decomposition(
+                shape, deep, itemsize, *_incore_charge(
+                    spec, backend, ghost, deep, sweeps, len(shape)))
+        if slabs is not None:
+            # the tile of a slab, not of the grid
+            resolved_tile = resolve_tile((slabs[0][1] - slabs[0][0],)
+                                         + shape[1:])
+            ghost = "stream-from-host"
         _check_tile_fits(spec, resolved_tile, sweeps, itemsize)
         from ..kernels import engine as _keng
         _keng.check_kernel_args(spec)
-        ghost = ghost_strategy_for(spec, shape, itemsize, sweeps,
-                                   resolved_tile)
+    else:
+        # the oracle's window core holds its temporaries and a restored
+        # copy beside the rings
+        slab_budget, slabs, slab_overlap = _slab_decomposition(
+            shape, deep, itemsize, *_incore_charge(
+                spec, backend, ghost, deep, sweeps, len(shape)),
+            slab_extra=_oracle_temps(spec) + 1)
+        if slabs is not None:
+            ghost = "stream-from-host"
 
     return ExecutionPlan(
         spec=spec, shape=shape, dtype=dtype_name(dtype), backend=backend,
@@ -756,18 +875,57 @@ def _lower_uncached(spec, shape, dtype, backend, sweeps, tile_req,
         boundary_mode=spec.boundary_mode,
         boundary_value=spec.boundary_value,
         program=assemble_pipeline(spec) if pipeline else assemble(spec),
-        fused=fused)
+        fused=fused, slabs=slabs, slab_overlap=slab_overlap,
+        slab_budget=slab_budget)
 
 
 # ---------------------------------------------------------------------------
 # Execution: thin dispatch to the backend executors
 # ---------------------------------------------------------------------------
+def incore_device_bytes(plan: ExecutionPlan, batch: int = 1) -> int:
+    """Device bytes one in-core block of ``plan`` allocates on ``batch``
+    grids at once (``perfmodel.incore_resident_bytes`` with the batch as
+    a leading dim: input, output, padded copy and temporaries of the whole
+    batch); a staged chain holds its largest stage block's and, past its
+    first stage, the block's input."""
+    itemsize = torch.empty((), dtype=canonical_dtype(
+        plan.dtype)).element_size()
+    if not plan.fused:
+        return (max(incore_device_bytes(plan.stage_plan(k), batch)
+                    for k in range(len(plan.stages)))
+                + _pm._allocated(batch * math.prod(plan.shape) * itemsize))
+    pad, extra = _incore_charge(plan.spec, plan.backend, plan.ghost_strategy,
+                                plan.deep_halo, plan.sweeps, len(plan.shape))
+    return _pm.incore_resident_bytes(
+        (batch,) + plan.shape, itemsize, None if pad is None else (0,) + pad,
+        extra)
+
+
+def stays_on_host(plan: ExecutionPlan, grid) -> bool:
+    """The run-time half of the in-core decision, held to the budget the
+    plan was lowered under: ``grid`` stays on the host when the plan
+    streams (:attr:`~ExecutionPlan.needs_host_streaming`), or when it
+    carries a batch whose in-core blocks together
+    (:func:`incore_device_bytes`) exceed the budget though one grid's
+    fits; the slab executor then runs the batch a part at a time
+    (``repro_torch.kernels.stream.run_plan_streamed``)."""
+    if plan.needs_host_streaming:
+        return True
+    if plan.slab_budget is None or grid.ndim != len(plan.shape) + 1:
+        return False
+    return incore_device_bytes(plan, grid.shape[0]) > plan.slab_budget
+
+
 def execute(plan: ExecutionPlan, grid: torch.Tensor) -> torch.Tensor:
     """One fused block — ``plan.sweeps`` applications — on the plan's
     backend (an optional leading batch dim is one more launch axis).  A
-    non-fusable pipeline plan runs its chain through the cached
-    single-sweep stage plans instead: chained semantics, per-stage
-    traffic."""
+    grid that stays on the host (:func:`stays_on_host`) runs the slab
+    executor and returns a host tensor.  A non-fusable pipeline plan runs
+    its chain through the cached single-sweep stage plans instead:
+    chained semantics, per-stage traffic."""
+    if stays_on_host(plan, grid):
+        from ..kernels import stream as _stream
+        return _stream.run_plan_streamed(plan, grid, plan.sweeps)
     if not plan.fused:
         out = grid
         for _ in range(plan.sweeps):
@@ -780,6 +938,9 @@ def execute(plan: ExecutionPlan, grid: torch.Tensor) -> torch.Tensor:
     if plan.backend == "cuda":
         from ..kernels import engine as _keng
         return _keng.execute_plan(plan, grid)
+    if plan.backend == "vm":
+        from . import vm as _vm
+        return _vm.execute_plan(plan, grid)[0]
     raise ValueError(f"unknown backend {plan.backend!r}")
 
 
@@ -788,11 +949,26 @@ def run_plan(plan: ExecutionPlan, grid: torch.Tensor,
     """``iters`` total applications under ``plan``: ``q`` fused blocks in
     a Python loop plus one narrower remainder block whose plan comes from
     the cache.  ``iters == 0`` returns a copy of the input, never the
-    input itself (the reference's contract, ``plan.py:773-776``)."""
+    input itself (the reference's contract, ``plan.py:773-776``).  A grid
+    that stays on the host (:func:`stays_on_host`) runs the slab
+    executor's block loop
+    (``repro_torch.kernels.stream.run_plan_streamed``), whose result is a
+    host tensor."""
+    return run_owned(plan, [grid], iters)
+
+
+def run_owned(plan: ExecutionPlan, held: list, iters: int) -> torch.Tensor:
+    """:func:`run_plan` on ``held[0]``, which it takes out of ``held``: a
+    grid the caller keeps no other reference to (the runner's copy on the
+    device) is freed once the first block has read it, so a run allocates
+    no more than one block's device set at a time."""
     q, r = plan.decompose(iters)
+    out = held.pop()
     if iters == 0:
-        return grid.clone()
-    out = grid
+        return out.clone()
+    if stays_on_host(plan, out):
+        from ..kernels import stream as _stream
+        return _stream.run_plan_streamed(plan, out, iters)
     for _ in range(q):
         out = execute(plan, out)
     if r:
@@ -808,17 +984,39 @@ def _grid_shape_for(spec, grid) -> tuple[int, ...]:
     return tuple(grid.shape)
 
 
+def place(spec, grid, backend: str, sweeps: int, tile_req,
+          device) -> tuple[ExecutionPlan, torch.Tensor]:
+    """``(plan, grid)`` for a run of this configuration: the plan for
+    ``grid``'s shape (one lowering, from the cache after the first) and
+    ``grid`` (a numpy array or a tensor, optionally batched) where the
+    run takes it: on ``device``, contiguous; or, where the plan decides
+    that it stays on the host (:func:`stays_on_host`), where it is — a
+    CPU tensor is never copied to the card, and a CUDA tensor is left for
+    the slab executor to copy to the host, as the reference copies a
+    device array (``np.asarray``)."""
+    if isinstance(grid, np.ndarray):
+        grid = torch.from_numpy(np.ascontiguousarray(grid))
+    plan = lower(spec, _grid_shape_for(spec, grid), grid.dtype,
+                 backend=backend, sweeps=sweeps, tile=tile_req,
+                 device=device)
+    if stays_on_host(plan, grid):
+        return plan, grid
+    return plan, grid.to(device).contiguous()
+
+
 @functools.lru_cache(maxsize=512)
 def runner(spec, backend: str, sweeps: int, tile_req,
            device: str):
     """Process-wide ``run(grid, iters)`` for an engine configuration: a
     second engine with identical options gets the same callable, and
-    every plan it needs comes from :data:`PLAN_CACHE`."""
-    def run(grid: torch.Tensor, iters: int) -> torch.Tensor:
-        plan = lower(spec, _grid_shape_for(spec, grid), grid.dtype,
-                     backend=backend, sweeps=sweeps, tile=tile_req,
-                     device=device)
-        return run_plan(plan, grid, iters)
+    every plan it needs comes from :data:`PLAN_CACHE`.  The grid is
+    placed first (:func:`place`): on the device, or, where its plan says
+    so, left on the host for the slab executor."""
+    def run(grid, iters: int) -> torch.Tensor:
+        plan, g = place(spec, grid, backend, sweeps, tile_req, device)
+        held = [g]
+        del g
+        return run_owned(plan, held, iters)
     return run
 
 

@@ -37,14 +37,16 @@ def periodic_index(idx, n: int):
 def reflect_index(idx, n: int):
     """Fold (possibly out-of-range) coordinates into ``[0, n)`` by mirror
     reflection about the edge *elements* (period ``2n-2``, edge not
-    repeated; a size-1 axis degenerates to index 0).  Works on ints and
-    integer tensors."""
+    repeated; a size-1 axis degenerates to index 0).  Works on ints,
+    integer tensors and integer numpy arrays."""
     if n == 1:
         return idx * 0
     period = 2 * n - 2
     m = idx % period
     if isinstance(m, torch.Tensor):
         return torch.where(m < n, m, period - m)
+    if isinstance(m, np.ndarray):
+        return np.where(m < n, m, period - m)
     return m if m < n else period - m
 
 

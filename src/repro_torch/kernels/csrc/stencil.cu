@@ -1363,6 +1363,36 @@ int casper_stencil_bf16(int device, const void* in, void* out, const void* args,
                                stream);
 }
 
+// Copies a box of `depth` planes x `height` rows x `width` bytes between
+// host and device memory on `stream`, as one DMA: the slab executor's
+// upload of a run of grid rows from pinned host memory into the interior
+// of a padded window.  Rows of each side sit `pitch` bytes apart and
+// planes `pitch * rows_per_plane` bytes apart.  A box of one row per
+// plane is a 2-D copy of `depth` rows, one row a 1-D copy.  `kind`: 1
+// host to device, 2 device to host.
+int casper_copy_box(int device, void* dst, const void* src, long long width,
+                    long long height, long long depth, long long dst_pitch,
+                    long long dst_rows, long long src_pitch, long long src_rows,
+                    int kind, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaMemcpyKind k = kind == 1 ? cudaMemcpyHostToDevice
+                                     : cudaMemcpyDeviceToHost;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (height * depth == 1) return (int)cudaMemcpyAsync(dst, src, width, k, s);
+  if (height == 1 || depth == 1) {
+    const size_t dp = height == 1 ? dst_pitch * dst_rows : dst_pitch;
+    const size_t sp = height == 1 ? src_pitch * src_rows : src_pitch;
+    return (int)cudaMemcpy2DAsync(dst, dp, src, sp, width, height * depth, k, s);
+  }
+  cudaMemcpy3DParms p = {};
+  p.srcPtr = make_cudaPitchedPtr(const_cast<void*>(src), src_pitch, width, src_rows);
+  p.dstPtr = make_cudaPitchedPtr(dst, dst_pitch, width, dst_rows);
+  p.extent = make_cudaExtent(width, height, depth);
+  p.kind = k;
+  return (int)cudaMemcpy3DAsync(&p, s);
+}
+
 const char* casper_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

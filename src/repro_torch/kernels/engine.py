@@ -140,6 +140,10 @@ def _lib() -> ctypes.CDLL:
         lib.casper_smem_bytes.restype = ctypes.c_longlong
         lib.casper_error_string.argtypes = [ctypes.c_int]
         lib.casper_error_string.restype = ctypes.c_char_p
+        lib.casper_copy_box.argtypes = (
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            + [ctypes.c_longlong] * 7 + [ctypes.c_int, ctypes.c_void_p])
+        lib.casper_copy_box.restype = ctypes.c_int
         if lib.casper_args_size() != ctypes.sizeof(CasperArgs):
             raise RuntimeError(
                 f"CasperArgs layout mismatch: C {lib.casper_args_size()} "
@@ -562,9 +566,11 @@ def pipeline_window_sweep_plain(pipeline: StencilPipeline,
 # Wrappers
 # ---------------------------------------------------------------------------
 def _window_sweep(spec, window, out_shape, origin, grid_shape, tile,
-                  sweeps) -> torch.Tensor:
+                  sweeps, out=None) -> torch.Tensor:
     """K2 (spec) or K4 (pipeline) on a window that already carries its
-    ``sweeps*halo`` ghosts; the plain version for a CPU tensor."""
+    ``sweeps*halo`` ghosts; the plain version for a CPU tensor.  ``out``:
+    a contiguous tensor of the result's shape, dtype and device to write
+    into (the slab executor's output ring)."""
     if sweeps < 1:
         raise ValueError(f"sweeps must be >= 1, got {sweeps}")
     w, batched = _batched(spec, window, "window")
@@ -578,18 +584,33 @@ def _window_sweep(spec, window, out_shape, origin, grid_shape, tile,
     if tuple(w.shape[1:]) != want:
         raise ValueError(f"window shape {tuple(w.shape[1:])} != out_shape "
                          f"+ 2*sweeps*halo {want}")
+    full = (w.shape[0],) + out_shape
+    if out is not None:
+        if (tuple(out.shape) != (full if batched else out_shape)
+                or out.dtype != w.dtype or out.device != w.device
+                or not out.is_contiguous()):
+            raise ValueError(f"out: a contiguous {w.dtype} tensor of shape "
+                             f"{full if batched else out_shape} on "
+                             f"{w.device} expected")
+        given, out = out, out.view(full)
     if _device_kind(w) == "cpu":
-        out = stencil_window_sweep_plain(spec, w, out_shape, origin,
+        res = stencil_window_sweep_plain(spec, w, out_shape, origin,
                                          grid_shape, tile, sweeps)
-        return out if batched else out[0]
+        if out is not None:
+            out.copy_(res)
+            return given
+        return res if batched else res[0]
     _check_cuda_input(w, "window")
     _plan._check_tile_fits(spec, tile, sweeps, itemsize)
-    out = torch.empty((w.shape[0],) + out_shape, dtype=w.dtype,
-                      device=w.device)
+    if out is None:
+        given = None
+        out = torch.empty(full, dtype=w.dtype, device=w.device)
     if out.numel():
         _launch("K4" if isinstance(spec, StencilPipeline) else "K2", spec,
                 w, out, sweeps=sweeps, tile=tile,
                 grid_shape=grid_shape, out_shape=out_shape, origin=origin)
+    if given is not None:
+        return given
     return out if batched else out[0]
 
 
@@ -630,13 +651,14 @@ def stencil_window_sweep(spec: StencilSpec, window: torch.Tensor,
                          out_shape: Sequence[int], origin,
                          grid_shape: Sequence[int],
                          tile: Sequence[int] | int | None = None,
-                         sweeps: int = 1) -> torch.Tensor:
+                         sweeps: int = 1, out=None) -> torch.Tensor:
     """K2: ``sweeps`` fused applications to a window (optional leading
     batch dim) that already carries ``sweeps*halo`` ghosts per side; the
     interior's origin sits at global coordinate ``origin`` of a
-    ``grid_shape`` grid."""
+    ``grid_shape`` grid.  ``out``: a contiguous tensor to write the
+    result into."""
     return _window_sweep(spec, window, out_shape, origin, grid_shape, tile,
-                         sweeps)
+                         sweeps, out)
 
 
 def stencil_sweep(spec: StencilSpec, grid: torch.Tensor,
@@ -677,14 +699,15 @@ def pipeline_window_sweep(pipeline: StencilPipeline, window: torch.Tensor,
                           out_shape: Sequence[int], origin,
                           grid_shape: Sequence[int],
                           tile: Sequence[int] | int | None = None,
-                          sweeps: int = 1) -> torch.Tensor:
+                          sweeps: int = 1, out=None) -> torch.Tensor:
     """K4: ``sweeps`` fused chain applications to a window that already
     carries ``sweeps*H`` ghosts (``H`` the sum of the stage radii) filled
     with stage 0's extension; the interior's origin sits at global
-    coordinate ``origin`` of a ``grid_shape`` grid."""
+    coordinate ``origin`` of a ``grid_shape`` grid.  ``out``: a
+    contiguous tensor to write the result into."""
     _require_fusable(pipeline, "padded window")
     return _window_sweep(pipeline, window, out_shape, origin, grid_shape,
-                         tile, sweeps)
+                         tile, sweeps, out)
 
 
 def pipeline_sweep(pipeline: StencilPipeline, grid: torch.Tensor,

@@ -164,26 +164,15 @@ def test_hopper_tiles_fit_shared_memory_and_explicit_misfit_raises():
 
 
 def test_not_ported_paths_raise_with_their_roadmap_item(monkeypatch):
-    from repro_torch import PAPER_PIPELINES
     spec = _port(J_SPECS["jacobi2d"])
-    pipe = PAPER_PIPELINES["reaction_diffusion2d"]
     with pytest.raises(NotImplementedError, match="item 9"):
         tplan.lower(spec, (8, 8), torch.float64, mesh=object(),
                     grid_axes=("x", None), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        CasperEngine(spec, backend="vm", device="cpu")
     eng = CasperEngine(spec, backend="cuda", device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         eng.analyze((8, 8))
     with pytest.raises(NotImplementedError, match="item 9"):
         eng.distributed_fn(None, ("x", None))
-    monkeypatch.setenv("CASPER_SLAB_BUDGET", "64")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eng.run(np.zeros((8, 8)), iters=1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        CasperEngine(pipe, backend="cuda", device="cpu").run(
-            np.zeros((8, 8)), iters=1)
-    monkeypatch.delenv("CASPER_SLAB_BUDGET")
     monkeypatch.setenv("CASPER_VERIFY", "strict")
     with pytest.raises(NotImplementedError, match="item 10"):
         tplan.lower(spec, (8, 9), torch.float64, device="cpu")
