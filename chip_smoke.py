@@ -49,7 +49,7 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    the plain version);
 2. runs the engine — ``CasperEngine(spec, backend="cuda",
    sweeps=4).run(grid, iters=10)``, all f64, each bitwise equal to
-   ``backend="ref"`` on the card, on five main paths, each with the launch
+   ``backend="ref"`` on the card, on each main path below, with the launch
    counts reset just before it and read just after:
    (a) single specs at each paper stencil's Table 3 DRAM shape (zero and
    periodic boundary, K1; periodic again with the plan's strategy forced
@@ -95,7 +95,29 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    ``backend="vm"`` on the card: every paper stencil and pipeline at its
    Table 3 L2 shape x 4 boundaries, bitwise equal to the VM on the host
    with equal counters and within 1e-12 of ``backend="ref"``, beside the
-   paper model's tables (the paper's machines, not the card);
+   paper model's tables (the paper's machines, not the card); (h)
+   serving on the card, f64, ``backend="cuda"``, sweeps=4: (i)
+   ``StencilServer.serve`` on the reference's mix
+   (``loadgen.mixed_requests(8192, seed=7)``) plus 512 requests of each
+   paper pipeline at (32, 64), every result bitwise equal to
+   ``serve_sequential`` and to ``backend="ref"`` on the card, each
+   bucket's launches (served alone, and the whole run's, split by rank
+   as the wrappers count them) equal to the launch lint's prediction
+   (``analysis.predicted_launches``), requests/s and points/s per
+   bucket; (ii) the same mix through ``AsyncStencilServer``
+   (``ServeConfig.auto(rate, max_bucket_size=512)``), open loop (Poisson)
+   at half (i)'s requests/s, again at half with a queue that admits the
+   whole run, and at twice (i)'s: every handle bitwise equal to (i) with
+   the whole-run queue, bitwise or shed in the other two, p50/p99
+   latency, close reasons, shed count, the worker's busy share and
+   achieved over offered rate logged, launches equal to the prediction;
+   two consecutive buckets traced (``build/serve_trace.json``; whether
+   bucket k+1's upload overlaps bucket k's kernels is logged, not
+   gated); (iii) jacobi2d (512, 512)
+   buckets past a forced ``CASPER_SLAB_BUDGET`` through both servers: on
+   the host, bitwise equal to in core, counted ``slab_streamed``.  Every
+   plan of phases 2 and 3 is lowered under ``CASPER_VERIFY=strict``
+   (``repro_torch.analysis``): a finding fails the run;
 3. times one fused block per phase-2 case with CUDA events (median),
    beside its bound (the larger of one read and one write of the grid at
    the HBM rate and the f64 operations the contract fixes per point and
@@ -117,13 +139,20 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    ``kernels.tune.fit_calibration`` fits from them and the analytic top
    under those, and ``kernels.tune.autotune_measured`` (stored under
    ``CASPER_TUNE_CACHE`` and served from it once); the phase fails if the
-   tuned tile is slower than 1.5x the best measured in this call.
+   tuned tile is slower than 1.5x the best measured in this call; and
+   for serving, the dispatch overhead per bucket (the wall time of a
+   one-grid ``plan.BatchHandle`` bucket less the device time its
+   ``torch.profiler`` trace shows, median of 7 rounds:
+   ``perfmodel.SERVE_DISPATCH_OVERHEAD_S``),
+   a 33-grid bucket unpadded and padded to its tier (64), and the
+   48-grid jacobi2d block at the auto tile beside pad-free split tiles.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 (one entry per kernel and route: K1/K2 of 1-D/2-D specs on the window
 kernel, K1/K2 of 3-D specs on the streamed kernel, K3, K4, K5 bf16, f16
 and f32; K2 and K4 carry the serving rows under ``rows``; K2, K2 rank 3
-and K4 count their phase-2f slab launches) before the last line, which is ``{"ok": true, "device": {...}}``.  Full
+and K4 count their phase-2f slab launches; each entry adds the phase-2h
+launches its wrapper counted, by rank) before the last line, which is ``{"ok": true, "device": {...}}``.  Full
 results go to ``build/chip_smoke.json``.  Exits non-zero, printing
 no result, when CUDA is missing or any check fails.
 """
@@ -361,6 +390,434 @@ def conv_chain(spec, sweeps):
     return run
 
 
+def trace_events(prof, path):
+    """The complete events of a ``torch.profiler`` run, exported as a
+    chrome trace to ``path``."""
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        return [e for e in json.load(fh).get("traceEvents", [])
+                if e.get("ph") == "X" and "dur" in e]
+
+
+def spans(events, pred):
+    """``(start, end)`` in microseconds of the events ``pred`` keeps."""
+    return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            for e in events if pred(e)]
+
+
+def meet(a, b):
+    return a[0] < b[1] and b[0] < a[1]
+
+
+def busy(iv):
+    """Time (us) covered by the union of the intervals ``iv``."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(iv):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def is_device(e):
+    return e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+# phase 2h: the reference's serving mix, plus a bucket of each paper
+# pipeline at (32, 64), served in f64 at sweeps=4 on backend="cuda"
+SERVE_N = 8192
+SERVE_PIPE_BUCKET = 512
+SERVE_MAX_BUCKET = 512
+
+
+def bucket_launches(buckets, specs, sizes="size"):
+    """The launches the lint predicts for served buckets (their stats),
+    keyed by (kernel, rank 3?), and the plans lowered for them."""
+    from repro_torch.analysis import predicted_launches
+    from repro_torch.core import plan as tplan
+    out = {}
+    for b in buckets:
+        spec = specs[b["spec"]]
+        plan = tplan.lower(spec, b["shape"], b["dtype"], backend="cuda",
+                           sweeps=4)
+        for k, n in predicted_launches(plan, b["iters"],
+                                       batch=b[sizes]).items():
+            key = (k, spec.ndim == 3)
+            out[key] = out.get(key, 0) + n
+    return out
+
+
+def launch_snapshot():
+    """The launch counters as they stand: all launches and the rank-3
+    ones, per kernel."""
+    from repro_torch.kernels import engine as keng
+    return dict(keng.LAUNCHES), dict(keng.RANK3_LAUNCHES)
+
+
+def launches_since(before=None):
+    """K1-K4 launches since ``before`` (a :func:`launch_snapshot`; since
+    the last reset without one), as the wrappers counted them where they
+    launched, keyed by (kernel, rank 3?)."""
+    from repro_torch.kernels import engine as keng
+    total0, rank30 = before or ({}, {})
+    out = {}
+    for k, n3 in keng.RANK3_LAUNCHES.items():
+        n3 -= rank30.get(k, 0)
+        n2 = keng.LAUNCHES[k] - total0.get(k, 0) - n3
+        for key, n in (((k, False), n2), ((k, True), n3)):
+            if n:
+                out[key] = n
+    return out
+
+
+def named(keyed):
+    """Launches keyed by (kernel, rank 3?) under printable names."""
+    return {k + (" rank 3" if r3 else ""): n for (k, r3), n in keyed.items()}
+
+
+def serving_phase(failures, smi):
+    """Phase 2h: ``StencilServer`` and ``AsyncStencilServer`` on the card
+    (see the module docstring).  Returns the phase's record, with its
+    launches keyed by (kernel, rank 3?) under ``"launches"``."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import PAPER_PIPELINES, PAPER_STENCILS
+    from repro_torch.core import perfmodel as tpm
+    from repro_torch.core import plan as tplan
+    from repro_torch.kernels import engine as keng
+    from repro_torch.serve import (AsyncStencilServer, ServeConfig,
+                                   StencilRequest, StencilServer, loadgen)
+    t_phase = time.time()
+    rng = np.random.default_rng(SEED)
+    reqs = loadgen.mixed_requests(n=SERVE_N, seed=7, dtype=np.float64)
+    for name in PAPER_PIPELINES:
+        reqs += [StencilRequest(name, rng.standard_normal((32, 64)), 8)
+                 for _ in range(SERVE_PIPE_BUCKET)]
+    reqs = [reqs[i] for i in rng.permutation(len(reqs))]
+    srv = StencilServer(backend="cuda", sweeps=4)
+    launches = {}
+
+    def add(keyed):
+        """Count a run's measured launches into the kernels line."""
+        for k, n in keyed.items():
+            launches[k] = launches.get(k, 0) + n
+
+    # (i) one-shot serving: warm (every plan lowered, strict), then timed
+    srv.serve(reqs)
+    torch.cuda.synchronize()
+    keng.reset_launches()
+    got, st = srv.serve(reqs)
+    torch.cuda.synchronize()
+    ran = launches_since()
+    add(ran)
+    pred = bucket_launches(st.buckets, srv.specs)
+    if ran != pred:
+        failures.append(f"phase 2h (i): launches {named(ran)} != predicted "
+                        f"{named(pred)}")
+    seq, st_seq = srv.serve_sequential(reqs)
+    want, st_ref = StencilServer(backend="ref", sweeps=4).serve(reqs)
+    bad = [i for i, (g, s, w) in enumerate(zip(got, seq, want))
+           if not (isinstance(g, torch.Tensor) and g.device.type == "cpu"
+                   and torch.equal(g, s) and torch.equal(g, w)
+                   and bool(torch.isfinite(g).all()))]
+    if bad:
+        failures.append(f"phase 2h (i): {len(bad)} of {len(reqs)} results "
+                        f"differ from serve_sequential or backend='ref'")
+    # each bucket alone: its launches against the lint's prediction
+    groups = {}
+    for r in reqs:
+        groups.setdefault(srv.bucket_key(r), []).append(r)
+    per_bucket = []
+    for group in groups.values():
+        before = launch_snapshot()
+        _, bst = srv.serve(group)
+        torch.cuda.synchronize()
+        delta = named(launches_since(before))
+        want_b = named(bucket_launches(bst.buckets, srv.specs))
+        per_bucket.append((bst.buckets[0]["spec"], delta, want_b))
+        if delta != want_b:
+            failures.append(f"phase 2h (i) {bst.buckets[0]['spec']}: "
+                            f"launches {delta} != predicted {want_b}")
+    log(f"phase 2h (i): StencilServer.serve on {len(reqs)} f64 requests "
+        f"({SERVE_N} of the reference's mix, {SERVE_PIPE_BUCKET} per paper "
+        f"pipeline), {st.n_buckets} buckets in {st.seconds * 1e3:.2f} ms: "
+        f"{st.requests_per_s:.1f} requests/s, {st.points_per_s:.4g} "
+        f"points/s; serve_sequential {st_seq.seconds * 1e3:.1f} ms "
+        f"({st_seq.requests_per_s:.1f} requests/s); launches {named(ran)}; "
+        f"{len(reqs) - len(bad)}/{len(reqs)} bitwise equal to "
+        f"serve_sequential and backend='ref' | card {smi}")
+    for b in st.buckets:
+        pts = b["size"] * math.prod(b["shape"])
+        log(f"  2h bucket {b['spec']:20s} {str(b['shape']):12s} x "
+            f"{b['size']:5d} iters {b['iters']}: {b['seconds'] * 1e3:8.3f} "
+            f"ms, {b['size'] / b['seconds']:.1f} requests/s, "
+            f"{pts / b['seconds']:.4g} points/s")
+    log(f"  2h per-bucket launches (measured, predicted): {per_bucket}")
+
+    # the first bucket staged by this process (fresh pinned memory), then
+    # one more of the same size (the host allocator's cached block)
+    jac = [r for r in reqs if r.spec_name == "jacobi2d"]
+    bh = tplan.batch_handle(srv.specs["jacobi2d"], "cuda", 4, None, "cuda")
+    stage_ms = []
+    for _ in range(3):
+        s = bh.stage([r.grid for r in jac[:SERVE_MAX_BUCKET]])
+        stage_ms.append(s.stage_ms)
+        bh.fetch(bh.dispatch(s, 8))
+
+    # (ii) the same mix through AsyncStencilServer, open loop (Poisson):
+    # at half (i)'s rate with ServeConfig.auto's default queue, then with
+    # a queue that admits the whole run (every request held to (i)'s
+    # result), and at twice (i)'s rate with the default queue
+    rate = st.requests_per_s
+    index = {id(r): i for i, r in enumerate(reqs)}
+    async_runs = []
+    for label, offered, depth in (("low", rate / 2, None),
+                                  ("low, whole-run queue", rate / 2,
+                                   len(reqs)),
+                                  ("high", 2 * rate, None)):
+        cfg = ServeConfig.auto(offered, max_bucket_size=SERVE_MAX_BUCKET,
+                               **({} if depth is None
+                                  else {"queue_depth": depth}))
+        server = AsyncStencilServer(config=cfg, backend="cuda", sweeps=4)
+        if not async_runs:
+            server.warmup(reqs)
+        workload = loadgen.poisson_workload(reqs, offered, seed=5)
+        torch.cuda.synchronize()
+        keng.reset_launches()
+        try:
+            t0 = time.perf_counter()
+            server.start()
+            handles = loadgen.submit_open_loop(server, workload)
+            t_submit = time.perf_counter() - t0
+            server.drain(timeout=120.0)
+        finally:
+            server.stop(timeout=120.0)
+        ran = launches_since()
+        add(ran)
+        stats = server.stats()
+        pred = bucket_launches(stats.buckets, server.specs, "padded_size")
+        if ran != pred:
+            failures.append(f"phase 2h (ii) {label}: launches {named(ran)} "
+                            f"!= predicted {named(pred)}")
+        n_ok = n_shed = 0
+        for t, h in zip(workload, handles):
+            if not h.wait(60.0):
+                failures.append(f"phase 2h (ii) {label}: a handle hung")
+                break
+            if h.error is None:
+                n_ok += torch.equal(h.result(), got[index[id(t.request)]])
+            elif h.error.error == "shed" and depth is None:
+                n_shed += 1
+            else:
+                failures.append(f"phase 2h (ii) {label}: {h.error}")
+        if n_ok + n_shed != len(handles):
+            failures.append(f"phase 2h (ii) {label}: {n_ok} bitwise and "
+                            f"{n_shed} shed of {len(handles)}")
+        later = [b["stage_ms"] for b in sorted(
+            stats.buckets, key=lambda b: b["seq"])[1:]]
+        # the worker's share of the window spent on buckets (staging, then
+        # dispatch to completion): near 1, the host cannot keep up
+        worker_s = sum(b["stage_ms"] / 1e3 + b["seconds"]
+                       for b in stats.buckets)
+        run = {"label": label, "offered_rps": offered,
+               "achieved_rps": len(handles) / t_submit,
+               "achieved_over_offered": len(handles) / t_submit / offered,
+               "max_wait_s": cfg.max_wait_s,
+               "queue_depth": cfg.queue_depth, "n_bitwise": n_ok,
+               "n_shed": n_shed, "completed_rps": stats.requests_per_s,
+               "window_s": stats.seconds,
+               "worker_busy_share": worker_s / max(stats.seconds, 1e-9),
+               "latency_s": stats.latency_s,
+               "close_reasons": stats.close_reasons,
+               "n_buckets": stats.n_buckets, "launches": named(ran),
+               "stage_ms_median": statistics.median(later) if later else None}
+        async_runs.append(run)
+        lat = stats.latency_s or {}
+        log(f"phase 2h (ii) {label}: offered {offered:.1f} requests/s, "
+            f"achieved {run['achieved_rps']:.1f} "
+            f"({run['achieved_over_offered']:.3f} of offered), completed "
+            f"{stats.requests_per_s:.1f}/s over {stats.seconds:.4f} s; "
+            f"max_wait {cfg.max_wait_s * 1e3:.3f} ms, queue_depth "
+            f"{cfg.queue_depth}; latency p50 {lat.get('p50', 0) * 1e3:.3f} "
+            f"ms, p99 {lat.get('p99', 0) * 1e3:.3f} ms; close "
+            f"{stats.close_reasons}; {n_ok} bitwise, {n_shed} shed of "
+            f"{len(handles)}; {stats.n_buckets} buckets, staging median "
+            f"{run['stage_ms_median']} ms; worker busy "
+            f"{run['worker_busy_share']:.3f} of the window; launches "
+            f"{named(ran)} | card {smi}")
+
+    # two consecutive buckets under the profiler: does bucket k+1's
+    # upload overlap bucket k's kernels?  (logged, not gated)
+    server = AsyncStencilServer(
+        config=ServeConfig(max_bucket_size=SERVE_MAX_BUCKET, max_wait_s=60.0),
+        backend="cuda", sweeps=4)
+    two = [server.submit(r) for r in jac[:2 * SERVE_MAX_BUCKET]]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)    # the tracer is running
+        torch.cuda.synchronize()
+        server.stop(timeout=120.0)
+        torch.cuda.synchronize()
+    events = trace_events(prof, os.path.join(ROOT, "build",
+                                             "serve_trace.json"))
+    h2d = sorted(spans(events, lambda e: e.get("cat") == "gpu_memcpy"
+                       and "HtoD" in e.get("name", "")))
+    kern = sorted(spans(events, lambda e: e.get("cat") == "kernel"
+                        and "casper_" in e.get("name", "")))
+    k_first = [k for k in kern if h2d and k[0] < h2d[-1][0]]
+    overlap = bool(h2d and any(meet(h2d[-1], k) for k in kern))
+    trace = {"h2d_copies": len(h2d), "kernels": len(kern),
+             "upload_k1_overlaps_kernel_k": overlap,
+             "kernels_before_upload_k1": len(k_first),
+             "upload_k1_after_kernel_k_us": (h2d[-1][0] - k_first[-1][1]
+                                             if k_first else None),
+             "all_bitwise": all(torch.equal(h.result(timeout=60),
+                                            got[index[id(r)]])
+                                for h, r in zip(two,
+                                                jac[:2 * SERVE_MAX_BUCKET]))}
+    if not trace["all_bitwise"]:
+        failures.append("phase 2h (ii) traced buckets: not bitwise")
+    log(f"phase 2h (ii): two consecutive buckets traced: {trace}")
+
+    # (iii) a bucket past a forced budget, through both servers: each grid
+    # streams in slabs; on the host, bitwise equal to in core
+    big = [StencilRequest("jacobi2d", rng.standard_normal((512, 512)), 8)
+           for _ in range(4)]
+    incore, _ = srv.serve(big)
+    budget = 512 * 512 * 8 // 2
+    slab = {}
+    with forced_budget(budget):
+        keng.reset_launches()
+        res1, st1 = srv.serve(big)
+        torch.cuda.synchronize()
+        ran1 = launches_since()
+        server = AsyncStencilServer(config=ServeConfig(
+            max_bucket_size=len(big), max_wait_s=60.0, pad_buckets=False),
+            backend="cuda", sweeps=4)
+        keng.reset_launches()
+        try:
+            hs = [server.submit(r) for r in big]
+            server.start()
+            server.drain(timeout=120.0)
+        finally:
+            server.stop(timeout=120.0)
+        ran2 = launches_since()
+        res2 = [h.result(timeout=60) for h in hs]
+        st2 = server.stats()
+        pred1 = bucket_launches(st1.buckets, srv.specs)
+        pred2 = bucket_launches(st2.buckets, server.specs, "padded_size")
+        plan = tplan.lower(srv.specs["jacobi2d"], (512, 512), "float64",
+                           backend="cuda", sweeps=4)
+    add(ran1)
+    add(ran2)
+    for label, res, stt, ran, pred in (("serve", res1, st1, ran1, pred1),
+                                       ("async", res2, st2, ran2, pred2)):
+        ok = all(r.device.type == "cpu" and torch.equal(r, w)
+                 for r, w in zip(res, incore))
+        slab[label] = {"bitwise": ok, "slab_streamed": stt.n_slab_streamed,
+                       "launches": named(ran)}
+        if not ok or stt.n_slab_streamed != len(big) or ran != pred:
+            failures.append(f"phase 2h (iii) {label}: bitwise {ok}, "
+                            f"slab_streamed {stt.n_slab_streamed}, launches "
+                            f"{named(ran)} (predicted {named(pred)})")
+    log(f"phase 2h (iii): jacobi2d (512, 512) x {len(big)} under a "
+        f"{budget / 2**20:.1f} MiB budget ({plan.ghost_strategy}, "
+        f"{len(plan.slabs or ())} slabs): {slab}")
+    log(f"phase 2h: {time.time() - t_phase:.1f}s; staging of a "
+        f"{SERVE_MAX_BUCKET}-grid bucket: first {stage_ms[0]:.3f} ms, then "
+        f"{stage_ms[1]:.3f}, {stage_ms[2]:.3f} ms")
+    return {"one_shot": {"seconds": st.seconds,
+                         "requests_per_s": st.requests_per_s,
+                         "points_per_s": st.points_per_s,
+                         "buckets": st.buckets,
+                         "sequential_s": st_seq.seconds,
+                         "n_bitwise": len(reqs) - len(bad)},
+            "per_bucket_launches": per_bucket, "async": async_runs,
+            "trace": trace, "slab": slab, "stage_ms": stage_ms,
+            "launches": launches}
+
+
+def serving_times(smi):
+    """Phase 3's serving times: the per-bucket dispatch overhead (the
+    host's time per bucket call beyond its device time), the cost of
+    padding a 33-grid bucket to its tier, and the 48-grid jacobi2d block
+    at the auto tile beside pad-free split tiles."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import PAPER_STENCILS
+    from repro_torch.core import plan as tplan
+    from repro_torch.serve import StencilRequest, StencilServer
+    rng = np.random.default_rng(SEED + 1)
+    spec = PAPER_STENCILS["jacobi2d"]
+    bh = tplan.batch_handle(spec, "cuda", 4, None, "cuda")
+    grids = [rng.standard_normal((32, 64)) for _ in range(64)]
+    srv = StencilServer(backend="cuda", sweeps=4)
+    one = [StencilRequest("jacobi2d", grids[0], 8)]
+    out = {}
+
+    def handle_call(gs):
+        return lambda: bh.fetch(bh.dispatch(bh.stage(gs), 8))
+
+    def host_and_device(fn, rounds=7, reps=200):
+        """The wall time per call in each of ``rounds`` rounds of
+        ``reps`` calls, and the device time per call that a
+        ``torch.profiler`` trace of 50 calls shows."""
+        walls = [wall_ms(fn, reps, warmup=20) for _ in range(rounds)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+        events = trace_events(prof, os.path.join(ROOT, "build",
+                                                 "dispatch_trace.json"))
+        dev = busy(spans(events, is_device)) / 50 / 1e3
+        over = sorted((w - dev) / 1e3 for w in walls)
+        return {"wall_ms": walls, "device_ms": dev, "overhead_s_rounds": over,
+                "overhead_s": statistics.median(over)}
+
+    out["dispatch"] = d = host_and_device(handle_call(grids[:1]))
+    out["dispatch_serve"] = ds = host_and_device(lambda: srv.serve(one))
+    log(f"phase 3 serving: dispatch overhead per bucket (BatchHandle "
+        f"stage+dispatch+fetch of one jacobi2d (32, 64) grid, iters=8; "
+        f"wall per call in 7 rounds of 200, less the traced device time "
+        f"{d['device_ms']:.4f} ms): median {d['overhead_s'] * 1e6:.1f} us, "
+        f"rounds {[round(o * 1e6, 1) for o in d['overhead_s_rounds']]}; "
+        f"StencilServer.serve of one request: median "
+        f"{ds['overhead_s'] * 1e6:.1f} us, rounds "
+        f"{[round(o * 1e6, 1) for o in ds['overhead_s_rounds']]} | card "
+        f"{smi}")
+    # padding: 33 grids against the same 33 padded to their tier, 64
+    pad = {}
+    for n, gs in (("33", grids[:33]), ("64 (33 + 31 pad rows)",
+                                       grids[:33] + [grids[0]] * 31)):
+        wall = wall_ms(handle_call(gs), 50, warmup=5)
+        staged = bh.stage(gs)
+        dev_grid = staged.tensor
+        torch.cuda.synchronize()
+        plan = staged.plan
+        pad[n] = {"wall_ms": wall,
+                  "device_ms": time_ms(lambda: tplan.run_plan(
+                      plan, dev_grid, 8), 50)}
+    out["padding"] = pad
+    log(f"phase 3 serving: a 33-grid bucket (iters=8) unpadded vs at its "
+        f"tier: {pad} | card {smi}")
+    # the 48-grid bucket: one block at the auto tile and at pad-free split
+    # tiles (Queue 3; logged only)
+    g48 = torch.from_numpy(np.stack(grids[:48])).cuda()
+    tiles = {}
+    for tile in ("auto", (16, 32), (8, 32), (16, 64)):
+        plan = tplan.lower(spec, (32, 64), torch.float64, backend="cuda",
+                           sweeps=4, tile=tile)
+        tiles[str(tile)] = {"tile": list(plan.tile),
+                            "strategy": plan.ghost_strategy,
+                            "ms": time_ms(lambda: tplan.execute(plan, g48),
+                                          50)}
+    out["tiles48"] = tiles
+    log(f"phase 3 serving: jacobi2d (32, 64) x 48, one block (sweeps=4): "
+        f"{tiles} | card {smi}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -393,9 +850,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
+    card_kind = torch.cuda.get_device_name(0)
     rate_key, (hbm_bw, peak_f64, peak_f32, peak_bf16_tc, peak_tf32_tc,
-               peak_f16_tc) = card_rates(name)
+               peak_f16_tc) = card_rates(card_kind)
     log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | rates of {rate_key}: {hbm_bw:.3g} B/s, f64 {peak_f64:.3g}, "
         f"f32 {peak_f32:.3g}, tensor bf16 {peak_bf16_tc:.3g}, TF32 "
@@ -967,6 +1424,12 @@ def main() -> int:
         raise SystemExit("phase 1 failed:\n" + "\n".join(failures[:40]))
 
     # ---- phase 2: the engine, counted per main path -----------------------
+    # every plan phases 2 and 3 lower is verified for the card's device
+    # string (repro_torch.analysis): a finding raises
+    os.environ["CASPER_VERIFY"] = "strict"
+    from repro_torch import analysis as tanalysis
+    from repro_torch.analysis import launch_lint as tlint
+    verified0 = tanalysis.counters()["verifications"]
     def plan_of(eng, case, g):
         """The engine's plan for a case; a case that names a strategy
         (``padded-window``: K2/K4 on a row the plan now sends to K1/K3)
@@ -1037,11 +1500,7 @@ def main() -> int:
         return grids, plans, results, launches
 
     def kernel_of(plan):
-        if not plan.fused:
-            return "staged"
-        return {(False, "pad-free"): "K1", (False, "padded-window"): "K2",
-                (True, "pad-free"): "K3", (True, "padded-window"): "K4"}[
-                    (plan.is_pipeline, plan.ghost_strategy)]
+        return "staged" if not plan.fused else tlint.kernel_of(plan)
 
     grids, plans, results, launches = drive(cases, "a")
     if min(launches[k] for k in ("K1", "K2")) < 1:
@@ -1364,38 +1823,17 @@ def main() -> int:
         kstream.execute_plan(t_plan, hosts[1])
         torch.cuda.synchronize()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    trace_path = os.path.join(ROOT, "build", "slab_trace.json")
-    prof.export_chrome_trace(trace_path)
-    with open(trace_path) as fh:
-        events = [e for e in json.load(fh).get("traceEvents", [])
-                  if e.get("ph") == "X" and "dur" in e]
-
-    def spans(pred):
-        return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                for e in events if pred(e)]
-
-    def meet(a, b):
-        return a[0] < b[1] and b[0] < a[1]
-
-    h2d = spans(lambda e: e.get("cat") == "gpu_memcpy"
+    events = trace_events(prof, os.path.join(ROOT, "build",
+                                             "slab_trace.json"))
+    h2d = spans(events, lambda e: e.get("cat") == "gpu_memcpy"
                 and "HtoD" in e.get("name", ""))
-    d2h = spans(lambda e: e.get("cat") == "gpu_memcpy"
+    d2h = spans(events, lambda e: e.get("cat") == "gpu_memcpy"
                 and "DtoH" in e.get("name", ""))
-    k2 = spans(lambda e: e.get("cat") == "kernel"
+    k2 = spans(events, lambda e: e.get("cat") == "kernel"
                and "casper_" in e.get("name", ""))
     both = [h for h in h2d if any(meet(h, k) for k in k2)
             and any(meet(h, d) for d in d2h)]
-
-    def busy(iv):
-        """Time (us) covered by the union of the intervals ``iv``."""
-        total, end = 0.0, -math.inf
-        for a, b in sorted(iv):
-            if b > end:
-                total += b - max(a, end)
-                end = b
-        return total
-    device = spans(lambda e: e.get("cat") in ("kernel", "gpu_memcpy",
-                                              "gpu_memset"))
+    device = spans(events, is_device)
     span = (max(b for _, b in device) - min(a for a, _ in device)
             if device else 0.0)
     trace_info = {"case": t_label, "h2d_copies": len(h2d),
@@ -1481,6 +1919,11 @@ def main() -> int:
                     for k, v in paper_model.items()))
     if failures:
         raise SystemExit("phase 2f/2g failed:\n" + "\n".join(failures))
+
+    # ---- phase 2h: serving on the card ------------------------------------
+    serve = serving_phase(failures, smi)
+    if failures:
+        raise SystemExit("phase 2h failed:\n" + "\n".join(failures))
 
     # ---- phase 2c: sliding-window attention at gemma2-27b's width --------
     cfg = GEMMA2_LOCAL
@@ -1648,6 +2091,7 @@ def main() -> int:
                f"entry ({'K1/K3' if plan.ghost_strategy != 'pad-free' else 'pad + K2/K4'}) {other_ms:.4f}"))
     if failures:
         raise SystemExit("phase 3 failed:\n" + "\n".join(failures))
+    serving = serving_times(smi)
 
     # ---- phase 3, tile="auto": the tuned tile against the default and
     # the measured candidates, all timed in turn (kernels.tune.measure_tiles)
@@ -1926,6 +2370,16 @@ def main() -> int:
         if kname is not None:
             e["launches"] += launches_where(sresults, scases, kname, pred)
             e["launches_of"] += " and 2d (serving)"
+    # phase 2h's launches (serving on the card), by kernel and rank
+    for (kname, rank3), n in serve["launches"].items():
+        entry = {("K1", False): "K1", ("K2", False): "K2",
+                 ("K1", True): "K1 rank 3 (heat3d)",
+                 ("K2", True): "K2 rank 3", ("K3", False): "K3",
+                 ("K4", False): "K4"}[(kname, rank3)]
+        e = next(e for e in kernels if e["name"] == entry)
+        e["launches"] += n
+        if "2h" not in e["launches_of"]:
+            e["launches_of"] += " and 2h (servers)"
     for e in kernels:
         log(f"  kernels line {e['name']:18s} {e['spec']:20s} "
             f"{str(tuple(e['shape'])):16s} {e['ms']:8.4f} ms | bound "
@@ -2125,12 +2579,19 @@ def main() -> int:
                    "slab_repairs": rresults,
                    "vm_cases": vresults, "paper_model": paper_model,
                    "host_ram": mem,
-                   "seconds": time.time() - t_start}, fh, indent=1)
+                   "serving": serve | {"launches": named(serve["launches"])},
+                   "serving_times": serving,
+                   "plans_verified": tanalysis.counters()["verifications"]
+                   - verified0,
+                   "seconds": time.time() - t_start}, fh, indent=1,
+                  default=str)
+    log(f"phases 2-3: {tanalysis.counters()['verifications'] - verified0} "
+        f"plans verified strictly, no finding")
     log(f"total {time.time() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card_kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

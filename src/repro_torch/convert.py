@@ -7,7 +7,9 @@ object with ``name/ndim/taps/boundary/structure`` (a ``repro`` spec,
 duck-typed — the JAX package is never imported), :func:`grid_from_numpy`
 puts a numpy grid on a device and :func:`tensor_from_numpy` puts a numpy
 array there in a given dtype.  The parity tests feed both packages the
-same inputs through these.
+same inputs through these.  For serving, :func:`request_from_reference`
+and :func:`serve_config_from_reference` carry a reference request or
+serving config across, duck-typed likewise.
 """
 from __future__ import annotations
 
@@ -40,3 +42,21 @@ def tensor_from_numpy(a, dtype: torch.dtype, device="cpu") -> torch.Tensor:
     happens on the torch side; from an f32 array to bfloat16 it rounds to
     nearest even, as ``jnp.asarray(a, jnp.bfloat16)`` does."""
     return grid_from_numpy(a, device).to(dtype)
+
+
+def request_from_reference(obj):
+    """A ``repro_torch`` serving request equal to ``obj`` (an object with
+    ``spec_name/grid/iters``; the grid becomes a numpy array)."""
+    from .serve.stencil import StencilRequest
+    return StencilRequest(str(obj.spec_name), np.asarray(obj.grid),
+                          int(obj.iters))
+
+
+def serve_config_from_reference(obj):
+    """A ``repro_torch`` :class:`~repro_torch.serve.ServeConfig` with
+    ``obj``'s fields.  Its ``x64`` is dropped: torch keeps float64 grids
+    float64 without a switch."""
+    from .serve.scheduler import ServeConfig
+    return ServeConfig(**{f: getattr(obj, f) for f in (
+        "max_bucket_size", "max_wait_s", "queue_depth",
+        "default_deadline_s", "shed_policy", "pad_buckets")})

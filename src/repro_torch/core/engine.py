@@ -137,8 +137,18 @@ class CasperEngine:
         a CPU tensor too."""
         return self._run(grid, iters)
 
-    def analyze(self, *args, **kwargs):
-        raise _plan.not_ported("verify")
+    def analyze(self, shape: Sequence[int], dtype=None, *,
+                sweeps: int | None = None, lint: bool = True):
+        """The static analysis of the plan this engine uses for ``shape``
+        (``dtype`` defaults to float32): the invariant catalog (run, and
+        cached, when the plan was lowered) and, when ``lint``, the launch
+        lint (dtype contract, FMA contraction, fused vs staged bytes,
+        launches).  See :mod:`repro_torch.analysis`."""
+        from .. import analysis
+        if dtype is None:
+            dtype = torch.float32
+        plan = self.plan_for(shape, dtype, sweeps=sweeps)
+        return analysis.analyze_plan(plan, lint=lint)
 
     def distributed_fn(self, *args, **kwargs):
         raise _plan.not_ported("mesh")

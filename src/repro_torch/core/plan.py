@@ -50,17 +50,20 @@ Differences from the reference, by design:
   (:func:`stays_on_host`: a batch that fits one grid at a time but not
   together runs in core a part at a time).
 
+Every new plan is statically verified before it enters the cache
+(:mod:`repro_torch.analysis`): ``CASPER_VERIFY=strict`` raises, and the
+plan is not cached; the default warns.  Serving runs a stacked bucket
+through the same runner in phases (:class:`BatchHandle`).
 What the port does not have yet raises ``NotImplementedError`` naming
-its ROADMAP item: ``mesh`` (item 9) and strict static verification
-(item 10).
+its ROADMAP item: ``mesh`` (item 9).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-import os
 import threading
+import time
 from collections import OrderedDict
 from typing import Sequence
 
@@ -128,7 +131,6 @@ HOPPER_TILES: dict[int, tuple[tuple[int, ...], ...]] = {
 _NOT_PORTED = {
     "mesh": "distributed plans (mesh / deep halo exchange): ROADMAP "
             "Queue 1 item 9",
-    "verify": "the static plan verifier: ROADMAP Queue 1 item 10",
 }
 
 
@@ -667,17 +669,18 @@ class PlanCache:
             self.autotune_calls = self.evictions = 0
 
 
-#: Environment switch of the reference's plan verifier (``off`` /
-#: ``warn`` / ``strict``).
+#: Environment switch of the plan verifier (``off`` / ``warn`` /
+#: ``strict``).
 VERIFY_ENV = "CASPER_VERIFY"
 
 
 def _verify_new_plan(plan) -> None:
-    """The reference statically verifies each new plan.  The port has no
-    verifier yet, so a caller who demands it (``CASPER_VERIFY=strict``)
-    gets an error instead of an unverified plan."""
-    if os.environ.get(VERIFY_ENV, "warn") == "strict":
-        raise not_ported("verify")
+    """Static verification of a freshly lowered plan
+    (:func:`repro_torch.analysis.verify_and_record`): strict mode raises
+    before the plan enters the cache, the default warns.  Imported here,
+    not at the top: the analysis package imports this module."""
+    from .. import analysis
+    analysis.verify_and_record(plan)
 
 
 #: The process-wide plan cache, shared by every engine.
@@ -1020,10 +1023,159 @@ def runner(spec, backend: str, sweeps: int, tile_req,
     return run
 
 
+#: Per device, the side streams serving buckets copy on: ``(h2d, d2h)``.
+_COPY_STREAMS: dict = {}
+_COPY_LOCK = threading.Lock()
+
+
+def _copy_streams(device: torch.device):
+    with _COPY_LOCK:
+        key = str(device)
+        if key not in _COPY_STREAMS:
+            _COPY_STREAMS[key] = (torch.cuda.Stream(device),
+                                  torch.cuda.Stream(device))
+        return _COPY_STREAMS[key]
+
+
+@dataclasses.dataclass
+class Staged:
+    """One bucket after :meth:`BatchHandle.stage`: its plan, its grids
+    (``tensor``: on the device, or on the host when the plan keeps them
+    there: ``on_host``, :func:`stays_on_host`), the event its upload
+    recorded on the copy stream, and the host time staging took
+    (``stage_ms``).  :meth:`BatchHandle.dispatch` takes the tensor out
+    (``tensor`` is then ``None``)."""
+
+    plan: ExecutionPlan
+    tensor: torch.Tensor | None
+    event: object = None
+    stage_ms: float = 0.0
+    on_host: bool = False
+
+
+@dataclasses.dataclass
+class Dispatched:
+    """One bucket after :meth:`BatchHandle.dispatch`: its result (on the
+    device, or on the host for a bucket run from the host) and the event
+    its compute recorded."""
+
+    result: torch.Tensor
+    event: object = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchHandle:
+    """The three phases of one bucket, both servers' execution primitive
+    (:mod:`repro_torch.serve`): :func:`runner`'s path on a stacked batch,
+    one launch per block for the whole bucket (the reference vmaps its
+    single-grid runner).
+
+    ``stage`` stacks the bucket into pinned host memory (the host
+    allocator's cached blocks are reused across buckets) and starts its
+    upload with a ``non_blocking`` copy on a side stream, recording an
+    event; ``dispatch`` makes the caller's current stream wait on that
+    event and enqueues the bucket's blocks there (the kernels launch on
+    the current stream), recording another; ``fetch`` copies the result
+    into pinned host memory on a second side stream that waits on the
+    dispatch's event, synchronizes on its own event only and hands out a
+    pageable copy (the pinned block goes back to the host allocator's
+    cache for the next bucket: pinning a fresh one costs far more than
+    the copy).
+
+    ``dispatch`` takes the staged tensor out of its :class:`Staged` (the
+    reference's donation): the device copy is freed once the first block
+    has read it.  A bucket its plan leaves on the host
+    (:func:`stays_on_host`) is not uploaded: ``dispatch`` runs it on the
+    slab executor, which returns a host tensor.  On the CPU the phases
+    run in turn, without streams."""
+
+    spec: StencilSpec | StencilPipeline
+    backend: str
+    sweeps: int
+    tile_request: object
+    device: str
+
+    def stage(self, grids: Sequence) -> Staged:
+        """Stack one bucket's grids (numpy arrays or tensors of one shape
+        and dtype) on the host and start its upload."""
+        t0 = time.perf_counter()
+        dev = torch.device(self.device)
+        first = grids[0]
+        if isinstance(first, np.ndarray):
+            dtype = canonical_dtype(first.dtype)
+        else:
+            dtype = first.dtype
+        shape = (len(grids),) + tuple(first.shape)
+        plan = lower(self.spec, shape[1:], dtype, backend=self.backend,
+                     sweeps=self.sweeps, tile=self.tile_request,
+                     device=self.device)
+        pinned = dev.type == "cuda"
+        host = torch.empty(shape, dtype=dtype, pin_memory=pinned)
+        if dtype != torch.bfloat16 and all(isinstance(g, np.ndarray)
+                                           for g in grids):
+            np.stack(grids, out=host.numpy())
+        else:
+            torch.stack([torch.as_tensor(g).cpu() for g in grids], out=host)
+        on_host = stays_on_host(plan, host)
+        if not pinned or on_host:
+            return Staged(plan, host, None,
+                          (time.perf_counter() - t0) * 1e3, on_host)
+        h2d, _ = _copy_streams(dev)
+        with torch.cuda.stream(h2d):
+            staged = host.to(dev, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(h2d)
+        return Staged(plan, staged, event, (time.perf_counter() - t0) * 1e3)
+
+    def dispatch(self, staged: Staged, iters: int) -> Dispatched:
+        """Enqueue the bucket's ``iters`` applications on the current
+        stream, after its upload."""
+        held = [staged.tensor]
+        staged.tensor = None
+        if staged.event is None:
+            return Dispatched(run_owned(staged.plan, held, iters))
+        compute = torch.cuda.current_stream(held[0].device)
+        compute.wait_event(staged.event)
+        # allocated on the copy stream, read here: the allocator must not
+        # hand its memory to the next upload before these blocks ran
+        held[0].record_stream(compute)
+        out = run_owned(staged.plan, held, iters)
+        event = torch.cuda.Event()
+        event.record(compute)
+        return Dispatched(out, event)
+
+    def fetch(self, dispatched: Dispatched) -> torch.Tensor:
+        """The bucket's result as a pageable host tensor, once its
+        download has finished."""
+        out = dispatched.result
+        if dispatched.event is not None and out.device.type == "cuda":
+            _, d2h = _copy_streams(out.device)
+            d2h.wait_event(dispatched.event)
+            with torch.cuda.stream(d2h):
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                out.record_stream(d2h)
+                done = torch.cuda.Event()
+                done.record(d2h)
+            done.synchronize()
+            out = host
+        return out.clone() if out.is_pinned() else out
+
+
+def batch_handle(spec: StencilSpec | StencilPipeline, backend: str,
+                 sweeps: int, tile_req, device) -> BatchHandle:
+    """The :class:`BatchHandle` of one server configuration."""
+    return BatchHandle(spec, backend, sweeps,
+                       canonical_tile_request(tile_req),
+                       canonical_device(device))
+
+
 def runner_cache_stats() -> dict:
     """Hit/miss counters of the runner cache (a hit: a second engine
     re-used the first's callable), beside the plan cache's
-    ``autotune_calls``.  The reference's ``batch_runner`` waits for
-    serving (ROADMAP Queue 1 item 8)."""
+    ``autotune_calls``.  The reference's ``batch_runner`` has no
+    counterpart: a bucket runs :func:`runner`'s path through
+    :class:`BatchHandle`."""
     return {"runner": runner.cache_info()._asdict(),
             "autotune_calls": PLAN_CACHE.stats()["autotune_calls"]}

@@ -58,6 +58,11 @@ from . import _build
 #: attention, counts from ``kernels/swa.py``).
 LAUNCHES: dict[str, int] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 
+#: The launches of :data:`LAUNCHES` on rank-3 grids (K1-K4 on the
+#: streamed kernel), counted at the same place: a run's split by rank
+#: is read from the run itself.
+RANK3_LAUNCHES: dict[str, int] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+
 #: The CUDA source that holds K1-K4.
 SOURCE = "stencil.cu"
 
@@ -76,8 +81,9 @@ _ENTRY = {torch.float32: "casper_stencil_f32",
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, RANK3_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -334,6 +340,8 @@ def _launch(kernel: str, spec, src: torch.Tensor, out: torch.Tensor, *,
         raise RuntimeError(f"{kernel} launch failed: "
                            f"{lib.casper_error_string(err).decode()}")
     LAUNCHES[kernel] += 1
+    if src.dim() == 4:
+        RANK3_LAUNCHES[kernel] += 1
     if counter is not None:
         _TILE_RECORDS.append({
             "kernel": kernel, "path": path, "stream": streamed,

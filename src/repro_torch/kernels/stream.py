@@ -381,23 +381,31 @@ def execute_plan(plan, grid: torch.Tensor) -> torch.Tensor:
     return _run_sequence([plan], grid)
 
 
-def _run_batch_in_parts(plan, grid: torch.Tensor,
-                        iters: int) -> torch.Tensor:
-    """A batch whose in-core blocks fit the budget one grid at a time but
-    not together: as many grids at a time as the run's block plans fit
-    (``plan.incore_device_bytes``), each part copied to the device, run
-    in core and copied back into one host batch (pinned on a CUDA
-    device)."""
+def part_size(plan, batch: int, iters: int) -> int:
+    """Grids of a batch that :func:`run_plan_streamed` runs in core at a
+    time when the batch stays on the host though one grid fits: the most
+    whose blocks (``plan.incore_device_bytes``, the remainder's too) fit
+    the budget together."""
     q, r = plan.decompose(iters)
     blocks = [plan] + ([plan.remainder(r)] if plan.fused and r else [])
 
     def fits(m):
         return all(_plan.incore_device_bytes(p, m) <= plan.slab_budget
                    for p in blocks)
-    lo, hi = 1, grid.shape[0]
+    lo, hi = 1, batch
     while lo < hi:
         mid = (lo + hi + 1) // 2
         lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+def _run_batch_in_parts(plan, grid: torch.Tensor,
+                        iters: int) -> torch.Tensor:
+    """A batch whose in-core blocks fit the budget one grid at a time but
+    not together: :func:`part_size` grids at a time, each part copied to
+    the device, run in core and copied back into one host batch (pinned
+    on a CUDA device)."""
+    lo = part_size(plan, grid.shape[0], iters)
     LAST_RUN.update(pin_ms=0.0, stage_ms=0.0, pinned_bytes=0, issue_ms=0.0)
     out = _host_empty(grid.shape, grid.dtype,
                       torch.device(plan.device).type == "cuda")

@@ -169,13 +169,14 @@ def test_not_ported_paths_raise_with_their_roadmap_item(monkeypatch):
         tplan.lower(spec, (8, 8), torch.float64, mesh=object(),
                     grid_axes=("x", None), device="cpu")
     eng = CasperEngine(spec, backend="cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        eng.analyze((8, 8))
     with pytest.raises(NotImplementedError, match="item 9"):
         eng.distributed_fn(None, ("x", None))
+    # item 10 is ported: analyze reports, strict verification verifies
+    from repro_torch import analysis
+    assert eng.analyze((8, 8)).ok
     monkeypatch.setenv("CASPER_VERIFY", "strict")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tplan.lower(spec, (8, 9), torch.float64, device="cpu")
+    plan = tplan.lower(spec, (8, 9), torch.float64, device="cpu")
+    assert analysis.report_for(plan).ok
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,12 @@
 Importing the port must load neither ``jax`` nor any ``repro`` module
 and must not need ``triton`` or ``nvcc`` (kernels are built at first
 use); a subprocess with those imports blocked runs a stencil and both
-paper pipelines through ``CasperEngine`` and sliding-window attention
-through ``kernels.ops.swa``, and an AST scan of the package's sources
-and of ``chip_smoke.py`` finds no such import.
+paper pipelines through ``CasperEngine``, analyzes a plan
+(``repro_torch.analysis``), serves the reference's mix
+(``repro_torch.serve``) and runs sliding-window attention through
+``kernels.ops.swa``, and an AST scan of the package's sources (the
+analysis and serving modules among them) and of ``chip_smoke.py`` finds
+no such import.
 """
 import ast
 import os
@@ -41,6 +44,13 @@ for pipe in PAPER_PIPELINES.values():
     out = CasperEngine(pipe, backend="cuda", device="cpu", sweeps=2).run(
         np.ones((40, 70)), iters=3)
     assert out.shape == (40, 70)
+from repro_torch import analysis, serve
+plan = engine._plan.lower(spec, (40, 70), torch.float64, backend="cuda",
+                          sweeps=2, device="cpu")
+assert analysis.analyze_plan(plan).ok
+srv = serve.StencilServer(backend="cuda", sweeps=2, device="cpu")
+res, stats = srv.serve(serve.mixed_requests(8, seed=7, dtype=np.float64))
+assert stats.n_buckets >= 1 and all(r.device.type == "cpu" for r in res)
 q, kv = torch.ones(1, 4, 50, 16), torch.ones(1, 2, 50, 16)
 assert ops.swa(q, kv, kv, window=8, tq=32, softcap=50.0).shape == q.shape
 bad = [m for m in sys.modules
@@ -72,6 +82,10 @@ def test_sources_import_no_jax_and_no_repro():
     assert len(files) >= 10
     assert PORT / "kernels" / "swa.py" in files
     assert PORT / "kernels" / "ops.py" in files
+    for mod in ("analysis/verify.py", "analysis/launch_lint.py",
+                "analysis/serve_check.py", "analysis/casper_lint.py",
+                "serve/stencil.py", "serve/scheduler.py", "serve/loadgen.py"):
+        assert PORT / mod in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for mod in _imports(tree):
