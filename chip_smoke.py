@@ -46,7 +46,11 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    f32, with slabs shallower than their overlap among them (each window
    bitwise equal to the oracle's ``pad_boundary`` of the whole grid,
    ``deep_halo`` wide on every dim, cut to the slab's rows; each slab to
-   the plain version);
+   the plain version); and K2 and K4 on shard windows (the global grid's
+   ``pad_boundary`` cut to a shard, what the distributed exchange builds)
+   with the shard's origin non-zero on every axis, ranks 2 and 3 (K2 on
+   the streamed kernel in rank 3, K4 on a rank-3 fuzz chain), every
+   boundary mode, f64/f32/bf16, one sweep and a fused block;
 2. runs the engine — ``CasperEngine(spec, backend="cuda",
    sweeps=4).run(grid, iters=10)``, all f64, each bitwise equal to
    ``backend="ref"`` on the card, on each main path below, with the launch
@@ -115,9 +119,32 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    bucket k+1's upload overlaps bucket k's kernels is logged, not
    gated); (iii) jacobi2d (512, 512)
    buckets past a forced ``CASPER_SLAB_BUDGET`` through both servers: on
-   the host, bitwise equal to in core, counted ``slab_streamed``.  Every
-   plan of phases 2 and 3 is lowered under ``CASPER_VERIFY=strict``
-   (``repro_torch.analysis``): a finding fails the run;
+   the host, bitwise equal to in core, counted ``slab_streamed``; (i)
+   the distributed path: eight ranks spawned over gloo
+   (``tests/_dist_world.py``, the mesh a ``DeviceMesh`` on ``"cpu"``,
+   every shard on the one card, the exchanges through pinned host
+   buffers), each running ``distributed_stencil_fn`` /
+   ``CasperEngine.distributed_fn`` with ``backend="cuda"`` (K2/K4 on its
+   exchanged window) and ``"ref"``: (i) the reference's matrices at the
+   reference's shapes, all in f64 (the six paper stencils on (8,) and
+   (4, 2) meshes, the six temporal-blocking cases with multi-hop gathers,
+   a sliver mesh and remainders, the 32-case boundary matrix, a fused
+   reaction_diffusion2d and a chain that cannot fuse), every gathered
+   result bitwise equal to the single-device ``CasperEngine(...).run`` on
+   the card and to ``backend="ref"``, sweeps=4 bitwise equal to four
+   sweeps=1 steps with at least three times their exchange rounds,
+   periodic rounds equal to zero's, and on every rank each run's rounds
+   and launches equal to the launch lint's prediction; (ii) full width,
+   f64, iters=10, sweeps=4, mesh (4, 2): jacobi2d zero 8192^2 and
+   reaction_diffusion2d reflect 8192^2 on ``("sx", "sy")`` and heat3d
+   zero 512x512x256 on ``("sx", "sy", None)``, each shard bitwise equal
+   to its block of the single-device run, logged per rank with each
+   step's wall time, window time (exchange, staging, padding) and kernel
+   device time (CUDA events), rounds, launches and peak device memory
+   (eight processes share the card: contended times); a rank that fails
+   fails the phase.  Every plan of phases 2 and 3 is lowered under
+   ``CASPER_VERIFY=strict`` (``repro_torch.analysis``): a finding fails
+   the run;
 3. times one fused block per phase-2 case with CUDA events (median),
    beside its bound (the larger of one read and one write of the grid at
    the HBM rate and the f64 operations the contract fixes per point and
@@ -152,7 +179,8 @@ Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 kernel, K1/K2 of 3-D specs on the streamed kernel, K3, K4, K5 bf16, f16
 and f32; K2 and K4 carry the serving rows under ``rows``; K2, K2 rank 3
 and K4 count their phase-2f slab launches; each entry adds the phase-2h
-launches its wrapper counted, by rank) before the last line, which is ``{"ok": true, "device": {...}}``.  Full
+launches its wrapper counted, by rank; K2, K2 rank 3 and K4 add the
+phase-2i ranks' launches) before the last line, which is ``{"ok": true, "device": {...}}``.  Full
 results go to ``build/chip_smoke.json``.  Exits non-zero, printing
 no result, when CUDA is missing or any check fails.
 """
@@ -738,6 +766,139 @@ def serving_phase(failures, smi):
             "launches": launches}
 
 
+def load_helper(name):
+    """A helper module of ``tests/`` by path (a site package may own the
+    name ``tests``)."""
+    path = os.path.join(ROOT, "tests", f"{name}.py")
+    loader = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(loader)
+    loader.loader.exec_module(mod)
+    return mod
+
+
+def distributed_phase(failures, smi, gen):
+    """Phase 2i: the distributed path, eight ranks on the card (see the
+    module docstring).  Returns the phase's record, with the K2/K4
+    launches the ranks counted (``launches``: per kernels-line entry)."""
+    import numpy as np
+    import repro_torch as rt
+    world = load_helper("_dist_world")
+    t_phase = time.time()
+    out_dir = os.path.join(ROOT, "build", "dist2i")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    single = {}
+    for key, desc, shape, axes in world.CHIP_FULL:
+        spec = world.build_spec(desc, rt)
+        g = randn(shape, torch.float64, gen)
+        eng = rt.CasperEngine(spec, backend="cuda", sweeps=world.CHIP_SWEEPS)
+        eng.run(g, iters=world.CHIP_SWEEPS)                 # lowers, warms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = eng.run(g, iters=world.CHIP_ITERS)
+        torch.cuda.synchronize()
+        single[key] = (time.perf_counter() - t0) * 1e3
+        np.save(os.path.join(out_dir, f"{key}_in.npy"), g.cpu().numpy())
+        np.save(os.path.join(out_dir, f"{key}_want.npy"), want.cpu().numpy())
+        del g, want
+        torch.cuda.empty_cache()
+    log(f"phase 2i: single-device runs (engine.run, iters="
+        f"{world.CHIP_ITERS}, sweeps={world.CHIP_SWEEPS}, the reference "
+        f"results) in {time.time() - t_phase:.1f}s: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in single.items()))
+    t0 = time.time()
+    ranks = world.run_world("chip", 8, out_dir, device="cuda", timeout=600)
+    log(f"phase 2i: 8 ranks over gloo ({ranks[0]['mesh']}; exchanges "
+        f"through pinned host buffers: {ranks[0]['staged_through_host']}), "
+        f"one world in {time.time() - t0:.1f}s | card {smi}")
+    n_checks = 0
+    for rec in ranks:
+        for name, (ok, detail) in rec["checks"].items():
+            n_checks += 1
+            if not ok:
+                failures.append(f"phase 2i rank {rec['rank']} {name}: "
+                                f"{detail}")
+    n_cases = len(world.cases("float64"))
+    log(f"phase 2i (i): {n_cases} cases x (cuda, ref) on every rank; rank 0 "
+        f"held the {2 * n_cases} gathered f64 results bitwise against the "
+        f"single-device run on the card and backend='ref'; {n_checks} "
+        f"checks on 8 ranks, {len(failures)} failed")
+    entries = {"K2": 0, "K2 rank 3": 0, "K4": 0}
+
+    def add(launches, rank3):
+        extra = {k for k, v in launches.items() if v} - {"K2", "K4"}
+        if extra:
+            failures.append(f"phase 2i: launched {sorted(extra)} besides "
+                            "K2/K4")
+        entries["K2"] += launches.get("K2", 0) - rank3.get("K2", 0)
+        entries["K2 rank 3"] += rank3.get("K2", 0)
+        entries["K4"] += launches.get("K4", 0)
+    for rec in ranks:
+        i = rec["i"]
+        add(i["launches"], i["rank3"])
+        if min(i["launches"]["K2"], i["launches"]["K4"]) < 1:
+            failures.append(f"phase 2i (i) rank {rec['rank']}: K2/K4 not "
+                            f"both launched: {i['launches']}")
+        log(f"  2i (i) rank {rec['rank']}: launches "
+            f"{ {k: v for k, v in i['launches'].items() if v} } (rank 3: "
+            f"{ {k: v for k, v in i['rank3'].items() if v} }), exchange "
+            f"{i['exchange']['rounds']} rounds, {i['exchange']['self_copies']}"
+            f" self copies, {i['exchange']['bytes_sent']} B sent, "
+            f"{i['exchange']['seconds'] * 1e3:.1f} ms")
+    full = {}
+    for key, desc, shape, axes in world.CHIP_FULL:
+        rows = [rec["ii"][key] for rec in ranks]
+        for rec, row in zip(ranks, rows):
+            add(row["launches"], row["rank3"])
+            kname = "K4" if desc[0] == "pipeline" else "K2"
+            if not row["launches"].get(kname):
+                failures.append(f"phase 2i (ii) {key} rank {rec['rank']}: "
+                                f"{kname} never ran: {row['launches']}")
+            steps = row["steps"]
+            log(f"  2i (ii) {key} rank {rec['rank']}: shard "
+                f"{tuple(row['shard'])} tile {row['tile']}, wall "
+                f"{row['wall_ms']:.2f} ms for {len(steps)} steps (step ms "
+                f"{[round(x['step_ms'], 2) for x in steps]}, window "
+                f"(exchange + staging + pad) ms "
+                f"{[round(x['window_ms'], 2) for x in steps]}, "
+                f"{kname} device ms "
+                f"{[round(x['kernel_ms'], 3) for x in steps]}), rounds "
+                f"{row['exchange']['rounds']} ({row['exchange']['bytes_sent']}"
+                f" B sent), launches {row['launches']}, peak device "
+                f"{row['peak_bytes'] / 2**20:.1f} MiB, bitwise "
+                f"{row['bitwise_equal_single_device']}")
+        kernel = [x["kernel_ms"] for row in rows for x in row["steps"]]
+        window = [x["window_ms"] for row in rows for x in row["steps"]]
+        full[key] = {
+            "shape": list(shape), "grid_axes": list(axes),
+            "single_device_ms": single[key],
+            "wall_ms_median": statistics.median(r["wall_ms"] for r in rows),
+            "wall_ms_max": max(r["wall_ms"] for r in rows),
+            "kernel_ms_median": statistics.median(kernel),
+            "window_ms_median": statistics.median(window),
+            "peak_bytes_max": max(r["peak_bytes"] for r in rows),
+            "rounds_per_rank": [r["exchange"]["rounds"] for r in rows],
+            "bitwise_equal_single_device": all(
+                r["bitwise_equal_single_device"] for r in rows),
+            "ranks": rows}
+        log(f"phase 2i (ii) {key}: 8 ranks, iters={world.CHIP_ITERS}, "
+            f"sweeps={world.CHIP_SWEEPS}, mesh (4, 2): wall median "
+            f"{full[key]['wall_ms_median']:.2f} ms (max "
+            f"{full[key]['wall_ms_max']:.2f}) against the single-device run's"
+            f" {single[key]:.2f} ms; per step median window "
+            f"{full[key]['window_ms_median']:.2f} ms, kernel "
+            f"{full[key]['kernel_ms_median']:.3f} ms (8 processes share the"
+            f" card: contended times); peak device per rank <= "
+            f"{full[key]['peak_bytes_max'] / 2**20:.1f} MiB; bitwise "
+            f"{full[key]['bitwise_equal_single_device']} | card {smi}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"phase 2i: {time.time() - t_phase:.1f}s; ranks' K2/K4 launches "
+        f"{entries}")
+    return {"launches": entries, "full_width": full,
+            "ranks_i": [rec["i"] for rec in ranks],
+            "checks": n_checks, "seconds": time.time() - t_phase}
+
+
 def serving_times(smi):
     """Phase 3's serving times: the per-bucket dispatch overhead (the
     host's time per bucket call beyond its device time), the cost of
@@ -835,12 +996,8 @@ def main() -> int:
     from repro_torch.kernels import stream as kstream
     from repro_torch.kernels import swa as kswa
     from repro_torch.kernels import tune as ktune
-    # the fuzz corpus's chains (by path: a site package may own `tests`)
-    cases_path = os.path.join(ROOT, "tests", "_pipeline_cases.py")
-    loader = importlib.util.spec_from_file_location("_pipeline_cases",
-                                                    cases_path)
-    pipeline_cases = importlib.util.module_from_spec(loader)
-    loader.loader.exec_module(pipeline_cases)
+    # the fuzz corpus's chains
+    pipeline_cases = load_helper("_pipeline_cases")
     REGRESSION_CORPUS = pipeline_cases.REGRESSION_CORPUS
     random_pipeline = pipeline_cases.random_pipeline
 
@@ -1273,6 +1430,57 @@ def main() -> int:
         f"{max_err['K2 rank 3']}, K4 {max_err['K4']}")
     if not deep_slabs:
         failures.append("phase 1 slab: no slab shallower than its overlap")
+    # shard windows (phase 2i's path): K2 and K4 on the window a rank's
+    # exchange builds (the global grid's pad_boundary, deep_halo wide,
+    # cut to the shard: what core.halo's exchange returns, as the CPU
+    # tests hold), with the shard's origin non-zero on axis 1 (rank 2) and
+    # on axes 1 and 2 (rank 3) as well as axis 0; every boundary mode,
+    # f64/f32/bf16, one sweep and a fused block, against the plain version
+    shard_specs = [
+        (PAPER_STENCILS["jacobi2d"], (46, 75), (2, 3), (1, 4)),
+        (PAPER_STENCILS["blur2d"], (46, 75), (2, 3), (1, 4)),
+        (rd, (46, 75), (2, 3), (1, 4)), (ad, (46, 75), (2, 3), (1, 4)),
+        (PAPER_STENCILS["heat3d"], (24, 30, 44), (2, 3, 2), (1, 4)),
+        (PAPER_STENCILS["star33_3d"], (24, 30, 44), (2, 3, 2), (1, 2)),
+        (random_pipeline(42, 3, False, 2), (24, 30, 44), (2, 3, 2), (1, 2))]
+    n_shard = 0
+    for spec0, shape, split, sweeps_of in shard_specs:
+        nd = len(shape)
+        shard = tuple(n // k for n, k in zip(shape, split))
+        coords = ([(1, 1), (1, 2), (0, 2)] if nd == 2
+                  else [(1, 1, 1), (0, 2, 1), (1, 0, 1)])
+        for boundary, dtype, sweeps in itertools.product(
+                BOUNDARIES, DTYPES, sweeps_of):
+            spec = spec0.with_boundary(boundary)
+            g = randn(shape, dtype, gen)
+            deep = tuple(sweeps * h for h in spec.halo)
+            padded = tref.pad_boundary(g, deep, spec.boundary_mode,
+                                       spec.boundary_value)
+            fn, pfn = ((keng.pipeline_window_sweep,
+                        keng.pipeline_window_sweep_plain)
+                       if is_pipe(spec) else
+                       (keng.stencil_window_sweep,
+                        keng.stencil_window_sweep_plain))
+            kname = "K4" if is_pipe(spec) else "K2"
+            tile = tplan.normalize_tile(spec, None, sweeps,
+                                        g.element_size(), shard)
+            for c in coords:
+                origin = tuple(k * n for k, n in zip(c, shard))
+                w = padded[tuple(slice(o, o + n + 2 * d) for o, n, d in
+                                 zip(origin, shard, deep))].contiguous()
+                label = (f"phase 1 shard {spec.name} {boundary} {dtype} "
+                         f"{shape} origin {origin} s{sweeps}")
+                err = compare(kname, fn(spec, w, shard, origin, shape, tile,
+                                        sweeps),
+                              pfn(spec, w, shard, origin, shape, tile,
+                                  sweeps), dtype, label)
+                if tplan.streams(spec):
+                    max_err["K2 rank 3"] = max(max_err["K2 rank 3"], err)
+                n_shard += 1
+    log(f"phase 1: {n_shard} shard-window cases (K2 ranks 2-3, K4 ranks "
+        f"2-3; origins non-zero on every axis), max |err| K2 "
+        f"{max_err['K2']}, K2 rank 3 {max_err['K2 rank 3']}, K4 "
+        f"{max_err['K4']}")
     # every launch so far: its tiles by kind, its load path, and its
     # shared memory (the C library's) against plan.smem_bytes
     tiles, stream_tiles = {}, {}
@@ -1925,6 +2133,12 @@ def main() -> int:
     if failures:
         raise SystemExit("phase 2h failed:\n" + "\n".join(failures))
 
+    # ---- phase 2i: the distributed path, eight ranks on the card --------
+    torch.cuda.empty_cache()
+    distributed = distributed_phase(failures, smi, gen)
+    if failures:
+        raise SystemExit("phase 2i failed:\n" + "\n".join(failures[:40]))
+
     # ---- phase 2c: sliding-window attention at gemma2-27b's width --------
     cfg = GEMMA2_LOCAL
     swa_kw = {"window": cfg["window"], "tq": cfg["tq"],
@@ -2380,6 +2594,11 @@ def main() -> int:
         e["launches"] += n
         if "2h" not in e["launches_of"]:
             e["launches_of"] += " and 2h (servers)"
+    # phase 2i's launches: every rank's K2/K4 on its shard windows
+    for name, n in distributed["launches"].items():
+        e = next(e for e in kernels if e["name"] == name)
+        e["launches"] += n
+        e["launches_of"] += " and 2i (8 ranks, shard windows)"
     for e in kernels:
         log(f"  kernels line {e['name']:18s} {e['spec']:20s} "
             f"{str(tuple(e['shape'])):16s} {e['ms']:8.4f} ms | bound "
@@ -2580,7 +2799,7 @@ def main() -> int:
                    "vm_cases": vresults, "paper_model": paper_model,
                    "host_ram": mem,
                    "serving": serve | {"launches": named(serve["launches"])},
-                   "serving_times": serving,
+                   "serving_times": serving, "distributed": distributed,
                    "plans_verified": tanalysis.counters()["verifications"]
                    - verified0,
                    "seconds": time.time() - t_start}, fh, indent=1,

@@ -28,14 +28,16 @@ from .verify import (
     verify_mode,
     verify_plan,
 )
-from .launch_lint import LINT_CHECKS, lint_plan, predicted_launches
+from .launch_lint import (LINT_CHECKS, lint_plan, predicted_exchange_rounds,
+                          predicted_launches)
 from .serve_check import SHED_POLICIES, check_serve_config
 
 __all__ = [
     "CHECKS", "LINT_CHECKS", "Finding", "PlanVerificationError",
     "PlanVerificationWarning", "Report", "VERIFY_ENV", "VERIFY_MODES",
     "SHED_POLICIES", "analyze_plan", "check_serve_config", "clear_reports",
-    "counters", "lint_plan", "predicted_launches", "report_for",
+    "counters", "lint_plan", "predicted_exchange_rounds",
+    "predicted_launches", "report_for",
     "set_verify_mode", "summarize_plan", "verify_and_record", "verify_mode",
     "verify_plan",
 ]

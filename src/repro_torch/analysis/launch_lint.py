@@ -22,9 +22,11 @@ statically, on any host:
 * **launches** (``"launches"``) — the kernel launches the plan makes, an
   info finding: one per fused block, one per stage per chain application
   for a staged chain, one per slab for a streamed block
-  (:func:`predicted_launches`).  ``chip_smoke.py`` holds the prediction
-  against ``kernels.engine.LAUNCHES`` on the card; a fused ``cuda`` plan
-  whose strategy no kernel runs is an error.
+  (:func:`predicted_launches`); a distributed plan predicts per rank, one
+  K2/K4 per fused step and the exchange rounds of each step
+  (:func:`predicted_exchange_rounds`).  ``chip_smoke.py`` holds the
+  prediction against ``kernels.engine.LAUNCHES`` on the card; a fused
+  ``cuda`` plan whose strategy no kernel runs is an error.
 
 The VM backend runs no kernel and is skipped with an info finding.
 """
@@ -66,6 +68,38 @@ def _block(plan) -> Counter:
                                       if plan.streams_from_host else 1)})
 
 
+def _step_rounds(plan) -> int:
+    """Exchange rounds of one step of a distributed plan on each rank:
+    per sharded dim, two (one per direction) per hop that has a peer —
+    every hop on a wrap ring, the hops short of the mesh dim's extent
+    otherwise; a staged chain's stage plans, ``sweeps`` times over."""
+    if not plan.fused:
+        return plan.sweeps * sum(_step_rounds(plan.stage_plan(k))
+                                 for k in range(len(plan.stages)))
+    total = 0
+    for d, name in enumerate(plan.grid_axes):
+        if name is None or plan.deep_halo[d] == 0:
+            continue
+        hops = -(-plan.deep_halo[d] // plan.shard_shape[d])
+        if plan.exchange[d] != "wrap-ring":
+            hops = min(hops, _plan.mesh_axis_size(plan.mesh, name) - 1)
+        total += 2 * hops
+    return total
+
+
+def predicted_exchange_rounds(plan, iters: int | None = None) -> int:
+    """Exchange rounds (``core.halo.EXCHANGE["rounds"]``) one rank makes
+    in ``iters`` applications (``None``: one step) under a distributed
+    ``plan``: ``q`` fused steps and the remainder's; 0 on one device."""
+    if not plan.is_distributed:
+        return 0
+    if iters is None:
+        iters = plan.sweeps
+    q, r = plan.decompose(iters)
+    return q * _step_rounds(plan) + (_step_rounds(plan.remainder(r))
+                                     if r else 0)
+
+
 def predicted_launches(plan, iters: int | None = None,
                        batch: int | None = None) -> dict[str, int]:
     """K1-K4 launches of ``iters`` applications under ``plan`` (``None``:
@@ -87,6 +121,9 @@ def predicted_launches(plan, iters: int | None = None,
         for p in _stream._block_plans(plan, iters):
             per += _block(p)
         return {k: v * grids for k, v in per.items()}
+    if plan.is_distributed and batch is not None:
+        raise ValueError("a distributed plan runs one shard per rank, no "
+                         "batch")
     per = Counter()
     for _ in range(q):
         per += _block(plan)
@@ -158,7 +195,7 @@ def lint_hbm(plan, traffic: dict | None = None) -> list[Finding]:
     if traffic is None:
         from ..kernels import engine as _keng
         traffic = _keng.hbm_pipeline_traffic(
-            plan.spec, plan.shape, plan.tile, plan.sweeps,
+            plan.spec, plan.shard_shape or plan.shape, plan.tile, plan.sweeps,
             _plan.canonical_dtype(plan.dtype).itemsize)
     if traffic["fused_bytes"] >= traffic["staged_bytes"]:
         return [Finding(
@@ -179,7 +216,9 @@ def lint_launches(plan) -> list[Finding]:
     return [Finding("launches", "info",
                     f"one block launches {dict(sorted(pred.items()))}"
                     + (f" over {len(plan.slabs)} slabs"
-                       if plan.streams_from_host else ""))]
+                       if plan.streams_from_host else "")
+                    + (f" and {predicted_exchange_rounds(plan)} exchange "
+                       f"rounds per rank" if plan.is_distributed else ""))]
 
 
 def lint_plan(plan, hbm: bool | None = None) -> Report:

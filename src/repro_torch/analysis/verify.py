@@ -18,9 +18,8 @@ pass (``CASPER_VERIFY`` or :func:`set_verify_mode`).  A second identical
 
 The checks keep the reference's names, so that a finding names its
 counterpart, except ``"smem-budget"`` (the reference's
-``"vmem-budget"``).  The reference's ``"distributed"`` check has nothing
-to check until the port has distributed plans (ROADMAP Queue 1 item 9):
-it is not in :data:`CHECKS`.
+``"vmem-budget"``); ``"distributed"`` holds a plan lowered on a
+``DeviceMesh`` (its shard shape, exchange strategies and fingerprint).
 
 Severities: ``error`` (an invariant is violated), ``warning`` (legal but
 suspicious), ``info`` (an observation, such as a structure forced dense).
@@ -196,8 +195,11 @@ def _itemsize(plan) -> int:
 
 
 def _out_shape(plan) -> tuple[int, ...]:
-    """The output a kernel launch of ``plan`` covers: the grid, or for a
-    streamed plan its first (longest) slab."""
+    """The output a kernel launch of ``plan`` covers: the grid, a
+    distributed plan's shard, or for a streamed plan its first (longest)
+    slab."""
+    if plan.is_distributed and plan.shard_shape is not None:
+        return tuple(plan.shard_shape)
     if plan.streams_from_host and plan.slabs:
         start, stop = plan.slabs[0]
         return (stop - start,) + tuple(plan.shape[1:])
@@ -253,7 +255,8 @@ def _check_tile(plan) -> list[Finding]:
     leaves it unchanged): the fitted default tile for ``tile=None``, the
     requested tile as given, a fitted candidate for ``"auto"``; and a
     non-periodic pad-free window lies inside the grid (else the strategy
-    rule takes the padded window)."""
+    rule takes the padded window).  A distributed plan's tile is fitted
+    to its shard."""
     needs_tile = plan.backend in _plan.KERNEL_BACKENDS and plan.fused
     if not needs_tile:
         if plan.tile is not None:
@@ -349,7 +352,9 @@ def _whole_grid_strategy(plan) -> str:
 @_check("ghost-strategy")
 def _check_ghost(plan) -> list[Finding]:
     """Re-run the strategy decision: a non-fusable chain stages, ``vm``
-    streams (the SPU serves ghosts at access time), a ``ref`` or ``cuda``
+    streams (the SPU serves ghosts at access time), a distributed plan
+    pads (``ref``) or reads the exchanged window (``cuda``:
+    ``"padded-window"``) and never streams, a ``ref`` or ``cuda``
     block whose device set (``perfmodel.incore_resident_bytes`` with the
     charge of ``plan._incore_charge``: the padded copy of the strategy
     the grid would take in core, the oracle's temporaries) exceeds the
@@ -365,6 +370,8 @@ def _check_ghost(plan) -> list[Finding]:
         expected = "staged"
     elif plan.backend == "vm":
         expected = "stream"
+    elif plan.is_distributed:
+        expected = "pad" if plan.backend == "ref" else "padded-window"
     else:
         incore = ("pad" if plan.backend == "ref"
                   else _whole_grid_strategy(plan))
@@ -381,7 +388,8 @@ def _check_ghost(plan) -> list[Finding]:
             "ghost-strategy", "error",
             f"ghost strategy {g!r} but re-derivation says {expected!r} "
             f"(backend={plan.backend}, boundary={plan.boundary_mode}, "
-            f"fused={plan.fused}, shape={plan.shape})")]
+            f"fused={plan.fused}, distributed={plan.is_distributed}, "
+            f"shape={plan.shape})")]
     return []
 
 
@@ -518,6 +526,78 @@ def _check_factorization(plan) -> list[Finding]:
     return out
 
 
+@_check("distributed")
+def _check_distributed(plan) -> list[Finding]:
+    """A plan lowered on a mesh: its shard extents times the mesh dims'
+    sizes reproduce the global grid; each sharded dim's exchange strategy
+    is the boundary mode's (``plan.exchange_strategy_for``) and an
+    unsharded dim has none; the fingerprint is the mesh's
+    (``plan.mesh_fingerprint``); a staged chain carries no exchange (its
+    stage plans exchange); a deep halo that needs more hops than the mesh
+    dim has shards on a non-ring exchange is flagged (the hops past the
+    grid's edge serve fill only).  A single-device plan carries none of
+    these fields."""
+    out = []
+    if plan.mesh is None:
+        for field in ("grid_axes", "exchange", "shard_shape",
+                      "mesh_fingerprint"):
+            if getattr(plan, field) is not None:
+                out.append(Finding(
+                    "distributed", "error",
+                    f"single-device plan carries {field}="
+                    f"{getattr(plan, field)!r}"))
+        return out
+    axes = plan.grid_axes
+    if axes is None or len(axes) != len(plan.shape):
+        return [Finding("distributed", "error",
+                        f"grid_axes {axes!r} does not cover the grid")]
+    if plan.mesh_fingerprint != _plan.mesh_fingerprint(plan.mesh, axes):
+        out.append(Finding(
+            "distributed", "error",
+            "mesh_fingerprint does not match the plan's mesh/grid_axes"))
+    if plan.shard_shape is None:
+        return out + [Finding("distributed", "error",
+                              "distributed plan has no shard_shape")]
+    sizes = [_plan.mesh_axis_size(plan.mesh, a) for a in axes]
+    for d, n in enumerate(plan.shape):
+        if plan.shard_shape[d] * sizes[d] != n:
+            out.append(Finding(
+                "distributed", "error",
+                f"shard_shape[{d}]={plan.shard_shape[d]} x mesh dim size "
+                f"{sizes[d]} != grid extent {n}"))
+    if not plan.fused:
+        if plan.exchange is not None:
+            out.append(Finding(
+                "distributed", "error",
+                "staged chain plan must not carry exchange strategies "
+                "(its stage plans exchange)"))
+        return out
+    if plan.exchange is None:
+        return out + [Finding("distributed", "error",
+                              "fused distributed plan has no exchange "
+                              "strategies")]
+    for d in range(len(plan.shape)):
+        expected = (_plan.exchange_strategy_for(plan.boundary_mode)
+                    if axes[d] is not None else None)
+        got = plan.exchange[d] if d < len(plan.exchange) else None
+        if got != expected:
+            out.append(Finding(
+                "distributed", "error",
+                f"exchange[{d}]={got!r} but boundary "
+                f"{plan.boundary_mode!r} on mesh dim {axes[d]!r} requires "
+                f"{expected!r}"))
+        if axes[d] is not None and plan.shard_shape[d] > 0:
+            hops = -(-plan.deep_halo[d] // plan.shard_shape[d])
+            if sizes[d] > 1 and hops > sizes[d] and got != "wrap-ring":
+                out.append(Finding(
+                    "distributed", "warning",
+                    f"dim {d}: deep halo {plan.deep_halo[d]} needs {hops} "
+                    f"exchange hops but the mesh dim has {sizes[d]} "
+                    f"shards; the hops past the grid's edge serve fill "
+                    f"only"))
+    return out
+
+
 @_check("program")
 def _check_program(plan) -> list[Finding]:
     """The assembled SPU program (``core/isa.py``) agrees with the spec:
@@ -566,8 +646,8 @@ def _check_fields(plan) -> list[Finding]:
     """Field sanity on the port's :class:`ExecutionPlan`: a known backend,
     the canonical torch dtype name and device string, positive extents of
     the spec's rank, and a budget recorded exactly where the in-core
-    decision is made (``ref``/``cuda`` plans; ``vm`` never leaves
-    core)."""
+    decision is made (single-device ``ref``/``cuda`` plans; ``vm`` and a
+    distributed plan never leave core)."""
     out = []
     if plan.backend not in _plan.BACKENDS:
         out.append(Finding("plan-fields", "error",
@@ -598,12 +678,13 @@ def _check_fields(plan) -> list[Finding]:
     if any(n < 1 for n in plan.shape):
         out.append(Finding("plan-fields", "error",
                            f"grid extents must be positive: {plan.shape}"))
-    if (plan.slab_budget is None) != (plan.backend == "vm"):
+    if (plan.slab_budget is None) != (plan.backend == "vm"
+                                      or plan.is_distributed):
         out.append(Finding(
             "plan-fields", "error",
             f"{plan.backend} plan records slab_budget={plan.slab_budget!r} "
-            "(a ref/cuda plan records the budget it was held to, a vm plan "
-            "none)"))
+            "(a single-device ref/cuda plan records the budget it was held "
+            "to, a vm or distributed plan none)"))
     elif plan.slab_budget is not None and plan.slab_budget < 1:
         out.append(Finding("plan-fields", "error",
                            f"slab_budget must be >= 1, got "

@@ -15,6 +15,8 @@ from .isa import (assemble, assemble_pipeline, assemble_any, decode, Instr,
                   Program, PipelineProgram)
 from .segment import SegmentConfig, access_counts, remote_fraction
 from .vm import SpuVM, run_program
+from .halo import (distributed_stencil_fn, exchange_halo_1axis, gather_grid,
+                   shard_grid, sharding_for)
 from .engine import CasperEngine
 
 __all__ = [
@@ -30,5 +32,6 @@ __all__ = [
     "Program", "PipelineProgram", "SpuVM", "run_program",
     "SegmentConfig", "access_counts", "remote_fraction", "CasperEngine",
     "ExecutionPlan", "PLAN_CACHE", "PlanCache", "lower", "plan_cache_stats",
-    "execute", "run_plan", "ghost_strategy_for",
+    "execute", "run_plan", "ghost_strategy_for", "distributed_stencil_fn",
+    "exchange_halo_1axis", "sharding_for", "shard_grid", "gather_grid",
 ]

@@ -38,6 +38,10 @@ explicit tile is taken as it is.
 ``device=None`` means ``"cuda"`` and raises where CUDA is missing; pass
 ``device="cpu"`` to run on the host.  The engine is frozen after
 ``__init__``.
+
+``engine.distributed_fn(mesh, ("sx", "sy"), iters=10)`` runs the same
+configuration on a ``torch.distributed`` ``DeviceMesh``: every rank calls
+the returned function on its own shard (:mod:`repro_torch.core.halo`).
 """
 from __future__ import annotations
 
@@ -150,8 +154,26 @@ class CasperEngine:
         plan = self.plan_for(shape, dtype, sweeps=sweeps)
         return analysis.analyze_plan(plan, lint=lint)
 
-    def distributed_fn(self, *args, **kwargs):
-        raise _plan.not_ported("mesh")
+    _INHERIT = object()   # tile sentinel: None is itself a legal tile
+
+    def distributed_fn(self, mesh, grid_axes: Sequence[str | None],
+                       iters: int = 1, *, sweeps: int | None = None,
+                       backend: str | None = None, tile=_INHERIT):
+        """A function that maps this rank's shard to this rank's shard
+        after ``iters`` applications on ``mesh`` (a ``DeviceMesh``; see
+        :func:`repro_torch.core.halo.distributed_stencil_fn`), on the
+        engine's device.  It takes the engine's ``sweeps``, ``backend``
+        and ``tile`` unless the call overrides them, so temporal blocking
+        (one deep halo exchange, then fused shard-local sweeps on K2/K4)
+        applies as in :meth:`run`, and ``iters`` decomposes as
+        ``q*sweeps + r`` the same way."""
+        from .halo import distributed_stencil_fn
+        return distributed_stencil_fn(
+            self.spec, mesh, grid_axes, iters,
+            sweeps=self.sweeps if sweeps is None else sweeps,
+            backend=self.backend if backend is None else backend,
+            tile=self.tile if tile is CasperEngine._INHERIT else tile,
+            device=self.device)
 
     # Casper API surface (Table 1), as thin documentation shims -------------
     def init_stencil_segment(self, size_bytes: int) -> SegmentConfig:

@@ -1,6 +1,6 @@
 """ExecutionPlan: the spec→plan lowering of the PyTorch port.
 
-The counterpart of ``repro.core.plan`` for one device.
+The counterpart of ``repro.core.plan``.
 ``lower(spec, shape, dtype, *, backend, sweeps, tile, device)`` resolves,
 once, everything a backend needs — the tap factorization, the
 boundary-ghost strategy, the tile, the halo depth, the slab cover of a
@@ -50,12 +50,19 @@ Differences from the reference, by design:
   (:func:`stays_on_host`: a batch that fits one grid at a time but not
   together runs in core a part at a time).
 
+``mesh`` + ``grid_axes`` lower a distributed plan: a
+``torch.distributed.device_mesh.DeviceMesh`` whose named dims shard the
+grid dims ``grid_axes`` names (``None``: not sharded).  The plan records
+each rank's ``shard_shape``, the per-axis exchange strategy
+(:func:`exchange_strategy_for`) and the mesh's fingerprint (in the key);
+its shard-local block always reads the exchanged window
+(``"padded-window"``: K2/K4 for ``"cuda"``) and never streams, and
+:func:`execute` hands it to :mod:`repro_torch.core.halo`.
+
 Every new plan is statically verified before it enters the cache
 (:mod:`repro_torch.analysis`): ``CASPER_VERIFY=strict`` raises, and the
 plan is not cached; the default warns.  Serving runs a stacked bucket
 through the same runner in phases (:class:`BatchHandle`).
-What the port does not have yet raises ``NotImplementedError`` naming
-its ROADMAP item: ``mesh`` (item 9).
 """
 from __future__ import annotations
 
@@ -127,16 +134,28 @@ HOPPER_TILES: dict[int, tuple[tuple[int, ...], ...]] = {
         (2, 2, 32), (1, 2, 32), (1, 1, 32)),
 }
 
-#: ROADMAP items named by what the port leaves out.
-_NOT_PORTED = {
-    "mesh": "distributed plans (mesh / deep halo exchange): ROADMAP "
-            "Queue 1 item 9",
-}
+#: Halo-exchange strategies for one sharded axis of a distributed plan:
+#: ``"zero-fill"`` (a rank with no neighbour that far receives zeros),
+#: ``"wrap-ring"`` (periodic: every hop is a wrap-around ring) and
+#: ``"edge-fixup"`` (the zero-filled exchange, then the out-of-grid
+#: ghosts are overwritten locally with the constant fill or the reflect
+#: mirror).
+EXCHANGE_STRATEGIES = ("zero-fill", "wrap-ring", "edge-fixup")
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"not yet ported to repro_torch: {_NOT_PORTED[what]}")
+def exchange_strategy_for(mode: str) -> str:
+    """The halo-exchange strategy of one sharded axis under boundary
+    ``mode`` (the rule of ``repro.core.plan.exchange_strategy_for``):
+    periodic rides a wrap-around ring at the same round count,
+    constant/reflect keep the zero-filled exchange and fix the
+    out-of-grid ghosts up locally, zero needs nothing more."""
+    if mode == "periodic":
+        return "wrap-ring"
+    if mode in ("constant", "reflect"):
+        return "edge-fixup"
+    if mode != "zero":
+        raise ValueError(f"unknown boundary mode {mode!r}")
+    return "zero-fill"
 
 
 def _chunk(itemsize: int) -> int:
@@ -537,7 +556,16 @@ class ExecutionPlan:
     slab_overlap: int | None = None     # stream-from-host: deep_halo[0]
     slab_budget: int | None = None      # device budget (bytes) the
                                         # in-core decision was held to
-                                        # (ref/cuda plans)
+                                        # (single-device ref/cuda plans)
+    mesh: object = None                 # DeviceMesh of a distributed plan
+    grid_axes: tuple | None = None      # mesh dim name per grid dim
+    exchange: tuple | None = None       # per-dim exchange strategy / None
+    shard_shape: tuple[int, ...] | None = None  # one rank's block
+    mesh_fingerprint: tuple | None = None
+
+    @property
+    def is_distributed(self) -> bool:
+        return self.mesh is not None
 
     @property
     def stream_plan(self):
@@ -555,7 +583,7 @@ class ExecutionPlan:
         it is a staged chain one of whose stage plans streams."""
         if self.streams_from_host:
             return True
-        if not self.fused and self.backend != "vm":
+        if not self.fused and self.backend != "vm" and not self.is_distributed:
             return (any(self.stage_plan(k).streams_from_host
                         for k in range(len(self.stages)))
                     or incore_device_bytes(self) > self.slab_budget)
@@ -572,11 +600,12 @@ class ExecutionPlan:
 
     def stage_plan(self, k: int) -> "ExecutionPlan":
         """The single-sweep plan of stage ``k`` (same shape, dtype,
-        backend, tile request and device), lowered through the cache —
-        what the staged fallback executes."""
+        backend, tile request, device and mesh), lowered through the
+        cache — what the staged fallback executes."""
         return lower(self.stages[k], self.shape, self.dtype,
                      backend=self.backend, sweeps=1, tile=self.tile_request,
-                     device=self.device)
+                     device=self.device, mesh=self.mesh,
+                     grid_axes=self.grid_axes)
 
     def decompose(self, iters: int) -> tuple[int, int]:
         """``iters = q * sweeps + r``."""
@@ -589,7 +618,8 @@ class ExecutionPlan:
         through the cache (same spec/shape/backend/tile request)."""
         return lower(self.spec, self.shape, self.dtype,
                      backend=self.backend, sweeps=r, tile=self.tile_request,
-                     device=self.device)
+                     device=self.device, mesh=self.mesh,
+                     grid_axes=self.grid_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -721,14 +751,34 @@ def dtype_name(dtype) -> str:
     return str(canonical_dtype(dtype)).replace("torch.", "")
 
 
+def mesh_fingerprint(mesh, grid_axes) -> tuple | None:
+    """The identity of a mesh placement: the mesh's dim names, its shape,
+    the global ranks in mesh order (two meshes over other ranks, or the
+    same ranks in another order, must not share plans: a plan pins its
+    mesh) and the grid dim -> mesh dim assignment."""
+    if mesh is None:
+        return None
+    return (tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape),
+            tuple(int(r) for r in mesh.mesh.flatten().tolist()),
+            tuple(grid_axes) if grid_axes is not None else None)
+
+
+def mesh_axis_size(mesh, name) -> int:
+    """The extent of ``mesh``'s dim ``name`` (1 for ``None``)."""
+    if name is None:
+        return 1
+    return mesh.size(list(mesh.mesh_dim_names).index(name))
+
+
 def plan_key(spec: StencilSpec, shape, dtype, backend: str, sweeps: int,
-             tile, device) -> tuple:
+             tile, device, mesh=None, grid_axes=None) -> tuple:
     """The plan-cache key: the full spec (boundary + structure ride on
     spec equality), shape, dtype, backend, sweeps, the tile *request*,
-    the device and the slab budget."""
+    the device, the slab budget and the mesh fingerprint."""
     return (spec, tuple(int(n) for n in shape), dtype_name(dtype),
             backend, int(sweeps), canonical_tile_request(tile),
-            canonical_device(device), _pm.slab_budget_bytes())
+            canonical_device(device), _pm.slab_budget_bytes(),
+            mesh_fingerprint(mesh, grid_axes))
 
 
 # ---------------------------------------------------------------------------
@@ -739,9 +789,11 @@ def lower(spec: StencilSpec | StencilPipeline, shape: Sequence[int], dtype,
           tile: Sequence[int] | int | None = None,
           device=None, mesh=None, grid_axes=None) -> ExecutionPlan:
     """Lower ``(spec, shape, dtype, …)`` to an :class:`ExecutionPlan`,
-    through the process-wide :data:`PLAN_CACHE`."""
-    if mesh is not None or grid_axes is not None:
-        raise not_ported("mesh")
+    through the process-wide :data:`PLAN_CACHE`.  ``mesh`` (a
+    ``DeviceMesh``) and ``grid_axes`` (one mesh dim name or ``None`` per
+    grid dim) lower a distributed plan of the global ``shape``; every
+    rank of the mesh must lower it (``tile="auto"`` is tuned on mesh rank
+    0 and broadcast, so that every rank lowers the same plan)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
@@ -750,12 +802,29 @@ def lower(spec: StencilSpec | StencilPipeline, shape: Sequence[int], dtype,
     shape = tuple(int(n) for n in shape)
     if len(shape) != spec.ndim:
         raise ValueError(f"shape rank {len(shape)} != spec ndim {spec.ndim}")
+    if (mesh is None) != (grid_axes is None):
+        raise ValueError("mesh and grid_axes must be passed together")
+    axes = None
+    if mesh is not None:
+        axes = tuple(grid_axes)
+        if len(axes) != spec.ndim:
+            raise ValueError("grid_axes must have one entry per grid dim")
+        unknown = [a for a in axes
+                   if a is not None and a not in mesh.mesh_dim_names]
+        if unknown:
+            raise ValueError(f"grid_axes {unknown} are not dims of the mesh "
+                             f"{mesh.mesh_dim_names}")
+        if backend == "vm":
+            raise ValueError("a distributed plan runs on backend 'ref' or "
+                             "'cuda'")
     tile_req = canonical_tile_request(tile)
     dev = canonical_device(device)
-    key = plan_key(spec, shape, dtype, backend, sweeps, tile_req, dev)
+    key = plan_key(spec, shape, dtype, backend, sweeps, tile_req, dev, mesh,
+                   axes)
     return PLAN_CACHE.get_or_lower(
         key, lambda: _lower_uncached(spec, shape, canonical_dtype(dtype),
-                                     backend, sweeps, tile_req, dev))
+                                     backend, sweeps, tile_req, dev, mesh,
+                                     axes))
 
 
 def _oracle_temps(spec) -> int:
@@ -804,8 +873,35 @@ def _slab_decomposition(shape, deep, itemsize, pad, extra=0,
     return budget, slabs, deep[0]
 
 
+def _shard_shape(shape, mesh, axes) -> tuple[int, ...]:
+    """One rank's block of a ``shape`` grid sharded over ``mesh`` by
+    ``axes``; raises where a mesh dim does not divide its grid dim."""
+    out = []
+    for d, n in enumerate(shape):
+        size = mesh_axis_size(mesh, axes[d])
+        if n % size:
+            raise ValueError(f"grid dim {d} ({n}) not divisible by mesh dim "
+                             f"{axes[d]!r} ({size})")
+        out.append(n // size)
+    return tuple(out)
+
+
+def _from_mesh_origin(mesh, compute):
+    """``compute()`` run on mesh rank 0 (coordinate 0 on every mesh dim)
+    and broadcast to every rank of the mesh: one broadcast per mesh dim,
+    each from the dim's rank 0, so that after the last every rank holds
+    the origin's value."""
+    import torch.distributed as dist
+    box = [compute() if not any(mesh.get_coordinate()) else None]
+    for d in range(mesh.ndim):
+        group = mesh.get_group(d)
+        dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                                   group=group)
+    return box[0]
+
+
 def _lower_uncached(spec, shape, dtype, backend, sweeps, tile_req,
-                    device) -> ExecutionPlan:
+                    device, mesh=None, axes=None) -> ExecutionPlan:
     """One plan for a spec or a pipeline.  A pipeline's halo is the sum
     of its stage radii and its initial extension is stage 0's; a chain
     that is not fusable lowers ``fused=False`` with strategy
@@ -835,8 +931,27 @@ def _lower_uncached(spec, shape, dtype, backend, sweeps, tile_req,
 
     resolved_tile = None
     slab_budget = slabs = slab_overlap = None
+    shard_shape = exchange = None
     ghost = "pad" if fused else "staged"        # oracle default
-    if not fused:
+    if mesh is not None:
+        # a rank's block never leaves its device: no slabs, no budget; the
+        # shard-local kernel reads the exchanged window (K2/K4)
+        shard_shape = _shard_shape(shape, mesh, axes)
+        if fused:
+            exchange = tuple(None if a is None
+                             else exchange_strategy_for(spec.boundary_mode)
+                             for a in axes)
+        if fused and backend in KERNEL_BACKENDS:
+            if tile_req == "auto":
+                resolved_tile = tuple(_from_mesh_origin(
+                    mesh, lambda: resolve_tile(shard_shape)))
+            else:
+                resolved_tile = resolve_tile(shard_shape)
+            ghost = "padded-window"
+            _check_tile_fits(spec, resolved_tile, sweeps, itemsize)
+            from ..kernels import engine as _keng
+            _keng.check_kernel_args(spec)
+    elif not fused:
         if backend != "vm":
             slab_budget = _pm.slab_budget_bytes()
     elif backend == "vm":
@@ -879,7 +994,9 @@ def _lower_uncached(spec, shape, dtype, backend, sweeps, tile_req,
         boundary_value=spec.boundary_value,
         program=assemble_pipeline(spec) if pipeline else assemble(spec),
         fused=fused, slabs=slabs, slab_overlap=slab_overlap,
-        slab_budget=slab_budget)
+        slab_budget=slab_budget, mesh=mesh, grid_axes=axes,
+        exchange=exchange, shard_shape=shard_shape,
+        mesh_fingerprint=mesh_fingerprint(mesh, axes))
 
 
 # ---------------------------------------------------------------------------
@@ -925,7 +1042,8 @@ def execute(plan: ExecutionPlan, grid: torch.Tensor) -> torch.Tensor:
     grid that stays on the host (:func:`stays_on_host`) runs the slab
     executor and returns a host tensor.  A non-fusable pipeline plan runs
     its chain through the cached single-sweep stage plans instead:
-    chained semantics, per-stage traffic."""
+    chained semantics, per-stage traffic.  A distributed plan maps this
+    rank's shard to this rank's shard (:mod:`repro_torch.core.halo`)."""
     if stays_on_host(plan, grid):
         from ..kernels import stream as _stream
         return _stream.run_plan_streamed(plan, grid, plan.sweeps)
@@ -935,6 +1053,9 @@ def execute(plan: ExecutionPlan, grid: torch.Tensor) -> torch.Tensor:
             for k in range(len(plan.stages)):
                 out = execute(plan.stage_plan(k), out)
         return out
+    if plan.is_distributed:
+        from . import halo as _halo
+        return _halo.execute_plan(plan, grid)
     if plan.backend == "ref":
         from . import ref as _ref
         return _ref.execute_plan(plan, grid)

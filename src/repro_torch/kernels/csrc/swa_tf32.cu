@@ -28,6 +28,9 @@
 // (tests/_swa_tc_mirror.py walks the same arithmetic on the CPU).  Both
 // products use the split: Q.K^T (Q and K split as their fragments load
 // from shared memory) and P.V (P split in registers, V as it loads).
+// A chunk's P.V is summed from zero in an accumulator of its own and added
+// to O in one rounded f32 add: the tensor cores truncate each product to
+// the accumulator's alignment, so O itself never passes through them.
 //
 // Bound on this card: operations.  At gemma2-27b's local layer (B=1,
 // Hq=32, Hkv=16, D=128, S=8192, W=4096) the useful work is
@@ -257,23 +260,35 @@ swa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     online_softmax<KC, D / 2>(s, o, m, l, pos, c0, p0, p_hi, quad, a);
 
-    // O += P.V over each 8-key group in the order 0, 2, 4, 6, 1, 3, 5, 7:
-    // A columns quad and quad + 4 are keys 2*quad and 2*quad + 1
+    // P split once per chunk; per 8-key group kb the A columns quad and
+    // quad + 4 are keys 2*quad and 2*quad + 1 (the order 0, 2, 4, 6, 1,
+    // 3, 5, 7)
+    uint32_t pbig[KC / 2], psmall[KC / 2];
 #pragma unroll
     for (int kb = 0; kb < KC / 8; ++kb) {
-      uint32_t pb_[4], ps_[4];
-      split_tf32(s[4 * kb], pb_[0], ps_[0]);      // row g8,     key 2*quad
-      split_tf32(s[4 * kb + 2], pb_[1], ps_[1]);  // row g8 + 8, key 2*quad
-      split_tf32(s[4 * kb + 1], pb_[2], ps_[2]);  // row g8,     key 2*quad + 1
-      split_tf32(s[4 * kb + 3], pb_[3], ps_[3]);  // row g8 + 8, key 2*quad + 1
-      const float* v0 = vs + (8 * kb + 2 * quad) * PITCH + g8;
+      split_tf32(s[4 * kb], pbig[4 * kb], psmall[4 * kb]);          // row g8,     key 2*quad
+      split_tf32(s[4 * kb + 2], pbig[4 * kb + 1], psmall[4 * kb + 1]);  // row g8 + 8, key 2*quad
+      split_tf32(s[4 * kb + 1], pbig[4 * kb + 2], psmall[4 * kb + 2]);  // row g8,     key 2*quad + 1
+      split_tf32(s[4 * kb + 3], pbig[4 * kb + 3], psmall[4 * kb + 3]);  // row g8 + 8, key 2*quad + 1
+    }
+    // O += P.V: each 8 columns of O sum the chunk's keys in an accumulator
+    // of their own, from zero, which one rounded add then puts into O.
+    // The tensor cores align each product to the accumulator and drop the
+    // bits below it: summed into O itself, every step of the window would
+    // lose up to an ulp of O, always in the same direction
 #pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb) {
+    for (int nb = 0; nb < D / 8; ++nb) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kb = 0; kb < KC / 8; ++kb) {
+        const float* v0 = vs + (8 * kb + 2 * quad) * PITCH + g8 + 8 * nb;
         uint32_t vb[2], vsm[2];
-        split_tf32(v0[8 * nb], vb[0], vsm[0]);
-        split_tf32(v0[PITCH + 8 * nb], vb[1], vsm[1]);
-        mma_3xtf32(o + 4 * nb, pb_, ps_, vb, vsm);
+        split_tf32(v0[0], vb[0], vsm[0]);
+        split_tf32(v0[PITCH], vb[1], vsm[1]);
+        mma_3xtf32(c, pbig + 4 * kb, psmall + 4 * kb, vb, vsm);
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * nb + e] += c[e];
     }
     __syncthreads();  // every warp is done with stage st before it refills
     if (C::STAGES == 1 && j + 1 < n_chunks) {

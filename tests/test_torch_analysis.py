@@ -135,10 +135,12 @@ def test_engine_analyze_every_paper_stencil_and_pipeline():
 
 
 def test_only_mesh_is_left_unported():
-    assert set(tplan._NOT_PORTED) == {"mesh"}
-    assert "distributed" not in verify.CHECKS
+    # the mesh was the last refusal: the port has no unported path left,
+    # and its verifier runs every reference check ("distributed" too)
+    assert not hasattr(tplan, "_NOT_PORTED")
+    assert "distributed" in verify.CHECKS
     # the counterparts keep the reference's names, vmem -> smem
-    ref_names = set(janalysis.CHECKS) - {"distributed", "vmem-budget"}
+    ref_names = set(janalysis.CHECKS) - {"vmem-budget"}
     assert set(verify.CHECKS) == ref_names | {"smem-budget"}
 
 
@@ -377,6 +379,45 @@ def test_lint_skips_vm_and_reports_launches():
                for f in rep.infos)
     bad = dataclasses.replace(_port_clean(), ghost_strategy="pad")
     assert launch_lint.lint_launches(bad)[0].severity == "error"
+
+
+# ---------------------------------------------------------------------------
+# Distributed plans, on a one-rank gloo mesh in a spawned process
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def single_rank(tmp_path_factory):
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "_dist_world", os.path.join(here, "_dist_world.py"))
+    world = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(world)
+    return world.run_world("single", 1,
+                           str(tmp_path_factory.mktemp("single_rank")),
+                           timeout=120)[0]["checks"]
+
+
+def test_mutation_wrong_exchange_strategy(single_rank):
+    """A clean distributed plan (jacobi2d periodic, wrap ring) verifies;
+    a wrong exchange strategy, a shard shape that does not reproduce the
+    grid, a dishonest fingerprint, an exchange on an unsharded dim or on
+    a staged chain, and distributed fields on a single-device plan fail
+    the ``"distributed"`` check; padding it pad-free fails
+    ``"ghost-strategy"`` and a budget ``"plan-fields"``."""
+    assert single_rank["verify/clean"][0], single_rank["verify/clean"]
+    for name in ("wrong_exchange", "fingerprint", "unsharded_exchange",
+                 "staged_exchange", "single_with_fields"):
+        assert single_rank[f"mutant/{name}"][1] == ["distributed"], name
+    assert "distributed" in single_rank["mutant/shard_shape"][1]
+    assert single_rank["mutant/pad_free"][1] == ["ghost-strategy"]
+    assert single_rank["mutant/budget"][1] == ["plan-fields"]
+
+
+def test_lint_predicts_distributed_launches_and_rounds(single_rank):
+    """The reference's lint skips a distributed plan; the port's predicts
+    per rank one K2 per fused step and the exchange rounds of each, and
+    the prediction equals the rounds the run counted."""
+    assert single_rank["lint/prediction"][0], single_rank["lint/prediction"]
 
 
 def test_predicted_launches():

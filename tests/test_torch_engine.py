@@ -164,13 +164,18 @@ def test_hopper_tiles_fit_shared_memory_and_explicit_misfit_raises():
 
 
 def test_not_ported_paths_raise_with_their_roadmap_item(monkeypatch):
+    # item 9 is ported: no refusal is left; a mesh comes with its
+    # grid_axes, and distributed_fn builds the per-rank function
+    # (tests/test_torch_distributed.py runs it on gloo worlds)
     spec = _port(J_SPECS["jacobi2d"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tplan.lower(spec, (8, 8), torch.float64, mesh=object(),
-                    grid_axes=("x", None), device="cpu")
+    assert not hasattr(tplan, "not_ported")
+    with pytest.raises(ValueError, match="together"):
+        tplan.lower(spec, (8, 8), torch.float64, grid_axes=("x", None),
+                    device="cpu")
     eng = CasperEngine(spec, backend="cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.distributed_fn(None, ("x", None))
+    assert callable(eng.distributed_fn(None, ("x", None)))
+    with pytest.raises(ValueError, match="one entry per grid dim"):
+        eng.distributed_fn(None, ("x",))
     # item 10 is ported: analyze reports, strict verification verifies
     from repro_torch import analysis
     assert eng.analyze((8, 8)).ok

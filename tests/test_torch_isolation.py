@@ -5,10 +5,11 @@ and must not need ``triton`` or ``nvcc`` (kernels are built at first
 use); a subprocess with those imports blocked runs a stencil and both
 paper pipelines through ``CasperEngine``, analyzes a plan
 (``repro_torch.analysis``), serves the reference's mix
-(``repro_torch.serve``) and runs sliding-window attention through
+(``repro_torch.serve``), imports the distributed path
+(``core/halo.py``) and runs sliding-window attention through
 ``kernels.ops.swa``, and an AST scan of the package's sources (the
-analysis and serving modules among them) and of ``chip_smoke.py`` finds
-no such import.
+analysis, serving and halo modules among them), of ``chip_smoke.py`` and
+of the helpers it loads from ``tests/`` finds no such import.
 """
 import ast
 import os
@@ -45,6 +46,8 @@ for pipe in PAPER_PIPELINES.values():
         np.ones((40, 70)), iters=3)
     assert out.shape == (40, 70)
 from repro_torch import analysis, serve
+from repro_torch.core import halo
+assert callable(halo.distributed_stencil_fn)
 plan = engine._plan.lower(spec, (40, 70), torch.float64, backend="cuda",
                           sweeps=2, device="cpu")
 assert analysis.analyze_plan(plan).ok
@@ -78,11 +81,15 @@ def _imports(tree):
 
 
 def test_sources_import_no_jax_and_no_repro():
-    files = sorted(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
+    # chip_smoke.py and the helpers it loads from tests/
+    files = sorted(PORT.rglob("*.py")) + [
+        SRC.parent / "chip_smoke.py", SRC.parent / "tests" / "_dist_world.py",
+        SRC.parent / "tests" / "_pipeline_cases.py"]
     assert len(files) >= 10
     assert PORT / "kernels" / "swa.py" in files
     assert PORT / "kernels" / "ops.py" in files
-    for mod in ("analysis/verify.py", "analysis/launch_lint.py",
+    for mod in ("core/halo.py", "analysis/verify.py",
+                "analysis/launch_lint.py",
                 "analysis/serve_check.py", "analysis/casper_lint.py",
                 "serve/stencil.py", "serve/scheduler.py", "serve/loadgen.py"):
         assert PORT / mod in files
