@@ -142,9 +142,27 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    step's wall time, window time (exchange, staging, padding) and kernel
    device time (CUDA events), rounds, launches and peak device memory
    (eight processes share the card: contended times); a rank that fails
-   fails the phase.  Every plan of phases 2 and 3 is lowered under
-   ``CASPER_VERIFY=strict`` (``repro_torch.analysis``): a finding fails
-   the run;
+   fails the phase; (j) LM serving (``repro_torch.models``,
+   ``serve.ServeEngine``; plain PyTorch, no TPU kernel on this path):
+   (i) qwen3-14b at its published width and depth in bf16, params from
+   ``init_params`` under a seeded CUDA generator, 4 prompts of 256
+   tokens, ``ServeEngine(..., max_len=512).generate(..., 32)`` greedy:
+   tokens within the vocabulary, teacher-forced decode logits against a
+   prefill over the same tokens (``LM_DECODE_ATOL``), and the same with
+   a fault planted in the last decode step (its cache slot one late, and
+   one early), each of which must pass the gate, prefill ms and
+   tokens/s beside its operation bound, decode ms per step (median,
+   synchronized) beside its bytes bound, peak device memory, and one
+   prefill and three decode steps under ``torch.profiler`` (device busy
+   and idle share, kernels per call, the heaviest kernels); (ii) one
+   qwen3-14b unit at full width in f32 (TF32 off): prefill logits on the
+   card against the same port on the host's CPU (``LM_F32_ATOL``; the
+   error on TF32 logged beside it); (iii) gemma2-27b at its published
+   width and depth (46 layers), bf16: one prompt of 4,608 tokens (past the
+   4,096 window: blockwise prefill over a banded KV range) and 8 greedy
+   decode steps, checked and timed as (i).  Every plan of phases 2 and 3
+   is lowered under ``CASPER_VERIFY=strict`` (``repro_torch.analysis``):
+   a finding fails the run;
 3. times one fused block per phase-2 case with CUDA events (median),
    beside its bound (the larger of one read and one write of the grid at
    the HBM rate and the f64 operations the contract fixes per point and
@@ -180,7 +198,8 @@ kernel, K1/K2 of 3-D specs on the streamed kernel, K3, K4, K5 bf16, f16
 and f32; K2 and K4 carry the serving rows under ``rows``; K2, K2 rank 3
 and K4 count their phase-2f slab launches; each entry adds the phase-2h
 launches its wrapper counted, by rank; K2, K2 rank 3 and K4 add the
-phase-2i ranks' launches) before the last line, which is ``{"ok": true, "device": {...}}``.  Full
+phase-2i ranks' launches; phase 2j launches none of them) before the
+last line, which is ``{"ok": true, "device": {...}}``.  Full
 results go to ``build/chip_smoke.json``.  Exits non-zero, printing
 no result, when CUDA is missing or any check fails.
 """
@@ -897,6 +916,337 @@ def distributed_phase(failures, smi, gen):
     return {"launches": entries, "full_width": full,
             "ranks_i": [rec["i"] for rec in ranks],
             "checks": n_checks, "seconds": time.time() - t_phase}
+
+
+# phase 2j: LM serving (repro_torch.models, serve.ServeEngine): plain
+# PyTorch, no TPU kernel on this path (PERF.md, kernel table).  qwen3-14b
+# at its published width and depth (src/repro/configs/qwen3_14b.py: 40
+# layers, d_model 5120, 40/8 heads of 128, d_ff 17408, vocab 151,936),
+# 4 prompts of 256 tokens, 32 greedy tokens; gemma2-27b at its published
+# width and depth (46 layers, 27.2e9 params, 54.4 GB in bf16: it fits the
+# card once qwen3-14b's params are freed), one prompt of 4,608 tokens
+# (past its 4,096 window: prefill is blockwise over a banded KV range),
+# 8 greedy decode steps.
+LM_BATCH, LM_PROMPT, LM_TOKENS, LM_MAX_LEN = 4, 256, 32, 512
+GEMMA2_PROMPT, GEMMA2_STEPS = 4608, 8
+LM_UNIT_ROWS, LM_UNIT_PROMPT = 2, 64
+# decode vs prefill logits, bf16, at full depth: one-position decode
+# steps and a prefill over all positions round differently (cuBLAS takes
+# other kernels and summation orders for the two shapes) and the
+# differences compound over the layers.  Each gate sits between the clean
+# reading and the readings of the planted faults (LM_FAULT_SHIFTS), which
+# every run also takes and must see fail.  On an H100 (PERF.md, LM
+# serving): qwen3-14b 0.1914 clean, 4.598 and 4.414 faulted (|logit| up
+# to 5); gemma2-27b, whose final softcap keeps |logit| near 1.2, 0.02344
+# clean, 0.4287 and 0.4443 faulted.  Each gate is at least 2x from
+# either side: 2.6x above qwen3's clean reading and 8.8x below its
+# faults; 2.1x above gemma2's and 8.6x below its faults.
+LM_DECODE_ATOL = {"qwen3-14b": 0.5, "gemma2-27b": 5e-2}
+# the planted faults: the last decode step's cache slot (and rope
+# position) moved by one, late and early
+LM_FAULT_SHIFTS = (1, -1)
+# card vs host logits, one unit in f32 (TF32 off): the cache rounds K/V to
+# bf16, and an element whose f32 value differs in its last bits between
+# the two rounds to the neighbouring bf16 value: 3.3e-4 measured
+LM_F32_ATOL = 2e-3
+
+
+def lm_prefill_flops(cfg, b: int, s: int) -> float:
+    """The products a dense transformer's prefill must compute: every
+    unit weight once per token, QK^T and PV over the (query, key) pairs
+    its causal and window masks keep, and the unembedding of the last
+    position only."""
+    from repro_torch.models.transformer import lm_param_specs
+    from repro_torch.models.common import param_count
+    specs = lm_param_specs(cfg)
+    layer_params = param_count(specs["units"])
+    flops = 2.0 * layer_params * b * s
+    for kind in cfg.layer_pattern:
+        w = cfg.window if kind == "local" else None
+        pairs = sum(min(i + 1, w or s) for i in range(s))
+        flops += cfg.n_units * 4.0 * cfg.n_heads * cfg.d_head * pairs * b
+    return flops + 2.0 * cfg.d_model * cfg.vocab * b
+
+
+def lm_decode_bytes(cfg, params, b: int, kv_len: int) -> float:
+    """The bytes one decode step must move: every unit weight and the
+    unembedding read once, the token's embedding rows, and the K/V each
+    layer attends to (``kv_len`` positions, at most the window on local
+    layers) with its new K/V written; bf16 cache."""
+    from repro_torch.models.common import tree_leaves
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(params["units"], torch.is_tensor))
+    emb = params["embed"]
+    head = emb if cfg.tie_embeddings else params["lm_head"]
+    nbytes += head.numel() * head.element_size()
+    nbytes += b * cfg.d_model * emb.element_size()
+    for kind in cfg.layer_pattern:
+        w = cfg.window if kind == "local" else None
+        pos = min(kv_len, w or kv_len) + 1
+        nbytes += cfg.n_units * b * 2 * cfg.n_kv * cfg.d_head * pos * 2
+    return float(nbytes)
+
+
+def lm_phase(failures, smi, hbm_bw, peak_bf16):
+    """Phase 2j: LM serving on the card (see the module docstring).
+    Returns the phase's record."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_arch
+    from repro_torch.models.common import init_params, tree_leaves, tree_map
+    from repro_torch.roofline.analysis import n_params
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding import ShardCtx
+    ctx = ShardCtx()
+    t_phase = time.time()
+    rec = {"card": smi}
+
+    def decode_run(arch, cfg, params, toks, s, max_len, shift=0):
+        """Prefill toks[:, :s], then decode the rest of ``toks`` one token
+        a step (teacher-forced), each step timed with CUDA events and
+        synchronized.  Returns the step times and the last step's logits.
+        ``shift`` plants a fault: the last step is told a cache length
+        ``shift`` off, so it writes its K/V that many slots away and
+        ropes its position by as much."""
+        times = []
+        with torch.inference_mode():
+            st, n, _ = arch.prefill(params, {"tokens": toks[:, :s]}, cfg,
+                                    ctx, max_len=max_len)
+            for i in range(s, toks.shape[1]):
+                if i == toks.shape[1] - 1:
+                    n += shift
+                a = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                a.record()
+                st, n, step = arch.decode(params, st, n, toks[:, i:i + 1],
+                                          cfg, ctx)
+                e.record()
+                e.synchronize()
+                times.append(a.elapsed_time(e))
+        return times, step[:, -1]
+
+    def profiled(fn, name, reps):
+        """``fn`` run ``reps`` times under ``torch.profiler``: device busy
+        time (the union of kernels and copies), the device's idle share
+        between its first and last event, kernels per call and the
+        kernels that take the most time (``build/lm_<name>.json``)."""
+        from torch.profiler import ProfilerActivity, profile
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in trace_events(prof, os.path.join(
+            ROOT, "build", f"lm_{name}.json")) if is_device(e)]
+        iv = spans(dev, lambda e: True)
+        on = busy(iv)
+        window = max(b for _, b in iv) - min(a for a, _ in iv)
+        by_name: dict = {}
+        for e in dev:
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        return {"calls": reps, "device_busy_ms": on / 1e3 / reps,
+                "device_window_ms": window / 1e3 / reps,
+                "idle_share": 1.0 - on / window,
+                "kernels_per_call": sum(e.get("cat") == "kernel"
+                                        for e in dev) / reps,
+                "top_ms_per_call": {k[:80]: v / 1e3 / reps for k, v in top}}
+
+    def serve(label, cfg, params, prompt, n_tokens, max_len, prefill_reps):
+        arch = make_arch(cfg)
+        eng = ServeEngine(arch, params, max_len=max_len)
+        eng.generate(prompt, n_tokens)                    # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(prompt, n_tokens)
+        torch.cuda.synchronize()
+        gen_ms = (time.perf_counter() - t0) * 1e3
+        b, s = prompt["tokens"].shape
+        if (out.shape != (b, n_tokens) or out.dtype != torch.int32
+                or int(out.min()) < 0 or int(out.max()) >= cfg.vocab):
+            failures.append(f"phase 2j {label}: tokens {tuple(out.shape)} "
+                            f"{out.dtype} in [{int(out.min())}, "
+                            f"{int(out.max())}], vocab {cfg.vocab}")
+        with torch.inference_mode():
+            pre_ms = time_ms(lambda: arch.prefill(
+                eng.params, prompt, cfg, ctx, max_len=max_len),
+                reps=prefill_reps, warmup=1)
+        # the greedy tokens, teacher-forced through the cache
+        toks = torch.cat([prompt["tokens"], out[:, :-1]], dim=1)
+        times, step = decode_run(arch, cfg, eng.params, toks, s, max_len)
+        # the reference's invariant (tests/test_models.py): the last
+        # decode step's logits equal a prefill's over the same tokens
+        with torch.inference_mode():
+            ref = arch.prefill(eng.params, {"tokens": toks}, cfg, ctx,
+                               max_len=max_len)[2][:, -1]
+        err = float((step - ref).abs().max())
+        gate = LM_DECODE_ATOL[cfg.arch]
+        finite = bool(torch.isfinite(step).all() and torch.isfinite(ref).all())
+        if not finite or not err <= gate:
+            failures.append(f"phase 2j {label}: decode vs prefill logits "
+                            f"max |d| {err} (limit {gate}), finite {finite}")
+        faults = {}
+        for shift in LM_FAULT_SHIFTS:
+            bad = decode_run(arch, cfg, eng.params, toks, s, max_len,
+                             shift)[1]
+            faults[shift] = float((bad - ref).abs().max())
+            if not faults[shift] > gate:
+                failures.append(f"phase 2j {label}: the fault planted at "
+                                f"cache slot {shift:+d} reads {faults[shift]}"
+                                f", within the gate {gate}: the check "
+                                "cannot see it")
+        with torch.inference_mode():
+            prof_pre = profiled(lambda: arch.prefill(
+                eng.params, prompt, cfg, ctx, max_len=max_len), "prefill", 1)
+            state = list(arch.prefill(eng.params, prompt, cfg, ctx,
+                                      max_len=max_len)[:2])
+
+            def step():
+                state[:2] = arch.decode(eng.params, *state, out[:, :1], cfg,
+                                        ctx)[:2]
+            prof_dec = profiled(step, "decode", 3)
+        pre_bound = lm_prefill_flops(cfg, b, s) / peak_bf16 * 1e3
+        dec_ms = statistics.median(times)
+        kv_mid = s + len(times) // 2
+        dec_bound = lm_decode_bytes(cfg, eng.params, b, kv_mid) / hbm_bw * 1e3
+        row = {"batch": b, "prompt": s, "n_tokens": n_tokens,
+               "max_len": max_len, "generate_ms": gen_ms,
+               "prefill_ms": pre_ms, "prefill_tokens_per_s":
+               b * s / pre_ms * 1e3, "prefill_flops":
+               lm_prefill_flops(cfg, b, s), "prefill_bound_ms": pre_bound,
+               "decode_ms_median": dec_ms, "decode_ms": times,
+               "decode_bound_ms": dec_bound, "decode_bytes":
+               lm_decode_bytes(cfg, eng.params, b, kv_mid),
+               "decode_vs_prefill_max_abs": err, "decode_gate": gate,
+               "planted_faults_max_abs": {f"{k:+d}": v
+                                          for k, v in faults.items()},
+               "logit_max_abs": float(ref.abs().max()),
+               "prefill_trace": prof_pre, "decode_trace": prof_dec,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        log(f"phase 2j {label}: generate {b}x{s} -> {n_tokens} tokens in "
+            f"{gen_ms:.1f} ms; prefill {pre_ms:.2f} ms "
+            f"({row['prefill_tokens_per_s']:.0f} tokens/s; bound "
+            f"{pre_bound:.2f} ms at {peak_bf16:.3g} FLOP/s, "
+            f"{pre_bound / pre_ms:.2f} of it); decode {dec_ms:.2f} ms/step "
+            f"(median of {len(times)}, bytes bound {dec_bound:.2f} ms at "
+            f"{hbm_bw:.3g} B/s, {dec_bound / dec_ms:.2f} of it); decode vs "
+            f"prefill logits max |d| {err:.4g} (gate {gate}; planted "
+            f"faults, cache slot "
+            + ", ".join(f"{k:+d} {v:.4g}" for k, v in faults.items())
+            + f"; |logit| <= {row['logit_max_abs']:.3g}); peak "
+            f"{row['peak_gib']:.2f} GiB "
+            f"| {smi}")
+        for what, tr in (("prefill", prof_pre), ("decode step", prof_dec)):
+            log(f"  2j {label} {what} under torch.profiler: device busy "
+                f"{tr['device_busy_ms']:.2f} of {tr['device_window_ms']:.2f}"
+                f" ms (idle {tr['idle_share']:.2f}), "
+                f"{tr['kernels_per_call']:.0f} kernels; top "
+                + "; ".join(f"{k[:48]} {v:.2f}"
+                            for k, v in tr["top_ms_per_call"].items()))
+        return row
+
+    def check_init(label, cfg, params, init_s):
+        """Params of ``cfg``'s count, all bf16; returns (count, bytes)."""
+        leaves = list(tree_leaves(params, torch.is_tensor))
+        n = sum(t.numel() for t in leaves)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        dtypes = {t.dtype for t in leaves}
+        if n != n_params(cfg) or dtypes != {torch.bfloat16}:
+            failures.append(f"phase 2j {label}: {n} params, n_params "
+                            f"{n_params(cfg)}, dtypes {dtypes}")
+        log(f"phase 2j {label}: {cfg.arch} init_params {n / 1e9:.3f}e9 "
+            f"params ({nbytes / 1e9:.2f} GB bf16) in {init_s:.2f}s")
+        return n, nbytes
+
+    # (i) qwen3-14b, full width and depth, bf16
+    cfg = get_config("qwen3-14b")
+    arch = make_arch(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = init_params(torch.Generator("cuda").manual_seed(SEED),
+                         arch.param_specs(cfg))
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n, pbytes = check_init("(i)", cfg, params, init_s)
+    tg = torch.Generator("cuda").manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=tg,
+                         device="cuda", dtype=torch.int32)
+    rec["qwen3_14b"] = serve("(i) qwen3-14b", cfg, params, {"tokens": toks},
+                             LM_TOKENS, LM_MAX_LEN, prefill_reps=5)
+    rec["qwen3_14b"] |= {"init_s": init_s, "params": n, "param_bytes": pbytes}
+
+    # (ii) one unit at full width, f32 (TF32 off), card vs the host's CPU
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    p32 = {k: (tree_map(lambda t: t[:1].float(), v, torch.is_tensor)
+               if k == "units" else v.float()) for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32:
+        failures.append("phase 2j (ii): TF32 is on")
+    unit_toks = toks[:LM_UNIT_ROWS, :LM_UNIT_PROMPT]
+    with torch.inference_mode():
+        card = arch.prefill(p32, {"tokens": unit_toks}, cfg1, ctx,
+                            max_len=LM_UNIT_PROMPT)[2].cpu()
+        # the same on TF32 (logged: does the check see the lower precision?)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = arch.prefill(p32, {"tokens": unit_toks}, cfg1, ctx,
+                                max_len=LM_UNIT_PROMPT)[2].cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        p_host = tree_map(lambda t: t.cpu(), p32, torch.is_tensor)
+        del p32
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        host = arch.prefill(p_host, {"tokens": unit_toks.cpu()}, cfg1, ctx,
+                            max_len=LM_UNIT_PROMPT)[2]
+        host_s = time.time() - t0
+    del p_host
+    err = float((card - host).abs().max())
+    if not (torch.isfinite(card).all() and err <= LM_F32_ATOL):
+        failures.append(f"phase 2j (ii): card vs host logits max |d| {err} "
+                        f"(limit {LM_F32_ATOL})")
+    tf32_err = float((tf32 - host).abs().max())
+    rec["qwen3_14b_unit_f32"] = {"rows": LM_UNIT_ROWS,
+                                 "prompt": LM_UNIT_PROMPT,
+                                 "card_vs_host_max_abs": err,
+                                 "tf32_vs_host_max_abs": tf32_err,
+                                 "logit_max_abs": float(host.abs().max()),
+                                 "host_s": host_s}
+    log(f"phase 2j (ii): qwen3-14b one unit, f32, {LM_UNIT_ROWS}x"
+        f"{LM_UNIT_PROMPT} prefill logits: card vs host max |d| {err:.3g} "
+        f"(limit {LM_F32_ATOL}; on TF32 {tf32_err:.3g}; |logit| <= "
+        f"{float(host.abs().max()):.3g}; host {host_s:.1f}s)")
+
+    # (iii) gemma2-27b at its published width and depth, bf16
+    cfg2 = get_config("gemma2-27b")
+    arch2 = make_arch(cfg2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params2 = init_params(torch.Generator("cuda").manual_seed(SEED + 2),
+                          arch2.param_specs(cfg2))
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n2, pbytes2 = check_init("(iii)", cfg2, params2, init_s)
+    max_len = GEMMA2_PROMPT + 2 * GEMMA2_STEPS
+    if not (GEMMA2_PROMPT > cfg2.window
+            and GEMMA2_PROMPT * max_len > 512 * 512):
+        failures.append("phase 2j (iii): the prompt does not pass the "
+                        "window and the blockwise threshold")
+    toks2 = torch.randint(0, cfg2.vocab, (1, GEMMA2_PROMPT), generator=tg,
+                          device="cuda", dtype=torch.int32)
+    rec["gemma2_27b"] = serve("(iii) gemma2-27b", cfg2, params2,
+                              {"tokens": toks2}, GEMMA2_STEPS + 1, max_len,
+                              prefill_reps=3)
+    rec["gemma2_27b"] |= {"init_s": init_s, "params": n2,
+                          "param_bytes": pbytes2}
+    del params2
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.time() - t_phase
+    log(f"phase 2j: {rec['seconds']:.1f}s")
+    return rec
 
 
 def serving_times(smi):
@@ -2139,6 +2489,12 @@ def main() -> int:
     if failures:
         raise SystemExit("phase 2i failed:\n" + "\n".join(failures[:40]))
 
+    # ---- phase 2j: LM serving, qwen3-14b at full width and depth ---------
+    torch.cuda.empty_cache()
+    lm = lm_phase(failures, smi, hbm_bw, peak_bf16_tc)
+    if failures:
+        raise SystemExit("phase 2j failed:\n" + "\n".join(failures))
+
     # ---- phase 2c: sliding-window attention at gemma2-27b's width --------
     cfg = GEMMA2_LOCAL
     swa_kw = {"window": cfg["window"], "tq": cfg["tq"],
@@ -2800,6 +3156,7 @@ def main() -> int:
                    "host_ram": mem,
                    "serving": serve | {"launches": named(serve["launches"])},
                    "serving_times": serving, "distributed": distributed,
+                   "lm_serving": lm,
                    "plans_verified": tanalysis.counters()["verifications"]
                    - verified0,
                    "seconds": time.time() - t_start}, fh, indent=1,

@@ -9,9 +9,13 @@ puts a numpy grid on a device and :func:`tensor_from_numpy` puts a numpy
 array there in a given dtype.  The parity tests feed both packages the
 same inputs through these.  For serving, :func:`request_from_reference`
 and :func:`serve_config_from_reference` carry a reference request or
-serving config across, duck-typed likewise.
+serving config across, duck-typed likewise.  For the language models,
+:func:`params_from_reference` carries a parameter tree (the reference's
+init as numpy arrays) and :func:`config_from_reference` a model config.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -60,3 +64,39 @@ def serve_config_from_reference(obj):
     return ServeConfig(**{f: getattr(obj, f) for f in (
         "max_bucket_size", "max_wait_s", "queue_depth",
         "default_deadline_s", "shed_policy", "pad_buckets")})
+
+
+def params_from_reference(tree, *, device, dtype: torch.dtype | None = None):
+    """The port's parameter tree from a nested dict of numpy arrays (the
+    reference's parameters, ``np.asarray``'d), on ``device``; with
+    ``dtype``, every floating leaf cast to it.  A bfloat16 array (numpy
+    knows it only through ``ml_dtypes``) crosses as its bits."""
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device=device, dtype=dtype)
+                for k, v in tree.items()}
+    a = np.ascontiguousarray(tree)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def config_from_reference(obj):
+    """A ``repro_torch`` :class:`~repro_torch.models.ModelConfig` with
+    ``obj``'s fields (its ``moe`` and ``ssm`` records likewise)."""
+    from .models.config import ModelConfig, SsmCfg
+    from .models.moe import MoeCfg
+
+    def carry(cls, o):
+        return cls(**{f.name: getattr(o, f.name)
+                      for f in dataclasses.fields(cls)})
+
+    fields = {f.name: getattr(obj, f.name)
+              for f in dataclasses.fields(ModelConfig)}
+    for name, cls in (("moe", MoeCfg), ("ssm", SsmCfg)):
+        if fields[name] is not None:
+            fields[name] = carry(cls, fields[name])
+    return ModelConfig(**fields)

@@ -50,21 +50,11 @@ from typing import Literal, Sequence
 
 import torch
 
+from ..device import resolve_device
 from . import plan as _plan
 from .isa import assemble_any
 from .segment import SegmentConfig
 from .stencil import StencilPipeline, StencilSpec
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` → ``cuda``.  A CUDA device where CUDA is missing raises:
-    the engine never falls back to the host on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CasperEngine: CUDA is not available; pass device='cpu' to run "
-            "on the host")
-    return dev
 
 
 class CasperEngine:

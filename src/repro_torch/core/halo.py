@@ -354,7 +354,7 @@ def distributed_stencil_fn(spec, mesh, grid_axes: Sequence[str | None],
     if backend not in ("ref",) + _plan.KERNEL_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     axes = tuple(grid_axes)
-    from .engine import resolve_device
+    from ..device import resolve_device
     dev = resolve_device(device)
 
     def run(local) -> torch.Tensor:

@@ -1,0 +1,238 @@
+"""Attention: GQA, rope, qk-norm, softcap, sliding window, KV cache.
+
+Two implementations behind one interface, as in the reference:
+
+* ``dense``     — full (Sq, Skv) score matrix; small shapes and decode.
+* ``blockwise`` — flash-style: a loop over query tiles and, per query
+                  tile, over the KV tiles its causal and window masks
+                  can reach, with a running (m, l, acc).  The banded
+                  case is the stencil tiling of the sliding-window
+                  kernel, in plain PyTorch.
+
+All score math in float32.  Positions are host integers, so the KV tile
+range is static in decode as well; the tiles it skips are wholly masked
+and would add exactly nothing.
+
+The KV cache is bfloat16 whatever the parameters' dtype, and prefill
+attends over the cache after K/V are written into it, so K/V are rounded
+to bfloat16 on the cached path even in a float32 run.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..sharding import ShardCtx
+from .common import PSpec, rms_norm, rope, softcap as _softcap
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnCfg:
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_head: int
+    qk_norm: bool = False
+    softcap: float | None = None
+    window: int | None = None          # None = full causal
+    causal: bool = True                # False for encoder self-attention
+    rope_theta: float | None = 10000.0 # None = no rope (e.g. whisper)
+    scale: float | None = None         # default 1/sqrt(d_head)
+    block_q: int = 512
+    block_k: int = 1024
+    impl: str = "auto"                 # auto|dense|blockwise
+    fuse_qkv: bool = False             # one fused qkv projection
+
+    @property
+    def group(self) -> int:
+        return self.n_heads // self.n_kv
+
+
+def attn_param_specs(c: AttnCfg) -> dict[str, PSpec]:
+    if c.fuse_qkv:
+        p = {
+            "wqkv": PSpec((c.d_model, c.n_heads + 2 * c.n_kv, c.d_head),
+                          ("fsdp", "tp", None)),
+            "wo": PSpec((c.n_heads, c.d_head, c.d_model),
+                        ("tp", None, "fsdp")),
+        }
+    else:
+        p = {
+            "wq": PSpec((c.d_model, c.n_heads, c.d_head),
+                        ("fsdp", "tp", None)),
+            "wk": PSpec((c.d_model, c.n_kv, c.d_head), ("fsdp", "tp", None)),
+            "wv": PSpec((c.d_model, c.n_kv, c.d_head), ("fsdp", "tp", None)),
+            "wo": PSpec((c.n_heads, c.d_head, c.d_model),
+                        ("tp", None, "fsdp")),
+        }
+    if c.qk_norm:
+        p["q_norm"] = PSpec((c.d_head,), (None,), init="ones")
+        p["k_norm"] = PSpec((c.d_head,), (None,), init="ones")
+    return p
+
+
+def _mask(q_pos, k_pos, c: AttnCfg, kv_len=None):
+    """(Sq, Skv) boolean validity from absolute positions."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    valid = kp >= 0
+    if c.causal:
+        valid = valid & (kp <= qp)
+    if c.window is not None:
+        valid = valid & (kp > qp - c.window)
+    if kv_len is not None:
+        valid = valid & (kp < kv_len)
+    return valid
+
+
+def _scores(q, k, c: AttnCfg):
+    """(B, Hkv, G, Sq, Skv) float32 scores, scaled and softcapped.
+    q: (B, Hkv, G, Sq, D) float32; k: (B, Hkv, Skv, D) float32."""
+    scale = c.scale or 1.0 / math.sqrt(c.d_head)
+    s = torch.matmul(q, k.transpose(-1, -2)[:, :, None]) * scale
+    return _softcap(s, c.softcap)
+
+
+def _sdpa_dense(q, k, v, q_pos, k_pos, c: AttnCfg, kv_len=None):
+    # q: (B, Hkv, G, Sq, D); k/v: (B, Hkv, Skv, D)
+    s = _scores(q.float(), k.float(), c)
+    valid = _mask(q_pos, k_pos, c, kv_len)        # (Sq, Skv)
+    s = torch.where(valid[None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v.float()[:, :, None]).to(q.dtype)
+
+
+def _sdpa_blockwise(q, k, v, q_pos0: int, c: AttnCfg, kv_len=None):
+    """Flash-style attention.  q: (B,Hkv,G,Sq,D); k/v: (B,Hkv,Skv,D);
+    ``q_pos0``: the absolute position of q[..., 0, :]."""
+    b, h, g, sq, d = q.shape
+    skv = k.shape[2]
+    bq = min(c.block_q, sq)
+    bk = min(c.block_k, skv)
+    n_q = -(-sq // bq)
+    n_k = -(-skv // bk)
+    if n_k * bk > skv and kv_len is None:
+        kv_len = skv
+    q = F.pad(q, (0, 0, 0, n_q * bq - sq))
+    dev = q.device
+
+    def kv_tile(t, ki):                # zero-padded past skv
+        blk = t[:, :, ki * bk:(ki + 1) * bk].float()
+        return F.pad(blk, (0, 0, 0, bk - blk.shape[2]))
+
+    outs = []
+    for qi in range(n_q):
+        qblk = q[:, :, :, qi * bq:(qi + 1) * bq].float()
+        # the KV tile range this query tile's masks can reach
+        q_lo = q_pos0 + qi * bq
+        q_hi = q_lo + bq - 1
+        hi = n_k if not c.causal else min(n_k, (q_hi // bk) + 1)
+        lo = 0
+        if c.window is not None:
+            lo = max(0, (q_lo - c.window + 1) // bk)
+        qpos = q_lo + torch.arange(bq, device=dev)
+
+        m = torch.full((b, h, g, bq), NEG_INF, device=dev)
+        l = torch.zeros((b, h, g, bq), device=dev)
+        acc = torch.zeros((b, h, g, bq, d), device=dev)
+        for ki in range(lo, hi):
+            s = _scores(qblk, kv_tile(k, ki), c)
+            kpos = ki * bk + torch.arange(bk, device=dev)
+            valid = (kpos >= 0)[None, :]
+            if c.causal:
+                valid = valid & (kpos[None, :] <= qpos[:, None])
+            if c.window is not None:
+                valid = valid & (kpos[None, :] > qpos[:, None] - c.window)
+            if kv_len is not None:
+                valid = valid & (kpos < kv_len)[None, :]
+            s = torch.where(valid[None, None, None], s, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + torch.sum(p, dim=-1)
+            acc = (acc * corr[..., None]
+                   + torch.matmul(p, kv_tile(v, ki)[:, :, None]))
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.cat(outs, dim=3) if len(outs) > 1 else outs[0]
+    return out[:, :, :, :sq].to(q.dtype)
+
+
+def make_cache(c: AttnCfg, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """Zeroed K/V of ``max_len`` positions on ``device`` (``None``: the
+    card; raises where CUDA is missing)."""
+    dev = resolve_device(device)
+    shape = (batch, c.n_kv, max_len, c.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _heads(x, w):
+    """einsum("bsd,dhk->bhsk", x, w) as one product."""
+    d, nh, dh = w.shape
+    return (x @ w.reshape(d, nh * dh)).unflatten(-1, (nh, dh)).transpose(1, 2)
+
+
+def attention(
+    p: dict,
+    x: torch.Tensor,              # (B, S, D)
+    c: AttnCfg,
+    ctx: ShardCtx,
+    pos0: int = 0,                # absolute position of x[:, 0]
+    cache: dict | None = None,    # KV cache, written in place
+    cache_len: int | None = None,  # filled length of cache
+) -> tuple[torch.Tensor, dict | None]:
+    b, s, _ = x.shape
+    if c.fuse_qkv:
+        qkv = _heads(x, p["wqkv"])
+        q = qkv[:, :c.n_heads]
+        k = qkv[:, c.n_heads:c.n_heads + c.n_kv]
+        v = qkv[:, c.n_heads + c.n_kv:]
+    else:
+        q, k, v = (_heads(x, p[w]) for w in ("wq", "wk", "wv"))
+
+    if c.qk_norm:                      # the default eps, not cfg.norm_eps
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+
+    qpos = pos0 + torch.arange(s, device=x.device)
+    if c.rope_theta is not None:
+        q = rope(q, qpos[None, None, :], c.rope_theta)
+        k = rope(k, qpos[None, None, :], c.rope_theta)
+
+    q = ctx.constrain(q, "dp", "tp", None, None)
+    k = ctx.constrain(k, "dp", "tp", None, None)
+    v = ctx.constrain(v, "dp", "tp", None, None)
+
+    kv_len = None
+    if cache is not None:
+        idx = cache_len if cache_len is not None else 0
+        cache["k"][:, :, idx:idx + s] = k.to(cache["k"].dtype)
+        cache["v"][:, :, idx:idx + s] = v.to(cache["v"].dtype)
+        k, v = cache["k"], cache["v"]
+        kv_len = idx + s
+
+    qg = q.reshape(b, c.n_kv, c.group, s, c.d_head)
+    skv = k.shape[2]
+
+    impl = c.impl
+    if impl == "auto":
+        impl = "dense" if (s * skv <= 512 * 512) else "blockwise"
+    if impl == "dense":
+        kpos = torch.arange(skv, device=x.device)
+        if cache is None:
+            kpos = pos0 + kpos
+        o = _sdpa_dense(qg, k, v, qpos, kpos, c, kv_len)
+    else:
+        o = _sdpa_blockwise(qg, k, v, pos0, c, kv_len)
+
+    o = o.reshape(b, c.n_heads, s, c.d_head).transpose(1, 2)
+    y = o.reshape(b, s, c.n_heads * c.d_head) @ p["wo"].reshape(-1, c.d_model)
+    return ctx.constrain(y, "dp", None, None), cache

@@ -1,0 +1,136 @@
+"""Architecture registry: uniform API over the ported architectures.
+
+Every arch exposes, as in the reference:
+  param_specs(cfg)                         -> PSpec tree
+  loss(params, batch, cfg, ctx)            -> (scalar, metrics)
+  prefill(params, batch, cfg, ctx, max_len)-> (state, len, logits)
+  decode(params, state, len, tok, cfg, ctx)-> (state, len, logits)
+  decode_state_specs(cfg, batch, max_len)  -> PSpec tree
+  decode_state_init(cfg, batch, max_len)   -> tensors
+and ``input_specs(cfg, cell)`` gives the batch a shape cell feeds it.
+
+The ``"transformer"`` family is ported.  The zamba, xlstm and whisper
+families wait for their slices of ROADMAP item 13b; :func:`make_arch`
+raises for them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from .config import ModelConfig
+from . import transformer as tf
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+CELLS: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_supported(cfg: ModelConfig, cell: ShapeCell) -> tuple[bool, str]:
+    if cell.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("full-attention arch: 500k-token replay is quadratic;"
+                       " skipped per DESIGN.md §4")
+    return True, ""
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchDef:
+    cfg: ModelConfig
+    param_specs: Callable[[ModelConfig], Any]
+    loss: Callable
+    prefill: Callable
+    decode: Callable
+    decode_state_specs: Callable   # (cfg, batch, max_len) -> PSpec tree
+    decode_state_init: Callable    # (cfg, batch, max_len) -> tensors
+
+
+_FAMILY_DEFS = {
+    "transformer": dict(
+        param_specs=tf.lm_param_specs, loss=tf.lm_loss,
+        prefill=tf.lm_prefill, decode=tf.lm_decode,
+        decode_state_specs=tf.cache_specs,
+        decode_state_init=tf.init_caches),
+}
+
+# the families still to port, each with its slice of ROADMAP item 13b
+_NOT_PORTED = {
+    "zamba": "zamba2 with mamba2",
+    "xlstm": "xlstm",
+    "whisper": "whisper",
+}
+
+
+def family_impl(cfg: ModelConfig) -> str:
+    if cfg.family == "hybrid":
+        return "zamba"
+    if cfg.family == "ssm":
+        return "xlstm"
+    if cfg.family == "audio":
+        return "whisper"
+    return "transformer"
+
+
+def make_arch(cfg: ModelConfig) -> ArchDef:
+    fam = family_impl(cfg)
+    if fam in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{cfg.arch}: the {fam!r} family is not ported yet (ROADMAP "
+            f"item 13b, the {_NOT_PORTED[fam]} slice)")
+    return ArchDef(cfg=cfg, **_FAMILY_DEFS[fam])
+
+
+# ---------------------------------------------------------------------------
+# batch construction per shape cell
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of one model input (the reference's
+    ``ShapeDtypeStruct``)."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """Shape/dtype records of the model inputs for one shape cell."""
+    b, s = cell.global_batch, cell.seq_len
+    if cell.kind in ("train", "prefill"):
+        if cfg.family == "audio":
+            return {"frames": TensorSpec((b, s, cfg.d_model), torch.bfloat16),
+                    "tokens": TensorSpec((b, min(s, cfg.max_seq)),
+                                         torch.int32)}
+        batch = {"tokens": TensorSpec((b, s - (cfg.n_patches or 0)),
+                                      torch.int32)}
+        if cfg.n_patches:
+            batch["patch_embeds"] = TensorSpec(
+                (b, cfg.n_patches, cfg.d_model), torch.bfloat16)
+        return batch
+    # decode: one token per sequence
+    return {"tokens": TensorSpec((b, 1), torch.int32)}
+
+
+def make_batch(cfg: ModelConfig, cell: ShapeCell,
+               gen: torch.Generator) -> dict:
+    """A random batch for the cell, drawn from ``gen`` on its device."""
+    out = {}
+    for name, spec in input_specs(cfg, cell).items():
+        if spec.dtype.is_floating_point:
+            out[name] = torch.randn(spec.shape, generator=gen,
+                                    device=gen.device).to(spec.dtype)
+        else:
+            out[name] = torch.randint(0, cfg.vocab, spec.shape, generator=gen,
+                                      device=gen.device, dtype=spec.dtype)
+    return out

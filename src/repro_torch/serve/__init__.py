@@ -1,7 +1,7 @@
-"""Stencil serving of the PyTorch port: the one-shot batched server, the
-continuous-batching scheduler and the open-loop load generator.  The
-reference's ``ServeEngine`` serves its language models and belongs with
-them (ROADMAP Queue 1 item 13)."""
+"""Serving of the PyTorch port: stencils through the one-shot batched
+server, the continuous-batching scheduler and the open-loop load
+generator, and language models through :class:`ServeEngine`."""
+from .engine import ServeEngine
 from .stencil import (RequestError, ServeStats, StencilRequest,
                       StencilServer, default_specs)
 from .scheduler import (AsyncStencilServer, RequestHandle, RequestRejected,
@@ -11,8 +11,8 @@ from .loadgen import (TimedRequest, mixed_requests, poisson_times,
 
 __all__ = [
     "AsyncStencilServer", "RequestError", "RequestHandle",
-    "RequestRejected", "ServeConfig", "ServeStats", "StencilRequest",
-    "StencilServer", "TimedRequest", "bucket_tiers", "default_specs",
+    "RequestRejected", "ServeConfig", "ServeEngine", "ServeStats",
+    "StencilRequest", "StencilServer", "TimedRequest", "bucket_tiers", "default_specs",
     "mixed_requests", "poisson_times", "poisson_workload",
     "submit_open_loop",
 ]

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..core import plan as _plan
-from ..core.engine import resolve_device
+from ..device import resolve_device
 from ..core.stencil import (PAPER_PIPELINES, PAPER_STENCILS, StencilPipeline,
                             StencilSpec, advect1d, advect2d)
 

@@ -6,10 +6,13 @@ use); a subprocess with those imports blocked runs a stencil and both
 paper pipelines through ``CasperEngine``, analyzes a plan
 (``repro_torch.analysis``), serves the reference's mix
 (``repro_torch.serve``), imports the distributed path
-(``core/halo.py``) and runs sliding-window attention through
-``kernels.ops.swa``, and an AST scan of the package's sources (the
-analysis, serving and halo modules among them), of ``chip_smoke.py`` and
-of the helpers it loads from ``tests/`` finds no such import.
+(``core/halo.py``), runs sliding-window attention through
+``kernels.ops.swa`` and serves a reduced qwen3-14b (``configs``,
+``models``, ``serve.ServeEngine``; ``roofline.analysis`` and
+``sharding`` beside them), and an AST scan of the package's sources
+(the analysis, serving, halo and LM modules among them), of
+``chip_smoke.py`` and of the helpers it loads from ``tests/`` finds no
+such import.
 """
 import ast
 import os
@@ -56,6 +59,20 @@ res, stats = srv.serve(serve.mixed_requests(8, seed=7, dtype=np.float64))
 assert stats.n_buckets >= 1 and all(r.device.type == "cpu" for r in res)
 q, kv = torch.ones(1, 4, 50, 16), torch.ones(1, 2, 50, 16)
 assert ops.swa(q, kv, kv, window=8, tq=32, softcap=50.0).shape == q.shape
+from repro_torch.configs import get_config
+from repro_torch.models import make_arch
+from repro_torch.models.common import init_params
+from repro_torch.roofline.analysis import n_params
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.sharding import ShardCtx
+cfg = get_config("qwen3-14b", reduced=True)
+arch = make_arch(cfg)
+params = init_params(torch.Generator().manual_seed(0), arch.param_specs(cfg),
+                     device="cpu")
+toks = ServeEngine(arch, params, max_len=16, device="cpu").generate(
+    {"tokens": torch.zeros(2, 5, dtype=torch.int32)}, 2)
+assert toks.shape == (2, 2) and n_params(cfg) > 0
+assert ShardCtx().constrain(toks) is toks
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton")]
 assert not bad, bad
@@ -91,7 +108,12 @@ def test_sources_import_no_jax_and_no_repro():
     for mod in ("core/halo.py", "analysis/verify.py",
                 "analysis/launch_lint.py",
                 "analysis/serve_check.py", "analysis/casper_lint.py",
-                "serve/stencil.py", "serve/scheduler.py", "serve/loadgen.py"):
+                "serve/stencil.py", "serve/scheduler.py", "serve/loadgen.py",
+                "serve/engine.py", "sharding.py", "convert.py", "device.py",
+                "roofline/analysis.py", "configs/__init__.py",
+                "configs/qwen3_14b.py", "models/attention.py",
+                "models/common.py", "models/moe.py", "models/mlp.py",
+                "models/transformer.py", "models/registry.py"):
         assert PORT / mod in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
