@@ -143,26 +143,35 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    device time (CUDA events), rounds, launches and peak device memory
    (eight processes share the card: contended times); a rank that fails
    fails the phase; (j) LM serving (``repro_torch.models``,
-   ``serve.ServeEngine``; plain PyTorch, no TPU kernel on this path):
-   (i) qwen3-14b at its published width and depth in bf16, params from
-   ``init_params`` under a seeded CUDA generator, 4 prompts of 256
-   tokens, ``ServeEngine(..., max_len=512).generate(..., 32)`` greedy:
-   tokens within the vocabulary, teacher-forced decode logits against a
-   prefill over the same tokens (``LM_DECODE_ATOL``), and the same with
-   a fault planted in the last decode step (its cache slot one late, and
-   one early), each of which must pass the gate, prefill ms and
-   tokens/s beside its operation bound, decode ms per step (median,
-   synchronized) beside its bytes bound, peak device memory, and one
-   prefill and three decode steps under ``torch.profiler`` (device busy
-   and idle share, kernels per call, the heaviest kernels); (ii) one
-   qwen3-14b unit at full width in f32 (TF32 off): prefill logits on the
-   card against the same port on the host's CPU (``LM_F32_ATOL``; the
-   error on TF32 logged beside it); (iii) gemma2-27b at its published
-   width and depth (46 layers), bf16: one prompt of 4,608 tokens (past the
-   4,096 window: blockwise prefill over a banded KV range) and 8 greedy
-   decode steps, checked and timed as (i).  Every plan of phases 2 and 3
-   is lowered under ``CASPER_VERIFY=strict`` (``repro_torch.analysis``):
-   a finding fails the run;
+   ``serve.ServeEngine``; plain PyTorch, no TPU kernel on this path), one
+   model at a time at its published width and depth in bf16, params from
+   ``init_params`` under a seeded CUDA generator: (i) qwen3-14b, 4 prompts
+   of 256 tokens -> 32 greedy tokens; (iii) gemma2-27b, one prompt of
+   4,608 tokens (past the 4,096 window: blockwise prefill over a banded
+   KV range) -> 8 decode steps; (iv) zamba2-7b (81 Mamba2 layers in 27
+   units, the shared block with its per-unit LoRA firing on 13), 4 x
+   1,024 (four SSD chunks each) -> 32; (vi) xlstm-125m (12 blocks, sLSTM
+   at 3 and 9), 4 x 1,024 -> 32; (vii) whisper-tiny, 4 clips of 1,500
+   frames (the encoder blockwise, non-causal) with 64-token prompts ->
+   32.  Each is served on the reference's init (``lm_serve``): tokens
+   within the vocabulary, prefill ms and tokens/s and decode ms per step
+   (median, synchronized) beside their bounds (``transformer_work``,
+   ``zamba_work``, ``xlstm_work``, ``whisper_work``: bf16 and f32 work at
+   their rates against the bytes), peak device memory, and one prefill
+   and three decode steps under ``torch.profiler`` (device busy and idle
+   share, kernels per call, the heaviest kernels).  Then the query and
+   key projections are rescaled to their true fan-in (``scale_scores``)
+   and the model is checked (``lm_check``): teacher-forced decode logits
+   against a prefill over the same tokens (``LM_DECODE_ATOL``), clean and
+   with faults planted in
+   the last decode step (the cache slot one late and one early; one
+   layer's recurrent state one update behind; the cross K/V of the next
+   clip), each of which must fail the gate; for zamba2, xLSTM and Whisper
+   the same in f32, TF32 off (``LM_F32_DECODE_ATOL``).  Card vs host in
+   f32 (``LM_F32_ATOL``, the error on TF32 logged): (ii) one qwen3-14b
+   unit, (v) one firing zamba2-7b unit, and xlstm-125m whole.  Every
+   plan of phases 2 and 3 is lowered under ``CASPER_VERIFY=strict``
+   (``repro_torch.analysis``): a finding fails the run;
 3. times one fused block per phase-2 case with CUDA events (median),
    beside its bound (the larger of one read and one write of the grid at
    the HBM rate and the f64 operations the contract fixes per point and
@@ -919,333 +928,731 @@ def distributed_phase(failures, smi, gen):
 
 
 # phase 2j: LM serving (repro_torch.models, serve.ServeEngine): plain
-# PyTorch, no TPU kernel on this path (PERF.md, kernel table).  qwen3-14b
-# at its published width and depth (src/repro/configs/qwen3_14b.py: 40
-# layers, d_model 5120, 40/8 heads of 128, d_ff 17408, vocab 151,936),
-# 4 prompts of 256 tokens, 32 greedy tokens; gemma2-27b at its published
-# width and depth (46 layers, 27.2e9 params, 54.4 GB in bf16: it fits the
-# card once qwen3-14b's params are freed), one prompt of 4,608 tokens
-# (past its 4,096 window: prefill is blockwise over a banded KV range),
-# 8 greedy decode steps.
+# PyTorch, no TPU kernel on this path (PERF.md, kernel table).  Every
+# model at its published width and depth, bf16, params from a seeded CUDA
+# generator: (i) qwen3-14b (src/repro/configs/qwen3_14b.py: 40 layers,
+# d_model 5120, 40/8 heads of 128, d_ff 17408, vocab 151,936), 4 prompts
+# of 256 tokens, 32 greedy tokens; (iii) gemma2-27b (46 layers, 27.2e9
+# params, 54.4 GB in bf16: it fits the card once qwen3-14b's params are
+# freed), one prompt of 4,608 tokens (past its 4,096 window: prefill is
+# blockwise over a banded KV range), 8 greedy decode steps; (iv) zamba2-7b
+# (81 Mamba2 layers in 27 units, the shared block firing on 13), 4 prompts
+# of 1,024 tokens (four SSD chunks of 256 each; the shared attention
+# blockwise), 32 greedy tokens; (vi) xlstm-125m, 4 prompts of 1,024
+# tokens (16 mLSTM chunks of 64, 1,024 sLSTM steps per sLSTM layer), 32
+# greedy tokens; (vii) whisper-tiny, 4 clips of 1,500 frames
+# (max_source_positions) with 64-token prompts, 32 greedy tokens.
 LM_BATCH, LM_PROMPT, LM_TOKENS, LM_MAX_LEN = 4, 256, 32, 512
 GEMMA2_PROMPT, GEMMA2_STEPS = 4608, 8
-LM_UNIT_ROWS, LM_UNIT_PROMPT = 2, 64
-# decode vs prefill logits, bf16, at full depth: one-position decode
-# steps and a prefill over all positions round differently (cuBLAS takes
-# other kernels and summation orders for the two shapes) and the
-# differences compound over the layers.  Each gate sits between the clean
-# reading and the readings of the planted faults (LM_FAULT_SHIFTS), which
-# every run also takes and must see fail.  On an H100 (PERF.md, LM
-# serving): qwen3-14b 0.1914 clean, 4.598 and 4.414 faulted (|logit| up
-# to 5); gemma2-27b, whose final softcap keeps |logit| near 1.2, 0.02344
-# clean, 0.4287 and 0.4443 faulted.  Each gate is at least 2x from
-# either side: 2.6x above qwen3's clean reading and 8.8x below its
-# faults; 2.1x above gemma2's and 8.6x below its faults.
-LM_DECODE_ATOL = {"qwen3-14b": 0.5, "gemma2-27b": 5e-2}
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_TOKENS = 4, 1024, 32
+FAMILY_MAX_LEN = FAMILY_PROMPT + 64
+WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_MAX_LEN = 1500, 64, 128
+# the serving runs are timed on the reference's init; the checks run on
+# the same weights with the query and key projections rescaled to their
+# true fan-in (scale_scores): the attention scores drop from the hundreds
+# to O(1), bf16 rounding no longer flips a softmax row, and a small fault
+# reads well above a clean run
+#
+# every check run prefills all but LM_CHECK_STEPS of the teacher-forced
+# tokens and decodes the rest one a step; a planted fault acts on the last
+# step.  The warm-up generate is LM_WARM_TOKENS long.
+LM_CHECK_STEPS, LM_WARM_TOKENS = 4, 2
 # the planted faults: the last decode step's cache slot (and rope
 # position) moved by one, late and early
 LM_FAULT_SHIFTS = (1, -1)
-# card vs host logits, one unit in f32 (TF32 off): the cache rounds K/V to
-# bf16, and an element whose f32 value differs in its last bits between
-# the two rounds to the neighbouring bf16 value: 3.3e-4 measured
-LM_F32_ATOL = 2e-3
+# decode vs prefill logits, bf16: one-position decode steps and a prefill
+# over all positions round differently (cuBLAS takes other kernels and
+# summation orders for the two shapes) and the differences compound over
+# the layers.  Each gate sits between the clean reading and the smallest
+# reading of the planted faults, which every run also takes and must see
+# fail, at least 2x from either.  On an H100 (PERF.md, LM serving; clean
+# on phase 2j's tokens [on random tokens]; the smallest fault on either):
+# qwen3-14b 0.1816 [0.2148], 4.414; gemma2-27b 0.1035 [0.08495], 1.357;
+# zamba2-7b 0.04926 [0.0605], 0.4026; xlstm-125m 0.02026 [0.0605,
+# 0.1542], 0.7031; whisper-tiny 0.001953 [0.001953], 0.01855.
+LM_DECODE_ATOL = {"qwen3-14b": 0.5, "gemma2-27b": 0.3, "zamba2-7b": 0.16,
+                  "xlstm-125m": 0.33, "whisper-tiny": 6.5e-3}
+# the same check in f32 (TF32 off) on a short case: (rows, prompt); the
+# bf16 caches still round K/V and zamba2's conv state.  Clean, smallest
+# fault: zamba2-7b 0.02032 [0.01817], 0.4537; xlstm-125m 8.151e-5
+# [1.356e-4], 0.7059; whisper-tiny 5.066e-7, 0.02096.
+F32_DECODE_CASES = {"zamba2-7b": (1, 512), "xlstm-125m": (2, 256),
+                    "whisper-tiny": (2, 60)}
+LM_F32_DECODE_ATOL = {"zamba2-7b": 0.09, "xlstm-125m": 5e-3,
+                      "whisper-tiny": 1e-3}
+# card vs host logits in f32 (TF32 off, the error on TF32 logged):
+# (ii) one qwen3-14b unit, 2 x 64, last position; (v) one firing
+# zamba2-7b unit (three Mamba2 blocks and the shared block with its
+# LoRA), 2 x 320 (one whole SSD chunk and a partial one), every position;
+# (vi) xlstm-125m whole, 2 x 256, every position.  The caches round K/V
+# to bf16, and an element whose f32 value differs in its last bits
+# between the two rounds to the neighbouring bf16 value.  Measured (on
+# TF32): 2.98e-4 (9.0e-3), 4.8e-5 (7.16e-3), 9.46e-4 [3.65e-3] (0.265);
+# an f64 run on the card lies 3.7e-5 from the zamba2 unit's f32 run and
+# 5.4e-4 from xLSTM's (tools/lm_conditioning.py).
+LM_UNIT_ROWS, LM_UNIT_PROMPT = 2, 64
+ZAMBA_UNIT_ROWS, ZAMBA_UNIT_PROMPT = 2, 320
+LM_F32_ATOL = {"qwen3-14b": 2e-3, "zamba2-7b": 5e-4, "xlstm-125m": 1e-2}
 
 
-def lm_prefill_flops(cfg, b: int, s: int) -> float:
-    """The products a dense transformer's prefill must compute: every
-    unit weight once per token, QK^T and PV over the (query, key) pairs
-    its causal and window masks keep, and the unembedding of the last
-    position only."""
-    from repro_torch.models.transformer import lm_param_specs
+def scale_scores(params, specs):
+    """Rescale in place every query and key projection (``wq``, ``wk``:
+    (d_in, heads, d_head), stacked or not) to std 1/sqrt(d_in).  The
+    reference's init takes a weight's second-to-last dim as its fan-in,
+    here the head count, so without a qk-norm the scores reach the
+    hundreds and one bf16 rounding moves a whole softmax row."""
+    for key in sorted(params):
+        if isinstance(params[key], dict):
+            scale_scores(params[key], specs[key])
+        elif key in ("wq", "wk"):
+            shape = specs[key].shape
+            params[key].mul_(math.sqrt(shape[-2] / shape[-3]))
+
+
+def transformer_work(cfg, params, b: int, s: int, kv_len=None) -> dict:
+    """The work a dense transformer's prefill of ``s`` tokens
+    (``kv_len=None``) or one decode step after ``kv_len`` positions must
+    do: bf16 products (every unit weight once per token, the last
+    position's unembedding), f32 score products (QK^T and PV over the
+    (query, key) pairs its causal and window masks keep: the port scores
+    in f32, TF32 off) and bytes (every weight read once, the tokens'
+    embedding rows, the K/V written, and in decode the K/V attended)."""
     from repro_torch.models.common import param_count
-    specs = lm_param_specs(cfg)
-    layer_params = param_count(specs["units"])
-    flops = 2.0 * layer_params * b * s
+    from repro_torch.models.transformer import lm_param_specs
+    decode = kv_len is not None
+    toks = b * (1 if decode else s)
+    bf16 = 2.0 * param_count(lm_param_specs(cfg)["units"]) * toks \
+        + 2.0 * cfg.d_model * cfg.vocab * b
+    f32 = 0.0
+    kv = 0
     for kind in cfg.layer_pattern:
         w = cfg.window if kind == "local" else None
-        pairs = sum(min(i + 1, w or s) for i in range(s))
-        flops += cfg.n_units * 4.0 * cfg.n_heads * cfg.d_head * pairs * b
-    return flops + 2.0 * cfg.d_model * cfg.vocab * b
-
-
-def lm_decode_bytes(cfg, params, b: int, kv_len: int) -> float:
-    """The bytes one decode step must move: every unit weight and the
-    unembedding read once, the token's embedding rows, and the K/V each
-    layer attends to (``kv_len`` positions, at most the window on local
-    layers) with its new K/V written; bf16 cache."""
-    from repro_torch.models.common import tree_leaves
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in tree_leaves(params["units"], torch.is_tensor))
+        if decode:
+            pos = min(kv_len, w or kv_len) + 1
+            pairs = b * pos
+        else:
+            pos = s
+            pairs = b * sum(min(i + 1, w or s) for i in range(s))
+        f32 += cfg.n_units * 4.0 * cfg.n_heads * cfg.d_head * pairs
+        kv += cfg.n_units * b * 2 * cfg.n_kv * cfg.d_head * pos * 2
     emb = params["embed"]
     head = emb if cfg.tie_embeddings else params["lm_head"]
-    nbytes += head.numel() * head.element_size()
-    nbytes += b * cfg.d_model * emb.element_size()
-    for kind in cfg.layer_pattern:
-        w = cfg.window if kind == "local" else None
-        pos = min(kv_len, w or kv_len) + 1
-        nbytes += cfg.n_units * b * 2 * cfg.n_kv * cfg.d_head * pos * 2
-    return float(nbytes)
+    nbytes = (_weight_bytes(params["units"]) + _weight_bytes({"h": head})
+              + toks * cfg.d_model * emb.element_size() + kv)
+    return {"bf16_flops": bf16, "f32_flops": f32, "bytes": float(nbytes)}
 
 
-def lm_phase(failures, smi, hbm_bw, peak_bf16):
-    """Phase 2j: LM serving on the card (see the module docstring).
-    Returns the phase's record."""
-    from repro_torch.configs import get_config
+def _weight_bytes(tree) -> int:
+    from repro_torch.models.common import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(tree, torch.is_tensor))
+
+
+def zamba_work(cfg, params, b: int, s: int, kv_len=None) -> dict:
+    """The work a zamba2 prefill of ``s`` tokens (``kv_len=None``) or one
+    decode step after ``kv_len`` positions must do: bf16 products (the
+    Mamba2 projections, the shared block once per firing, the last
+    position's tied unembedding), f32 operations (the causal conv's taps,
+    the SSD products over the causal (i, j) pairs of each chunk, or one
+    SSD step; the shared attention's f32 score products over its causal
+    pairs; the LoRA merge a @ b in f32 per firing) and bytes (every
+    weight read once, the shared block's once per firing in decode, 694
+    MB at full width and far past L2, only the firing units' LoRA; the
+    SSM state (f32) and conv state read and written; the K/V attended)."""
+    from repro_torch.models.zamba2 import n_fires
+    sc = cfg.ssm
+    d, di, n = cfg.d_model, sc.d_inner(cfg.d_model), sc.n_groups * sc.d_state
+    h, hp, k, q = sc.n_heads(d), sc.head_dim, sc.d_conv, sc.chunk
+    conv_dim, layers, fires = di + 2 * n, cfg.n_layers, n_fires(cfg)
+    d2, nh, nkv, dh = 2 * d, cfg.n_heads, cfg.n_kv, cfg.d_head
+    p_mamba = d * (2 * di + 2 * n + h) + di * d
+    p_shared = d2 * (nh + 2 * nkv) * dh + nh * dh * d + d2 * 2 * cfg.d_ff \
+        + cfg.d_ff * d
+    merge = 2.0 * d2 * cfg.lora_rank * (nh + 2 * nkv) * dh
+    decode = kv_len is not None
+    toks = b * (1 if decode else s)
+    bf16 = 2.0 * toks * (layers * p_mamba + fires * p_shared) \
+        + 2.0 * b * d * cfg.vocab
+    f32 = 2.0 * k * conv_dim * toks * layers + fires * merge
+    if decode:
+        f32 += 6.0 * b * h * hp * n * layers               # ssd_step
+        f32 += 4.0 * nh * dh * b * (kv_len + 1) * fires
+    else:
+        for c0 in range(0, s, q):
+            qc = min(q, s - c0)
+            pairs = qc * (qc + 1) / 2
+            f32 += b * layers * (2.0 * pairs * n + 2.0 * h * pairs * hp
+                                 + 4.0 * h * qc * hp * n)
+        f32 += 4.0 * nh * dh * b * s * (s + 1) / 2 * fires
+    units = params["units"]
+    mamba = _weight_bytes({kk: v for kk, v in units.items()
+                           if not kk.startswith("lora")})
+    lora = _weight_bytes({kk: v for kk, v in units.items()
+                          if kk.startswith("lora")})
+    shared = _weight_bytes(params["shared"])
+    state = layers * b * (h * hp * n * 4 + (k - 1) * conv_dim * 2)
+    kv_pos = (kv_len + 1) if decode else s
+    nbytes = (mamba + lora * fires / (layers // 3)
+              + shared * (fires if decode else 1)
+              + _weight_bytes({"e": params["embed"]})
+              + state * (2 if decode else 1)
+              + fires * b * 2 * nkv * dh * kv_pos * 2)
+    return {"bf16_flops": bf16, "f32_flops": f32, "bytes": float(nbytes),
+            "lora_merge_f32_flops": fires * merge}
+
+
+def xlstm_work(cfg, params, b: int, s: int, kv_len=None) -> dict:
+    """xLSTM's work for a prefill of ``s`` tokens or one decode step: bf16
+    products (the mLSTM's q/k/v and output projections, the sLSTM's
+    output, the last position's tied unembedding), f32 operations (the
+    mLSTM's gate and output-gate products, its chunked products over the
+    causal pairs and the inter-chunk state, or one sequential step; the
+    sLSTM's input and recurrent gate products) and bytes (every weight
+    read once; the states written, and in decode read and written)."""
+    from repro_torch.models.xlstm import mlstm_pdim
+    d, nh, pm, ps = cfg.d_model, cfg.n_heads, mlstm_pdim(cfg), cfg.d_head
+    n_s = len(cfg.slstm_layers)
+    n_m = cfg.n_layers - n_s
+    q = cfg.ssm.chunk if cfg.ssm else 64
+    decode = kv_len is not None
+    toks = b * (1 if decode else s)
+    bf16 = 2.0 * toks * (n_m * 4 * d * nh * pm + n_s * nh * ps * d) \
+        + 2.0 * b * d * cfg.vocab
+    f32 = 2.0 * toks * (n_m * (d * nh * pm + 2 * d * nh)
+                        + n_s * (4 * d * nh * ps + 4 * nh * ps * ps))
+    if decode:
+        f32 += 5.0 * b * nh * pm * pm * n_m
+    else:
+        for c0 in range(0, s, q):
+            qc = min(q, s - c0)
+            pairs = qc * (qc + 1) / 2
+            f32 += b * nh * n_m * (4.0 * pairs * pm + 4.0 * qc * pm * pm)
+    state = n_m * b * nh * (pm * pm + pm + 1) * 4 + n_s * b * nh * ps * 16
+    nbytes = _weight_bytes(params) + state * (2 if decode else 1)
+    return {"bf16_flops": bf16, "f32_flops": f32, "bytes": float(nbytes)}
+
+
+def whisper_work(cfg, params, b: int, s: int, kv_len=None,
+                 frames: int = WHISPER_FRAMES) -> dict:
+    """Whisper's work for a prefill (``frames`` encoded, ``s`` prompt
+    tokens) or one decode step: bf16 products (the encoder's and the
+    decoder's projections, the cross K/V once, the tied unembedding of
+    the last position), f32 score products (the encoder's over all frame
+    pairs, the decoder's causal self pairs and its cross pairs) and bytes
+    (prefill: every weight once, the caches written; decode: the decoder
+    weights less the cross K/V projections, the embedding, one position
+    row, and the self and cross K/V read)."""
+    d, f, nh, nkv, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv, \
+        cfg.d_head
+    le, ld = cfg.encoder_layers, cfg.n_layers
+    dec_w = 4 * d * nh * dh + 2 * d * nh * dh + 2 * d * f
+    decode = kv_len is not None
+    if decode:
+        bf16 = 2.0 * b * (ld * dec_w + d * cfg.vocab)
+        f32 = 4.0 * nh * dh * b * ld * (kv_len + 1 + frames)
+        dec = params["dec_layers"]
+        cross_kv_w = _weight_bytes({kk: dec["cross_attn"][kk]
+                                    for kk in ("wk", "wv")})
+        nbytes = (_weight_bytes(dec) - cross_kv_w
+                  + _weight_bytes({"e": params["embed"],
+                                   "n": params["ln_dec"]})
+                  + d * params["pos_dec"].element_size()
+                  + ld * b * 2 * nkv * dh * (kv_len + 1 + frames) * 2)
+    else:
+        bf16 = (2.0 * b * frames * le * (4 * d * nh * dh + 2 * d * f)
+                + 2.0 * b * frames * ld * 2 * d * nkv * dh
+                + 2.0 * b * s * ld * dec_w + 2.0 * b * d * cfg.vocab)
+        f32 = (4.0 * nh * dh * b * frames * frames * le
+               + 4.0 * nh * dh * b * ld * (s * (s + 1) / 2 + s * frames))
+        nbytes = (_weight_bytes(params) - params["pos_dec"].numel()
+                  * params["pos_dec"].element_size()
+                  + s * d * params["pos_dec"].element_size()
+                  + ld * b * 2 * nkv * dh * (s + frames) * 2)
+    return {"bf16_flops": bf16, "f32_flops": f32, "bytes": float(nbytes)}
+
+
+def work_bound_ms(work: dict, rates: dict):
+    """(ms, by): the larger of the bytes over the HBM rate and the
+    operations at their type's rate (bf16 on the tensor cores, f32 on the
+    CUDA cores without TF32, the two summed: the port runs them one
+    after another)."""
+    t_bytes = work["bytes"] / rates["bytes"]
+    t_ops = work["bf16_flops"] / rates["bf16"] + work["f32_flops"] \
+        / rates["f32"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def lm_init(failures, cfg, seed, label):
+    """``cfg``'s params from a seeded CUDA generator: ``n_params(cfg)`` in
+    all, each leaf in its spec's dtype (bf16 but for the few f32 gate and
+    decay leaves of zamba2 and xLSTM).  Returns (arch, params, record)."""
     from repro_torch.models import make_arch
-    from repro_torch.models.common import init_params, tree_leaves, tree_map
+    from repro_torch.models.common import init_params, tree_leaves
     from repro_torch.roofline.analysis import n_params
-    from repro_torch.serve import ServeEngine
-    from repro_torch.sharding import ShardCtx
-    ctx = ShardCtx()
-    t_phase = time.time()
-    rec = {"card": smi}
-
-    def decode_run(arch, cfg, params, toks, s, max_len, shift=0):
-        """Prefill toks[:, :s], then decode the rest of ``toks`` one token
-        a step (teacher-forced), each step timed with CUDA events and
-        synchronized.  Returns the step times and the last step's logits.
-        ``shift`` plants a fault: the last step is told a cache length
-        ``shift`` off, so it writes its K/V that many slots away and
-        ropes its position by as much."""
-        times = []
-        with torch.inference_mode():
-            st, n, _ = arch.prefill(params, {"tokens": toks[:, :s]}, cfg,
-                                    ctx, max_len=max_len)
-            for i in range(s, toks.shape[1]):
-                if i == toks.shape[1] - 1:
-                    n += shift
-                a = torch.cuda.Event(enable_timing=True)
-                e = torch.cuda.Event(enable_timing=True)
-                a.record()
-                st, n, step = arch.decode(params, st, n, toks[:, i:i + 1],
-                                          cfg, ctx)
-                e.record()
-                e.synchronize()
-                times.append(a.elapsed_time(e))
-        return times, step[:, -1]
-
-    def profiled(fn, name, reps):
-        """``fn`` run ``reps`` times under ``torch.profiler``: device busy
-        time (the union of kernels and copies), the device's idle share
-        between its first and last event, kernels per call and the
-        kernels that take the most time (``build/lm_<name>.json``)."""
-        from torch.profiler import ProfilerActivity, profile
-        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        dev = [e for e in trace_events(prof, os.path.join(
-            ROOT, "build", f"lm_{name}.json")) if is_device(e)]
-        iv = spans(dev, lambda e: True)
-        on = busy(iv)
-        window = max(b for _, b in iv) - min(a for a, _ in iv)
-        by_name: dict = {}
-        for e in dev:
-            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        return {"calls": reps, "device_busy_ms": on / 1e3 / reps,
-                "device_window_ms": window / 1e3 / reps,
-                "idle_share": 1.0 - on / window,
-                "kernels_per_call": sum(e.get("cat") == "kernel"
-                                        for e in dev) / reps,
-                "top_ms_per_call": {k[:80]: v / 1e3 / reps for k, v in top}}
-
-    def serve(label, cfg, params, prompt, n_tokens, max_len, prefill_reps):
-        arch = make_arch(cfg)
-        eng = ServeEngine(arch, params, max_len=max_len)
-        eng.generate(prompt, n_tokens)                    # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = eng.generate(prompt, n_tokens)
-        torch.cuda.synchronize()
-        gen_ms = (time.perf_counter() - t0) * 1e3
-        b, s = prompt["tokens"].shape
-        if (out.shape != (b, n_tokens) or out.dtype != torch.int32
-                or int(out.min()) < 0 or int(out.max()) >= cfg.vocab):
-            failures.append(f"phase 2j {label}: tokens {tuple(out.shape)} "
-                            f"{out.dtype} in [{int(out.min())}, "
-                            f"{int(out.max())}], vocab {cfg.vocab}")
-        with torch.inference_mode():
-            pre_ms = time_ms(lambda: arch.prefill(
-                eng.params, prompt, cfg, ctx, max_len=max_len),
-                reps=prefill_reps, warmup=1)
-        # the greedy tokens, teacher-forced through the cache
-        toks = torch.cat([prompt["tokens"], out[:, :-1]], dim=1)
-        times, step = decode_run(arch, cfg, eng.params, toks, s, max_len)
-        # the reference's invariant (tests/test_models.py): the last
-        # decode step's logits equal a prefill's over the same tokens
-        with torch.inference_mode():
-            ref = arch.prefill(eng.params, {"tokens": toks}, cfg, ctx,
-                               max_len=max_len)[2][:, -1]
-        err = float((step - ref).abs().max())
-        gate = LM_DECODE_ATOL[cfg.arch]
-        finite = bool(torch.isfinite(step).all() and torch.isfinite(ref).all())
-        if not finite or not err <= gate:
-            failures.append(f"phase 2j {label}: decode vs prefill logits "
-                            f"max |d| {err} (limit {gate}), finite {finite}")
-        faults = {}
-        for shift in LM_FAULT_SHIFTS:
-            bad = decode_run(arch, cfg, eng.params, toks, s, max_len,
-                             shift)[1]
-            faults[shift] = float((bad - ref).abs().max())
-            if not faults[shift] > gate:
-                failures.append(f"phase 2j {label}: the fault planted at "
-                                f"cache slot {shift:+d} reads {faults[shift]}"
-                                f", within the gate {gate}: the check "
-                                "cannot see it")
-        with torch.inference_mode():
-            prof_pre = profiled(lambda: arch.prefill(
-                eng.params, prompt, cfg, ctx, max_len=max_len), "prefill", 1)
-            state = list(arch.prefill(eng.params, prompt, cfg, ctx,
-                                      max_len=max_len)[:2])
-
-            def step():
-                state[:2] = arch.decode(eng.params, *state, out[:, :1], cfg,
-                                        ctx)[:2]
-            prof_dec = profiled(step, "decode", 3)
-        pre_bound = lm_prefill_flops(cfg, b, s) / peak_bf16 * 1e3
-        dec_ms = statistics.median(times)
-        kv_mid = s + len(times) // 2
-        dec_bound = lm_decode_bytes(cfg, eng.params, b, kv_mid) / hbm_bw * 1e3
-        row = {"batch": b, "prompt": s, "n_tokens": n_tokens,
-               "max_len": max_len, "generate_ms": gen_ms,
-               "prefill_ms": pre_ms, "prefill_tokens_per_s":
-               b * s / pre_ms * 1e3, "prefill_flops":
-               lm_prefill_flops(cfg, b, s), "prefill_bound_ms": pre_bound,
-               "decode_ms_median": dec_ms, "decode_ms": times,
-               "decode_bound_ms": dec_bound, "decode_bytes":
-               lm_decode_bytes(cfg, eng.params, b, kv_mid),
-               "decode_vs_prefill_max_abs": err, "decode_gate": gate,
-               "planted_faults_max_abs": {f"{k:+d}": v
-                                          for k, v in faults.items()},
-               "logit_max_abs": float(ref.abs().max()),
-               "prefill_trace": prof_pre, "decode_trace": prof_dec,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-        log(f"phase 2j {label}: generate {b}x{s} -> {n_tokens} tokens in "
-            f"{gen_ms:.1f} ms; prefill {pre_ms:.2f} ms "
-            f"({row['prefill_tokens_per_s']:.0f} tokens/s; bound "
-            f"{pre_bound:.2f} ms at {peak_bf16:.3g} FLOP/s, "
-            f"{pre_bound / pre_ms:.2f} of it); decode {dec_ms:.2f} ms/step "
-            f"(median of {len(times)}, bytes bound {dec_bound:.2f} ms at "
-            f"{hbm_bw:.3g} B/s, {dec_bound / dec_ms:.2f} of it); decode vs "
-            f"prefill logits max |d| {err:.4g} (gate {gate}; planted "
-            f"faults, cache slot "
-            + ", ".join(f"{k:+d} {v:.4g}" for k, v in faults.items())
-            + f"; |logit| <= {row['logit_max_abs']:.3g}); peak "
-            f"{row['peak_gib']:.2f} GiB "
-            f"| {smi}")
-        for what, tr in (("prefill", prof_pre), ("decode step", prof_dec)):
-            log(f"  2j {label} {what} under torch.profiler: device busy "
-                f"{tr['device_busy_ms']:.2f} of {tr['device_window_ms']:.2f}"
-                f" ms (idle {tr['idle_share']:.2f}), "
-                f"{tr['kernels_per_call']:.0f} kernels; top "
-                + "; ".join(f"{k[:48]} {v:.2f}"
-                            for k, v in tr["top_ms_per_call"].items()))
-        return row
-
-    def check_init(label, cfg, params, init_s):
-        """Params of ``cfg``'s count, all bf16; returns (count, bytes)."""
-        leaves = list(tree_leaves(params, torch.is_tensor))
-        n = sum(t.numel() for t in leaves)
-        nbytes = sum(t.numel() * t.element_size() for t in leaves)
-        dtypes = {t.dtype for t in leaves}
-        if n != n_params(cfg) or dtypes != {torch.bfloat16}:
-            failures.append(f"phase 2j {label}: {n} params, n_params "
-                            f"{n_params(cfg)}, dtypes {dtypes}")
-        log(f"phase 2j {label}: {cfg.arch} init_params {n / 1e9:.3f}e9 "
-            f"params ({nbytes / 1e9:.2f} GB bf16) in {init_s:.2f}s")
-        return n, nbytes
-
-    # (i) qwen3-14b, full width and depth, bf16
-    cfg = get_config("qwen3-14b")
     arch = make_arch(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    params = init_params(torch.Generator("cuda").manual_seed(SEED),
+    params = init_params(torch.Generator("cuda").manual_seed(seed),
                          arch.param_specs(cfg))
     torch.cuda.synchronize()
     init_s = time.time() - t0
-    n, pbytes = check_init("(i)", cfg, params, init_s)
+    leaves = list(tree_leaves(params, torch.is_tensor))
+    specs = list(tree_leaves(arch.param_specs(cfg)))
+    n = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    if n != n_params(cfg) or [t.dtype for t in leaves] != \
+            [sp.dtype for sp in specs]:
+        failures.append(f"phase 2j {label}: {n} params, n_params "
+                        f"{n_params(cfg)}, dtypes "
+                        f"{sorted({str(t.dtype) for t in leaves})}")
+    log(f"phase 2j {label}: {cfg.arch} init_params {n / 1e9:.3f}e9 "
+        f"params ({nbytes / 1e9:.2f} GB) in {init_s:.2f}s")
+    return arch, params, {"init_s": init_s, "params": n,
+                          "param_bytes": nbytes}
+
+
+def _state_part(st, key, index):
+    """The state under ``key`` (index ``index`` of its stacked leaves, or
+    all of it with ``None``), as views."""
+    from repro_torch.models.common import tree_map
+    part = st[key]
+    return part if index is None else tree_map(lambda t: t[index], part,
+                                               torch.is_tensor)
+
+
+def lm_decode_run(arch, cfg, params, prompt, toks, s, max_len, fault=None):
+    """Prefill toks[:, :s] (with the prompt's other inputs: Whisper's
+    frames), then decode the rest of ``toks`` one token a step
+    (teacher-forced), each step timed with CUDA events and synchronized.
+    Returns the step times and the last step's logits.  ``fault`` plants
+    one in the last step: ``("slot", k)`` tells it a cache length k off,
+    so it writes its K/V k slots away (and ropes or embeds its position k
+    off); ``("state", (key, index))`` runs it from the recurrent state of
+    one layer (``_state_part``) that the step before it started from, so
+    that layer loses one update; ``("cross", None)`` takes each clip's
+    cross K/V from the next clip."""
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.sharding import ShardCtx
+    ctx = ShardCtx()
+    kind, arg = fault or (None, None)
+    times = []
+    last = toks.shape[1] - 1
+    with torch.inference_mode():
+        st, n, _ = arch.prefill(params, dict(prompt, tokens=toks[:, :s]),
+                                cfg, ctx, max_len=max_len)
+        for i in range(s, toks.shape[1]):
+            if kind == "state" and i == last - 1:
+                saved = tree_map(torch.clone, _state_part(st, *arg),
+                                 torch.is_tensor)
+            if i == last and kind == "slot":
+                n += arg
+            elif i == last and kind == "state":
+                for live, old in zip(
+                        tree_leaves(_state_part(st, *arg), torch.is_tensor),
+                        tree_leaves(saved, torch.is_tensor)):
+                    live.copy_(old)
+            elif i == last and kind == "cross":
+                st = dict(st, cross={k: torch.roll(v, 1, dims=1)
+                                     for k, v in st["cross"].items()})
+            a = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            a.record()
+            st, n, step = arch.decode(params, st, n, toks[:, i:i + 1], cfg,
+                                      ctx)
+            e.record()
+            e.synchronize()
+            times.append(a.elapsed_time(e))
+    return times, step[:, -1]
+
+
+def lm_profiled(fn, name, reps):
+    """``fn`` run ``reps`` times under ``torch.profiler``: device busy
+    time (the union of kernels and copies), the device's idle share
+    between its first and last event, kernels per call and the kernels
+    that take the most time (``build/lm_<name>.json``)."""
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in trace_events(prof, os.path.join(
+        ROOT, "build", f"lm_{name}.json")) if is_device(e)]
+    iv = spans(dev, lambda e: True)
+    on = busy(iv)
+    window = max(b for _, b in iv) - min(a for a, _ in iv)
+    by_name: dict = {}
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"calls": reps, "device_busy_ms": on / 1e3 / reps,
+            "device_window_ms": window / 1e3 / reps,
+            "idle_share": 1.0 - on / window,
+            "kernels_per_call": sum(e.get("cat") == "kernel"
+                                    for e in dev) / reps,
+            "top_ms_per_call": {k[:80]: v / 1e3 / reps for k, v in top}}
+
+
+def lm_check(failures, label, arch, cfg, params, prompt, toks, max_len,
+             faults, gate):
+    """The reference's invariant (tests/test_models.py): the last decode
+    step's logits equal a prefill's over the same tokens.  Prefills all
+    but ``LM_CHECK_STEPS`` of ``toks`` and decodes the rest, clean and
+    with each of ``faults`` (see ``lm_decode_run``); fails unless the
+    clean run reads within ``gate`` and every fault above it.  Returns
+    the record."""
+    from repro_torch.sharding import ShardCtx
+    s = toks.shape[1] - LM_CHECK_STEPS
+    with torch.inference_mode():
+        ref = arch.prefill(params, dict(prompt, tokens=toks), cfg,
+                           ShardCtx(), max_len=max_len)[2][:, -1]
+    readings = {}
+    for name, fault in {"clean": None, **faults}.items():
+        step = lm_decode_run(arch, cfg, params, prompt, toks, s, max_len,
+                             fault)[1]
+        readings[name] = float((step - ref).abs().max())
+        if not bool(torch.isfinite(step).all()) \
+                or (name == "clean") != (readings[name] <= gate):
+            failures.append(f"phase 2j {label}: decode vs prefill logits "
+                            f"({name}) read {readings[name]}, gate {gate}")
+    log(f"  2j {label} check, {tuple(toks.shape)} tokens, "
+        f"{LM_CHECK_STEPS} decode steps: decode vs prefill logits max |d| "
+        + ", ".join(f"{k} {v:.4g}" for k, v in readings.items())
+        + f" (gate {gate}; |logit| <= {float(ref.abs().max()):.3g})")
+    return {"rows": toks.shape[0], "tokens": toks.shape[1],
+            "steps": LM_CHECK_STEPS, "gate": gate, "max_abs": readings,
+            "logit_max_abs": float(ref.abs().max())}
+
+
+def lm_serve(failures, label, arch, cfg, params, prompt, n_tokens, max_len,
+             prefill_reps, work, rates, smi):
+    """Serve ``prompt`` on the reference's init and time it: greedy
+    tokens within the vocabulary, prefill ms and tokens/s, decode ms per
+    step (median of the teacher-forced steps, synchronized) beside their
+    bounds from ``work(cfg, params, b, s, kv_len=None)``, peak memory, one
+    prefill and three decode steps under ``torch.profiler``.  Returns the
+    row and the teacher-forced tokens (the prompt and the greedy ones)."""
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding import ShardCtx
+    ctx = ShardCtx()
+    eng = ServeEngine(arch, params, max_len=max_len)
+    eng.generate(prompt, LM_WARM_TOKENS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(prompt, n_tokens)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    b, s = prompt["tokens"].shape
+    if (out.shape != (b, n_tokens) or out.dtype != torch.int32
+            or int(out.min()) < 0 or int(out.max()) >= cfg.vocab):
+        failures.append(f"phase 2j {label}: tokens {tuple(out.shape)} "
+                        f"{out.dtype} in [{int(out.min())}, "
+                        f"{int(out.max())}], vocab {cfg.vocab}")
+    with torch.inference_mode():
+        pre_ms = time_ms(lambda: arch.prefill(
+            params, prompt, cfg, ctx, max_len=max_len),
+            reps=prefill_reps, warmup=1)
+    toks = torch.cat([prompt["tokens"], out[:, :-1]], dim=1)
+    times = lm_decode_run(arch, cfg, params, prompt, toks, s, max_len)[0]
+    with torch.inference_mode():
+        prof_pre = lm_profiled(lambda: arch.prefill(
+            params, prompt, cfg, ctx, max_len=max_len), "prefill", 1)
+        state = list(arch.prefill(params, prompt, cfg, ctx,
+                                  max_len=max_len)[:2])
+
+        def step():
+            state[:2] = arch.decode(params, *state, out[:, :1], cfg,
+                                    ctx)[:2]
+        prof_dec = lm_profiled(step, "decode", 3)
+    dec_ms = statistics.median(times)
+    kv_mid = s + len(times) // 2
+    pre_work = work(cfg, params, b, s)
+    dec_work = work(cfg, params, b, 1, kv_len=kv_mid)
+    pre_bound, pre_by = work_bound_ms(pre_work, rates)
+    dec_bound, dec_by = work_bound_ms(dec_work, rates)
+    row = {"batch": b, "prompt": s, "n_tokens": n_tokens,
+           "max_len": max_len, "generate_ms": gen_ms,
+           "prefill_ms": pre_ms, "prefill_tokens_per_s":
+           b * s / pre_ms * 1e3, "prefill_bound_ms": pre_bound,
+           "prefill_bound_by": pre_by, "prefill_work": pre_work,
+           "decode_ms_median": dec_ms, "decode_ms": times,
+           "decode_bound_ms": dec_bound, "decode_bound_by": dec_by,
+           "decode_work": dec_work,
+           "prefill_trace": prof_pre, "decode_trace": prof_dec,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"phase 2j {label}: generate {b}x{s} -> {n_tokens} tokens in "
+        f"{gen_ms:.1f} ms; prefill {pre_ms:.2f} ms "
+        f"({row['prefill_tokens_per_s']:.0f} tokens/s; bound "
+        f"{pre_bound:.2f} ms by {pre_by}, {pre_bound / pre_ms:.2f} of "
+        f"it); decode {dec_ms:.2f} ms/step (median of {len(times)}, "
+        f"bound {dec_bound:.2f} ms by {dec_by}, "
+        f"{dec_bound / dec_ms:.2f} of it); peak {row['peak_gib']:.2f} GiB "
+        f"| {smi}")
+    for what, tr in (("prefill", prof_pre), ("decode step", prof_dec)):
+        log(f"  2j {label} {what} under torch.profiler: device busy "
+            f"{tr['device_busy_ms']:.2f} of {tr['device_window_ms']:.2f}"
+            f" ms (idle {tr['idle_share']:.2f}), "
+            f"{tr['kernels_per_call']:.0f} kernels; top "
+            + "; ".join(f"{k[:48]} {v:.2f}"
+                        for k, v in tr["top_ms_per_call"].items()))
+    return row, toks
+
+
+def lm_serve_and_check(failures, label, arch, cfg, params, prompt, n_tokens,
+                       max_len, prefill_reps, work, rates, smi, faults):
+    """``lm_serve`` on the reference's init, then ``scale_scores`` (in
+    place: the case's later checks see the rescaled weights too) and
+    ``lm_check`` in bf16 against ``LM_DECODE_ATOL``.  Returns the row and
+    the teacher-forced tokens."""
+    row, toks = lm_serve(failures, label, arch, cfg, params, prompt,
+                         n_tokens, max_len, prefill_reps, work, rates, smi)
+    scale_scores(params, arch.param_specs(cfg))
+    row["check"] = lm_check(failures, label, arch, cfg, params, prompt,
+                            toks, max_len, faults, LM_DECODE_ATOL[cfg.arch])
+    return row, toks
+
+
+def lm_f32_check(failures, label, arch, cfg, params, prompt, toks, faults):
+    """``lm_check`` in f32 (TF32 off) on ``F32_DECODE_CASES[cfg.arch]``
+    against ``LM_F32_DECODE_ATOL``.  Frees ``params``."""
+    from repro_torch.models.common import tree_map
+    b, s = F32_DECODE_CASES[cfg.arch]
+    p32 = tree_map(lambda t: t.float(), params, torch.is_tensor)
+    params.clear()
+    torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32:
+        failures.append(f"phase 2j {label}: TF32 is on")
+    rec = lm_check(failures, label + " f32", arch, cfg, p32,
+                   {k: v[:b].float() for k, v in prompt.items()},
+                   toks[:b, :s + LM_CHECK_STEPS], s + 2 * LM_CHECK_STEPS,
+                   faults, LM_F32_DECODE_ATOL[cfg.arch])
+    del p32
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_card_vs_host(failures, label, fn, params, toks, gate):
+    """``fn(params, toks)`` in f32 on the card (TF32 off), again on TF32
+    (logged), and on the host's CPU; fails above ``gate``.  Frees the
+    card's copy of ``params``.  Returns the record."""
+    from repro_torch.models.common import tree_map
+    if torch.backends.cuda.matmul.allow_tf32:
+        failures.append(f"phase 2j {label}: TF32 is on")
+    with torch.inference_mode():
+        card = fn(params, toks).cpu()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = fn(params, toks).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        host_params = tree_map(lambda t: t.cpu(), params, torch.is_tensor)
+        params.clear()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        host = fn(host_params, toks.cpu())
+        host_s = time.time() - t0
+    err = float((card - host).abs().max())
+    tf32_err = float((tf32 - host).abs().max())
+    if not (torch.isfinite(card).all() and err <= gate):
+        failures.append(f"phase 2j {label}: card vs host logits max |d| "
+                        f"{err} (limit {gate})")
+    rows, n = toks.shape
+    log(f"phase 2j {label}: f32, {rows}x{n} logits: card vs host max |d| "
+        f"{err:.3g} (limit {gate}; on TF32 {tf32_err:.3g}; |logit| <= "
+        f"{float(host.abs().max()):.3g}; host {host_s:.1f}s)")
+    return {"rows": rows, "prompt": n, "card_vs_host_max_abs": err,
+            "tf32_vs_host_max_abs": tf32_err, "gate": gate,
+            "logit_max_abs": float(host.abs().max()), "host_s": host_s}
+
+
+def _slot_faults():
+    return {f"slot {k:+d}": ("slot", k) for k in LM_FAULT_SHIFTS}
+
+
+def qwen3_cases(failures, smi, rates):
+    """Phase 2j (i) qwen3-14b served, (ii) one of its units in f32, card
+    vs host."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.sharding import ShardCtx
+    cfg = get_config("qwen3-14b")
+    arch, params, init = lm_init(failures, cfg, SEED, "(i)")
     tg = torch.Generator("cuda").manual_seed(SEED + 1)
     toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=tg,
                          device="cuda", dtype=torch.int32)
-    rec["qwen3_14b"] = serve("(i) qwen3-14b", cfg, params, {"tokens": toks},
-                             LM_TOKENS, LM_MAX_LEN, prefill_reps=5)
-    rec["qwen3_14b"] |= {"init_s": init_s, "params": n, "param_bytes": pbytes}
-
-    # (ii) one unit at full width, f32 (TF32 off), card vs the host's CPU
+    row, _ = lm_serve_and_check(failures, "(i) qwen3-14b", arch, cfg, params,
+                                {"tokens": toks}, LM_TOKENS, LM_MAX_LEN, 5,
+                                transformer_work, rates, smi, _slot_faults())
     cfg1 = dataclasses.replace(cfg, n_layers=1)
-    p32 = {k: (tree_map(lambda t: t[:1].float(), v, torch.is_tensor)
-               if k == "units" else v.float()) for k, v in params.items()}
+    unit = {k: (tree_map(lambda t: t[:1].float(), v, torch.is_tensor)
+                if k == "units" else v.float()) for k, v in params.items()}
     del params
-    torch.cuda.empty_cache()
-    if torch.backends.cuda.matmul.allow_tf32:
-        failures.append("phase 2j (ii): TF32 is on")
-    unit_toks = toks[:LM_UNIT_ROWS, :LM_UNIT_PROMPT]
-    with torch.inference_mode():
-        card = arch.prefill(p32, {"tokens": unit_toks}, cfg1, ctx,
-                            max_len=LM_UNIT_PROMPT)[2].cpu()
-        # the same on TF32 (logged: does the check see the lower precision?)
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            tf32 = arch.prefill(p32, {"tokens": unit_toks}, cfg1, ctx,
-                                max_len=LM_UNIT_PROMPT)[2].cpu()
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
-        p_host = tree_map(lambda t: t.cpu(), p32, torch.is_tensor)
-        del p32
-        torch.cuda.empty_cache()
-        t0 = time.time()
-        host = arch.prefill(p_host, {"tokens": unit_toks.cpu()}, cfg1, ctx,
-                            max_len=LM_UNIT_PROMPT)[2]
-        host_s = time.time() - t0
-    del p_host
-    err = float((card - host).abs().max())
-    if not (torch.isfinite(card).all() and err <= LM_F32_ATOL):
-        failures.append(f"phase 2j (ii): card vs host logits max |d| {err} "
-                        f"(limit {LM_F32_ATOL})")
-    tf32_err = float((tf32 - host).abs().max())
-    rec["qwen3_14b_unit_f32"] = {"rows": LM_UNIT_ROWS,
-                                 "prompt": LM_UNIT_PROMPT,
-                                 "card_vs_host_max_abs": err,
-                                 "tf32_vs_host_max_abs": tf32_err,
-                                 "logit_max_abs": float(host.abs().max()),
-                                 "host_s": host_s}
-    log(f"phase 2j (ii): qwen3-14b one unit, f32, {LM_UNIT_ROWS}x"
-        f"{LM_UNIT_PROMPT} prefill logits: card vs host max |d| {err:.3g} "
-        f"(limit {LM_F32_ATOL}; on TF32 {tf32_err:.3g}; |logit| <= "
-        f"{float(host.abs().max()):.3g}; host {host_s:.1f}s)")
+    f32 = lm_card_vs_host(
+        failures, "(ii) qwen3-14b unit",
+        lambda p, tk: arch.prefill(p, {"tokens": tk}, cfg1, ShardCtx(),
+                                   max_len=LM_UNIT_PROMPT)[2],
+        unit, toks[:LM_UNIT_ROWS, :LM_UNIT_PROMPT], LM_F32_ATOL[cfg.arch])
+    return {"qwen3_14b": row | init, "qwen3_14b_unit_f32": f32}
 
-    # (iii) gemma2-27b at its published width and depth, bf16
-    cfg2 = get_config("gemma2-27b")
-    arch2 = make_arch(cfg2)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    params2 = init_params(torch.Generator("cuda").manual_seed(SEED + 2),
-                          arch2.param_specs(cfg2))
-    torch.cuda.synchronize()
-    init_s = time.time() - t0
-    n2, pbytes2 = check_init("(iii)", cfg2, params2, init_s)
+
+def gemma2_cases(failures, smi, rates):
+    """Phase 2j (iii) gemma2-27b served."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma2-27b")
+    arch, params, init = lm_init(failures, cfg, SEED + 2, "(iii)")
     max_len = GEMMA2_PROMPT + 2 * GEMMA2_STEPS
-    if not (GEMMA2_PROMPT > cfg2.window
+    if not (GEMMA2_PROMPT > cfg.window
             and GEMMA2_PROMPT * max_len > 512 * 512):
         failures.append("phase 2j (iii): the prompt does not pass the "
                         "window and the blockwise threshold")
-    toks2 = torch.randint(0, cfg2.vocab, (1, GEMMA2_PROMPT), generator=tg,
-                          device="cuda", dtype=torch.int32)
-    rec["gemma2_27b"] = serve("(iii) gemma2-27b", cfg2, params2,
-                              {"tokens": toks2}, GEMMA2_STEPS + 1, max_len,
-                              prefill_reps=3)
-    rec["gemma2_27b"] |= {"init_s": init_s, "params": n2,
-                          "param_bytes": pbytes2}
-    del params2
-    torch.cuda.empty_cache()
+    tg = torch.Generator("cuda").manual_seed(SEED + 9)
+    toks = torch.randint(0, cfg.vocab, (1, GEMMA2_PROMPT), generator=tg,
+                         device="cuda", dtype=torch.int32)
+    row, _ = lm_serve_and_check(failures, "(iii) gemma2-27b", arch, cfg,
+                                params, {"tokens": toks}, GEMMA2_STEPS + 1,
+                                max_len, 3, transformer_work, rates, smi,
+                                _slot_faults())
+    del params
+    return {"gemma2_27b": row | init}
+
+
+def zamba_cases(failures, smi, rates):
+    """Phase 2j (iv) zamba2-7b served, checked in bf16 and in f32; (v) one
+    of its firing units (three Mamba2 blocks and the shared block with the
+    unit's LoRA) in f32, card vs host."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import rms_norm, tree_map
+    from repro_torch.models.transformer import embed, unembed
+    from repro_torch.models.zamba2 import n_fires, zamba_unit
+    from repro_torch.sharding import ShardCtx
+    ctx = ShardCtx()
+    cfg = get_config("zamba2-7b")
+    arch, params, init = lm_init(failures, cfg, SEED + 3, "(iv)")
+    tg = torch.Generator("cuda").manual_seed(SEED + 4)
+    toks = torch.randint(0, cfg.vocab, (FAMILY_BATCH, FAMILY_PROMPT),
+                         generator=tg, device="cuda", dtype=torch.int32)
+    if not (FAMILY_PROMPT == 4 * cfg.ssm.chunk and n_fires(cfg) == 13
+            and FAMILY_PROMPT * FAMILY_MAX_LEN > 512 * 512):
+        failures.append("phase 2j (iv): not four SSD chunks, 13 firings "
+                        "and blockwise shared attention")
+    # one Mamba2 layer of 81 loses its update: the first, which feeds the
+    # shared block's first firing (a later layer's lost update reads as a
+    # clean run: PERF.md)
+    faults = _slot_faults() | {"lost update": ("state", ("ssm_0", 0))}
+    row, tf = lm_serve_and_check(failures, "(iv) zamba2-7b", arch, cfg,
+                                 params, {"tokens": toks}, FAMILY_TOKENS,
+                                 FAMILY_MAX_LEN, 2, zamba_work, rates, smi,
+                                 faults)
+    merge = row["decode_work"]["lora_merge_f32_flops"]
+    row |= init | {"fires": n_fires(cfg), "lora_merge_f32_flops": merge,
+                   "lora_merge_ms_at_f32_rate": merge / rates["f32"] * 1e3}
+    log(f"  2j (iv) the LoRA merge: {n_fires(cfg)} firings x "
+        f"{merge / n_fires(cfg) / 1e9:.1f} GFLOP f32 per call, "
+        f"{merge / rates['f32'] * 1e3:.2f} ms at {rates['f32']:.3g} FLOP/s")
+    unit = {"up": tree_map(lambda t: t[1].float(), params["units"],
+                           torch.is_tensor),
+            "shared": tree_map(lambda t: t.float(), params["shared"],
+                               torch.is_tensor),
+            "embed": params["embed"].float(),
+            "ln_final": params["ln_final"].float()}
+    row["f32_check"] = lm_f32_check(failures, "(iv) zamba2-7b", arch, cfg,
+                                    params, {}, tf, faults)
+    del params
+
+    def unit_logits(p, tk):             # every position's logits
+        h0 = embed(p, tk, cfg, ctx)
+        h = zamba_unit(cfg, ctx, p["shared"], p["up"], h0, h0, None,
+                       fire=True)
+        return unembed(p, rms_norm(h, p["ln_final"], cfg.norm_eps), cfg,
+                       ctx)
+
+    f32 = lm_card_vs_host(failures, "(v) zamba2-7b unit", unit_logits, unit,
+                          toks[:ZAMBA_UNIT_ROWS, :ZAMBA_UNIT_PROMPT],
+                          LM_F32_ATOL[cfg.arch])
+    return {"zamba2_7b": row, "zamba2_7b_unit_f32": f32}
+
+
+def xlstm_cases(failures, smi, rates):
+    """Phase 2j (vi) xlstm-125m served, checked in bf16 and in f32, and
+    whole in f32, card vs host."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import embed, unembed
+    from repro_torch.models.xlstm import _layer_keys, xlstm_apply
+    from repro_torch.sharding import ShardCtx
+    ctx = ShardCtx()
+    cfg = get_config("xlstm-125m")
+    arch, params, init = lm_init(failures, cfg, SEED + 5, "(vi)")
+    tg = torch.Generator("cuda").manual_seed(SEED + 6)
+    toks = torch.randint(0, cfg.vocab, (FAMILY_BATCH, FAMILY_PROMPT),
+                         generator=tg, device="cuda", dtype=torch.int32)
+    # one block of 12 loses its update: the first
+    first = _layer_keys(cfg)[0][0]
+    faults = {"lost update": ("state", (first, None))}
+    row, tf = lm_serve_and_check(failures, "(vi) xlstm-125m", arch, cfg,
+                                 params, {"tokens": toks}, FAMILY_TOKENS,
+                                 FAMILY_MAX_LEN, 2, xlstm_work, rates, smi,
+                                 faults)
+    p32 = tree_map(lambda t: t.float(), params, torch.is_tensor)
+    row["f32_check"] = lm_f32_check(failures, "(vi) xlstm-125m", arch, cfg,
+                                    params, {}, tf, faults)
+    del params
+    rows, n = F32_DECODE_CASES[cfg.arch]
+
+    def logits(p, tk):                  # every position's logits
+        return unembed(p, xlstm_apply(p, embed(p, tk, cfg, ctx), cfg,
+                                      ctx)[0], cfg, ctx)
+
+    f32 = lm_card_vs_host(failures, "(vi) xlstm-125m whole", logits, p32,
+                          toks[:rows, :n], LM_F32_ATOL[cfg.arch])
+    return {"xlstm_125m": row | init, "xlstm_125m_f32": f32}
+
+
+def whisper_cases(failures, smi, rates):
+    """Phase 2j (vii) whisper-tiny served, checked in bf16 and in f32."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-tiny")
+    arch, params, init = lm_init(failures, cfg, SEED + 7, "(vii)")
+    tg = torch.Generator("cuda").manual_seed(SEED + 8)
+    frames = torch.randn((FAMILY_BATCH, WHISPER_FRAMES, cfg.d_model),
+                         generator=tg, device="cuda").to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (FAMILY_BATCH, WHISPER_PROMPT),
+                         generator=tg, device="cuda", dtype=torch.int32)
+    if not (WHISPER_FRAMES == cfg.max_source_positions
+            and WHISPER_FRAMES ** 2 > 512 * 512):
+        failures.append("phase 2j (vii): the encoder does not run "
+                        "blockwise over max_source_positions frames")
+    faults = _slot_faults() | {"cross K/V of the next clip": ("cross", None)}
+    row, tf = lm_serve_and_check(failures, "(vii) whisper-tiny", arch, cfg,
+                                 params, {"tokens": toks, "frames": frames},
+                                 FAMILY_TOKENS, WHISPER_MAX_LEN, 5,
+                                 whisper_work, rates, smi, faults)
+    row["f32_check"] = lm_f32_check(failures, "(vii) whisper-tiny", arch,
+                                    cfg, params, {"frames": frames}, tf,
+                                    faults)
+    return {"whisper_tiny": row | init | {"frames": WHISPER_FRAMES}}
+
+
+def lm_phase(failures, smi, hbm_bw, peak_bf16, peak_f32):
+    """Phase 2j: LM serving on the card (see the module docstring), one
+    model at a time, each freed before the next.  Returns the record."""
+    t_phase = time.time()
+    rates = {"bytes": hbm_bw, "bf16": peak_bf16, "f32": peak_f32}
+    rec = {"card": smi, "seconds_per_model": {}}
+    for cases in (qwen3_cases, gemma2_cases, zamba_cases, xlstm_cases,
+                  whisper_cases):
+        t0 = time.time()
+        torch.cuda.empty_cache()
+        rec |= cases(failures, smi, rates)
+        rec["seconds_per_model"][cases.__name__] = time.time() - t0
     rec["seconds"] = time.time() - t_phase
-    log(f"phase 2j: {rec['seconds']:.1f}s")
+    log(f"phase 2j: {rec['seconds']:.1f}s ("
+        + ", ".join(f"{k} {v:.1f}s"
+                    for k, v in rec["seconds_per_model"].items()) + ")")
     return rec
 
 
@@ -2491,7 +2898,7 @@ def main() -> int:
 
     # ---- phase 2j: LM serving, qwen3-14b at full width and depth ---------
     torch.cuda.empty_cache()
-    lm = lm_phase(failures, smi, hbm_bw, peak_bf16_tc)
+    lm = lm_phase(failures, smi, hbm_bw, peak_bf16_tc, peak_f32)
     if failures:
         raise SystemExit("phase 2j failed:\n" + "\n".join(failures))
 

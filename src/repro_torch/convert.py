@@ -67,13 +67,17 @@ def serve_config_from_reference(obj):
 
 
 def params_from_reference(tree, *, device, dtype: torch.dtype | None = None):
-    """The port's parameter tree from a nested dict of numpy arrays (the
-    reference's parameters, ``np.asarray``'d), on ``device``; with
-    ``dtype``, every floating leaf cast to it.  A bfloat16 array (numpy
-    knows it only through ``ml_dtypes``) crosses as its bits."""
+    """The port's parameter tree from nested dicts (and tuples) of numpy
+    arrays (the reference's parameters or states, ``np.asarray``'d), on
+    ``device``; with ``dtype``, every floating leaf cast to it.  A
+    bfloat16 array (numpy knows it only through ``ml_dtypes``) crosses as
+    its bits."""
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device=device, dtype=dtype)
                 for k, v in tree.items()}
+    if isinstance(tree, tuple):        # xLSTM's recurrent states
+        return tuple(params_from_reference(v, device=device, dtype=dtype)
+                     for v in tree)
     a = np.ascontiguousarray(tree)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)

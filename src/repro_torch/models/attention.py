@@ -15,7 +15,9 @@ and would add exactly nothing.
 
 The KV cache is bfloat16 whatever the parameters' dtype, and prefill
 attends over the cache after K/V are written into it, so K/V are rounded
-to bfloat16 on the cached path even in a float32 run.
+to bfloat16 on the cached path even in a float32 run.  Cross-attention
+(``kv_x``, whisper's decoder) takes K/V from the source without rope,
+numbers keys from 0, and reads a cache of the source's K/V as it is.
 """
 from __future__ import annotations
 
@@ -188,31 +190,43 @@ def attention(
     pos0: int = 0,                # absolute position of x[:, 0]
     cache: dict | None = None,    # KV cache, written in place
     cache_len: int | None = None,  # filled length of cache
+    kv_x: torch.Tensor | None = None,   # cross-attention source
 ) -> tuple[torch.Tensor, dict | None]:
+    """Self-attention over ``x``, or cross-attention from ``x`` to
+    ``kv_x``.  With ``kv_x`` and a cache, the cache holds the source's
+    K/V already and is read as it is (``kv_x``'s values are not used)."""
     b, s, _ = x.shape
-    if c.fuse_qkv:
+    cross_cached = kv_x is not None and cache is not None
+    if c.fuse_qkv and kv_x is None:
         qkv = _heads(x, p["wqkv"])
         q = qkv[:, :c.n_heads]
         k = qkv[:, c.n_heads:c.n_heads + c.n_kv]
         v = qkv[:, c.n_heads + c.n_kv:]
     else:
-        q, k, v = (_heads(x, p[w]) for w in ("wq", "wk", "wv"))
+        q = _heads(x, p["wq"])
+        if cross_cached:
+            k, v = cache["k"], cache["v"]
+        else:
+            src = x if kv_x is None else kv_x
+            k, v = _heads(src, p["wk"]), _heads(src, p["wv"])
 
     if c.qk_norm:                      # the default eps, not cfg.norm_eps
         q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        if not cross_cached:           # a cached source was normed before
+            k = rms_norm(k, p["k_norm"])
 
     qpos = pos0 + torch.arange(s, device=x.device)
     if c.rope_theta is not None:
         q = rope(q, qpos[None, None, :], c.rope_theta)
-        k = rope(k, qpos[None, None, :], c.rope_theta)
+        if kv_x is None:
+            k = rope(k, qpos[None, None, :], c.rope_theta)
 
     q = ctx.constrain(q, "dp", "tp", None, None)
     k = ctx.constrain(k, "dp", "tp", None, None)
     v = ctx.constrain(v, "dp", "tp", None, None)
 
     kv_len = None
-    if cache is not None:
+    if cache is not None and kv_x is None:
         idx = cache_len if cache_len is not None else 0
         cache["k"][:, :, idx:idx + s] = k.to(cache["k"].dtype)
         cache["v"][:, :, idx:idx + s] = v.to(cache["v"].dtype)
@@ -227,12 +241,13 @@ def attention(
         impl = "dense" if (s * skv <= 512 * 512) else "blockwise"
     if impl == "dense":
         kpos = torch.arange(skv, device=x.device)
-        if cache is None:
+        if cache is None and kv_x is None:
             kpos = pos0 + kpos
         o = _sdpa_dense(qg, k, v, qpos, kpos, c, kv_len)
     else:
         o = _sdpa_blockwise(qg, k, v, pos0, c, kv_len)
 
     o = o.reshape(b, c.n_heads, s, c.d_head).transpose(1, 2)
-    y = o.reshape(b, s, c.n_heads * c.d_head) @ p["wo"].reshape(-1, c.d_model)
+    hd = c.n_heads * c.d_head          # wo: (n_heads, d_head, d_out)
+    y = o.reshape(b, s, hd) @ p["wo"].reshape(hd, -1)
     return ctx.constrain(y, "dp", None, None), cache

@@ -44,18 +44,29 @@ def is_pspec(x) -> bool:
 
 
 def tree_map(fn: Callable, tree: PyTree, is_leaf=is_pspec) -> PyTree:
-    """``fn`` on every leaf of a nested dict (leaves: ``is_leaf`` or
-    anything that is not a dict)."""
-    if isinstance(tree, dict) and not is_leaf(tree):
+    """``fn`` on every leaf of nested dicts and tuples (leaves:
+    ``is_leaf`` or anything that is neither; xLSTM's states are
+    tuples)."""
+    if is_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], is_leaf) for k in sorted(tree)}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, t, is_leaf) for t in tree)
     return fn(tree)
 
 
 def tree_leaves(tree: PyTree, is_leaf=is_pspec) -> Iterator:
-    """The leaves of a nested dict, in sorted key order."""
-    if isinstance(tree, dict) and not is_leaf(tree):
+    """The leaves of nested dicts and tuples, dicts in sorted key order,
+    tuples in theirs (``jax.tree.leaves``' order)."""
+    if is_leaf(tree):
+        yield tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_leaves(tree[k], is_leaf)
+    elif isinstance(tree, tuple):
+        for t in tree:
+            yield from tree_leaves(t, is_leaf)
     else:
         yield tree
 

@@ -9,9 +9,10 @@ Every arch exposes, as in the reference:
   decode_state_init(cfg, batch, max_len)   -> tensors
 and ``input_specs(cfg, cell)`` gives the batch a shape cell feeds it.
 
-The ``"transformer"`` family is ported.  The zamba, xlstm and whisper
-families wait for their slices of ROADMAP item 13b; :func:`make_arch`
-raises for them.
+All four families are ported: the transformer (dense, MoE, the VLM
+backbone), zamba2 (Mamba2 with a shared attention block), xLSTM and
+Whisper.  Every decode-state initializer defaults to the card and
+raises where CUDA is missing, unless given ``device``.
 """
 from __future__ import annotations
 
@@ -22,6 +23,9 @@ import torch
 
 from .config import ModelConfig
 from . import transformer as tf
+from . import whisper as wh
+from . import xlstm as xl
+from . import zamba2 as zb
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,19 +62,35 @@ class ArchDef:
     decode_state_init: Callable    # (cfg, batch, max_len) -> tensors
 
 
+def _xlstm_state_specs(cfg, batch, max_len):
+    return xl.xlstm_state_specs(cfg, batch)
+
+
+def _xlstm_state_init(cfg, batch, max_len, device=None):
+    return xl.xlstm_state_init(cfg, batch, device)
+
+
 _FAMILY_DEFS = {
     "transformer": dict(
         param_specs=tf.lm_param_specs, loss=tf.lm_loss,
         prefill=tf.lm_prefill, decode=tf.lm_decode,
         decode_state_specs=tf.cache_specs,
         decode_state_init=tf.init_caches),
-}
-
-# the families still to port, each with its slice of ROADMAP item 13b
-_NOT_PORTED = {
-    "zamba": "zamba2 with mamba2",
-    "xlstm": "xlstm",
-    "whisper": "whisper",
+    "zamba": dict(
+        param_specs=zb.zamba_param_specs, loss=zb.zamba_loss,
+        prefill=zb.zamba_prefill, decode=zb.zamba_decode,
+        decode_state_specs=zb.zamba_state_specs,
+        decode_state_init=zb.zamba_state_init),
+    "xlstm": dict(
+        param_specs=xl.xlstm_param_specs, loss=xl.xlstm_loss,
+        prefill=xl.xlstm_prefill, decode=xl.xlstm_decode,
+        decode_state_specs=_xlstm_state_specs,
+        decode_state_init=_xlstm_state_init),
+    "whisper": dict(
+        param_specs=wh.whisper_param_specs, loss=wh.whisper_loss,
+        prefill=wh.whisper_prefill, decode=wh.whisper_decode,
+        decode_state_specs=wh.whisper_state_specs,
+        decode_state_init=wh.whisper_state_init),
 }
 
 
@@ -85,12 +105,7 @@ def family_impl(cfg: ModelConfig) -> str:
 
 
 def make_arch(cfg: ModelConfig) -> ArchDef:
-    fam = family_impl(cfg)
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.arch}: the {fam!r} family is not ported yet (ROADMAP "
-            f"item 13b, the {_NOT_PORTED[fam]} slice)")
-    return ArchDef(cfg=cfg, **_FAMILY_DEFS[fam])
+    return ArchDef(cfg=cfg, **_FAMILY_DEFS[family_impl(cfg)])
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,8 @@ paper pipelines through ``CasperEngine``, analyzes a plan
 (``core/halo.py``), runs sliding-window attention through
 ``kernels.ops.swa`` and serves a reduced qwen3-14b (``configs``,
 ``models``, ``serve.ServeEngine``; ``roofline.analysis`` and
-``sharding`` beside them), and an AST scan of the package's sources
+``sharding`` beside them) and reduced zamba2, xLSTM and Whisper, and
+an AST scan of the package's sources
 (the analysis, serving, halo and LM modules among them), of
 ``chip_smoke.py`` and of the helpers it loads from ``tests/`` finds no
 such import.
@@ -72,6 +73,17 @@ params = init_params(torch.Generator().manual_seed(0), arch.param_specs(cfg),
 toks = ServeEngine(arch, params, max_len=16, device="cpu").generate(
     {"tokens": torch.zeros(2, 5, dtype=torch.int32)}, 2)
 assert toks.shape == (2, 2) and n_params(cfg) > 0
+for arch_id in ("zamba2-7b", "xlstm-125m", "whisper-tiny"):
+    cfg = get_config(arch_id, reduced=True)
+    arch = make_arch(cfg)
+    params = init_params(torch.Generator().manual_seed(0),
+                         arch.param_specs(cfg), device="cpu")
+    batch = {"tokens": torch.zeros(2, 5, dtype=torch.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros(2, 8, cfg.d_model, dtype=torch.bfloat16)
+    toks = ServeEngine(arch, params, max_len=16, device="cpu").generate(
+        batch, 2)
+    assert toks.shape == (2, 2) and n_params(cfg) > 0
 assert ShardCtx().constrain(toks) is toks
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton")]
@@ -113,7 +125,9 @@ def test_sources_import_no_jax_and_no_repro():
                 "roofline/analysis.py", "configs/__init__.py",
                 "configs/qwen3_14b.py", "models/attention.py",
                 "models/common.py", "models/moe.py", "models/mlp.py",
-                "models/transformer.py", "models/registry.py"):
+                "models/transformer.py", "models/registry.py",
+                "models/mamba2.py", "models/zamba2.py", "models/xlstm.py",
+                "models/whisper.py"):
         assert PORT / mod in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

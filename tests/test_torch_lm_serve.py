@@ -12,36 +12,16 @@ reference's logits are recorded from its own engine.  Also the
 ``n_tokens`` contract, seeded temperature sampling and a ``cuda``-marked
 run on the card against the host.
 """
-import jax
-import numpy as np
 import pytest
 import torch
 
 from repro_torch.serve import ServeEngine
 
-from _lm_reference import ATOL, as_jax, as_torch, inputs, pair
+from _lm_reference import (ATOL, as_jax, as_torch, inputs, pair,
+                           reference_generate, tokens_held)
 from _serve_reference import jserve  # noqa: F401
 
 N_TOKENS = 6
-
-
-def _reference_generate(jserve, p, batch, dtype):
-    """The reference engine's tokens and the logits it sampled from."""
-    eng = jserve.ServeEngine(p.jarch, p.jparams, max_len=32)
-    seen = []
-    sample = eng._sample
-
-    def record(logits, temperature, key):
-        seen.append(np.asarray(logits, np.float32))
-        return sample(logits, temperature, key)
-
-    eng._sample = record
-    if dtype == "bf16":
-        with jax.disable_jit():
-            toks = eng.generate(as_jax(batch), N_TOKENS)
-    else:
-        toks = eng.generate(as_jax(batch), N_TOKENS)
-    return np.asarray(toks), np.stack(seen, axis=1)       # (B, T, V)
 
 
 @pytest.mark.parametrize("arch_id,dtype", [("qwen3-14b", "f32"),
@@ -50,17 +30,12 @@ def _reference_generate(jserve, p, batch, dtype):
 def test_greedy_generate_matches_reference(jserve, arch_id, dtype):
     p = pair(arch_id, dtype)
     batch = inputs(p.cfg, 4, 10, seed=21)
-    want, logits = _reference_generate(jserve, p, batch, dtype)
+    want, logits = reference_generate(jserve, p, as_jax(batch), dtype,
+                                      N_TOKENS)
     got = ServeEngine(p.arch, p.params, max_len=32,
                       device="cpu").generate(as_torch(batch), N_TOKENS)
     assert got.dtype == torch.int32 and got.shape == want.shape
-    top2 = np.sort(logits, axis=-1)[..., -2:]
-    clear = (top2[..., 1] - top2[..., 0]) > 2 * ATOL[dtype]
-    held = 0
-    for row in range(want.shape[0]):
-        n = int(np.argmin(clear[row])) if not clear[row].all() else N_TOKENS
-        assert got[row, :n].tolist() == want[row, :n].tolist(), (row, n)
-        held += n
+    held = tokens_held(got, want, logits, ATOL[dtype])
     # bf16 logits are multiples of 2**-6 near 3: near-ties are common
     assert held >= (want.size // 2 if dtype == "f32" else want.shape[0])
 

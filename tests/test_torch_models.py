@@ -38,7 +38,7 @@ from repro_torch.roofline import analysis as troof
 from repro_torch.serve import ServeEngine
 from repro_torch.sharding import ShardCtx
 
-from _lm_reference import (ATOL, BF16_ATOL, CTX, DTYPES, JCTX, OTHER_IDS,
+from _lm_reference import (ATOL, BF16_ATOL, CTX, DTYPES, JCTX,
                            TRANSFORMER_IDS, as_jax, as_torch, inputs,
                            max_err, pair, run_reference)
 
@@ -343,12 +343,6 @@ def test_gemma2_embed_scale_and_unembed_rounding():
 # ---------------------------------------------------------------------------
 # registry, configs, specs and counts
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch_id", OTHER_IDS)
-def test_make_arch_refuses_unported_families(arch_id):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        make_arch(get_config(arch_id, reduced=True))
-
-
 def test_card_by_default_and_no_fallback():
     """``device=None`` is the card; without CUDA it raises, never runs on
     the host.  A mesh is the sharded slice's."""
