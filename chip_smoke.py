@@ -169,9 +169,27 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    clip), each of which must fail the gate; for zamba2, xLSTM and Whisper
    the same in f32, TF32 off (``LM_F32_DECODE_ATOL``).  Card vs host in
    f32 (``LM_F32_ATOL``, the error on TF32 logged): (ii) one qwen3-14b
-   unit, (v) one firing zamba2-7b unit, and xlstm-125m whole.  Every
-   plan of phases 2 and 3 is lowered under ``CASPER_VERIFY=strict``
-   (``repro_torch.analysis``): a finding fails the run;
+   unit, (v) one firing zamba2-7b unit, and xlstm-125m whole; (k) LM
+   training (``repro_torch.train``, ``optim``, ``checkpointing``,
+   ``data``; plain PyTorch and autograd, no TPU kernel on this path) at
+   full width, depth cut to fit the state: (i) qwen3-14b, 4 of 40 layers,
+   remat, 4 x 1,024 tokens, AdamW in f32, 10 steps; (ii) olmoe-1b-7b, 4
+   of 16 layers, two microbatches, 8-bit AdamW state and int8 gradient
+   compression, 10 steps; each timed per step (synchronized, median)
+   beside its bound (``train_work``: ``model_flops`` at the bf16 rate
+   against the optimizer's state bytes), one step traced, the loss
+   falling by ``TRAIN_FALL_GATE`` and, with the update's sign flipped,
+   not; (iii) xlstm-125m whole through the ``Trainer``, at its true
+   fan-in: checkpoints, an injected failure, a new Trainer resuming, its
+   end state bitwise equal to a straight run's (and a run resumed one
+   step behind parting), checkpoint save and restore timed, the loss
+   falling by ``TRAINER_FALL_GATE`` and, flipped, not; (iv) one qwen3-14b layer with the
+   full vocabulary in f32: the step's loss, grads, moments and update on
+   the card against the host's (``TRAIN_CHECK_GATES``), clean and with
+   the clip not applied, one microbatch dropped and the bias correction
+   one step off.  Every plan of phases 2 and 3 is lowered under
+   ``CASPER_VERIFY=strict`` (``repro_torch.analysis``): a finding fails
+   the run;
 3. times one fused block per phase-2 case with CUDA events (median),
    beside its bound (the larger of one read and one write of the grid at
    the HBM rate and the f64 operations the contract fixes per point and
@@ -207,7 +225,7 @@ kernel, K1/K2 of 3-D specs on the streamed kernel, K3, K4, K5 bf16, f16
 and f32; K2 and K4 carry the serving rows under ``rows``; K2, K2 rank 3
 and K4 count their phase-2f slab launches; each entry adds the phase-2h
 launches its wrapper counted, by rank; K2, K2 rank 3 and K4 add the
-phase-2i ranks' launches; phase 2j launches none of them) before the
+phase-2i ranks' launches; phases 2j and 2k launch none of them) before the
 last line, which is ``{"ok": true, "device": {...}}``.  Full
 results go to ``build/chip_smoke.json``.  Exits non-zero, printing
 no result, when CUDA is missing or any check fails.
@@ -1009,6 +1027,45 @@ def scale_scores(params, specs):
             params[key].mul_(math.sqrt(shape[-2] / shape[-3]))
 
 
+def scale_to_fan_in(params, specs):
+    """Rescale the port's ``params`` in place to their true fan-in: a
+    weight that reads d_model (``"fsdp"`` first) to std 1/sqrt(d_model),
+    one that writes it (``"fsdp"`` last) to 1/sqrt(the dims it
+    contracts).  The reference's init takes the second-to-last dim as the
+    fan-in: a head count for (d, heads, d_head), 2 for (d, 2, d_ff)."""
+    from repro_torch.models.common import tree_leaves
+    for t, sp in zip(tree_leaves(params, torch.is_tensor),
+                     tree_leaves(specs)):
+        if sp.init != "normal" or "fsdp" not in sp.logical:
+            continue
+        j = sp.logical.index("fsdp")
+        if j == len(sp.shape) - 1:
+            first = next(i for i, a in enumerate(sp.logical)
+                         if a is not None)
+            fan = math.prod(sp.shape[first:j])
+        else:
+            fan = sp.shape[j]
+        if fan != sp.shape[-2]:
+            t.mul_(math.sqrt(sp.shape[-2] / fan))
+
+
+def trainer_fan_in(tr) -> None:
+    """Phase 2k (iii)'s start: the Trainer's draw at its true fan-in
+    (:func:`scale_to_fan_in`; a tied embedding is also the unembedding,
+    which reads d_model, so it takes std 1/sqrt(d_model) too), with fresh
+    optimizer state.  At the reference's init xlstm-125m's grad norm is
+    ~3e8, 99.8% of its square in the embedding, the clip scales every
+    other grad below AdamW's eps, and its loss does not fall; with only
+    ``scale_scores`` it still does not (tools/lm_conditioning.py)."""
+    from repro_torch.optim import init_opt_state
+    cfg = tr.cfg
+    tr.init_state()
+    scale_to_fan_in(tr.params, tr.arch.param_specs(cfg))
+    if cfg.tie_embeddings:
+        tr.params["embed"].mul_(math.sqrt(cfg.vocab / cfg.d_model))
+    tr.opt_state = init_opt_state(tr.params, tr.opt_cfg)
+
+
 def transformer_work(cfg, params, b: int, s: int, kv_len=None) -> dict:
     """The work a dense transformer's prefill of ``s`` tokens
     (``kv_len=None``) or one decode step after ``kv_len`` positions must
@@ -1655,6 +1712,623 @@ def lm_phase(failures, smi, hbm_bw, peak_bf16, peak_f32):
                     for k, v in rec["seconds_per_model"].items()) + ")")
     return rec
 
+
+# phase 2k: LM training (repro_torch.train, optim, checkpointing, data):
+# plain PyTorch and autograd, no TPU kernel on this path (PERF.md, kernel
+# table).  Full width, depth cut where the state must fit the card's
+# 80 GB (PERF.md, Cells): (i) qwen3-14b, 4 of its 40 layers (2.877e9
+# params; bf16 param and grad, f32 master, m and v: 16 B/param, 46.0 GB),
+# remat on (its default), 4 x 1,024 tokens, AdamW with f32 state;
+# (ii) olmoe-1b-7b, 4 of its 16 layers (1.884e9 params, 0.475e9 active,
+# 64 experts, top-8), 4 x 1,024 tokens in two microbatches
+# (accum_steps=2), 8-bit AdamW state and int8 gradient compression with
+# error feedback; (iii) xlstm-125m whole (its remat=False) through the
+# Trainer at its own 8 x 128: checkpoints, an injected failure, a resume;
+# (iv) one full-width qwen3-14b layer with the full vocabulary (1.886e9
+# params) in f32, 2 x 64 tokens in two microbatches, one step, card
+# against host.  Data is batch_for_step(DataConfig(vocab, seq, batch,
+# seed), step).
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 1024, 4, 10
+# the planted sign flip runs this many steps with the learning rate
+# negated, from the clean run's end
+TRAIN_FLIP_STEPS = 3
+# (i) and (ii): warmup 2, then a cosine that barely decays over the run
+# (total 1000), so the flipped steps take the clean run's rate
+TRAIN_OPT = {"lr": 3e-4, "warmup_steps": 2, "total_steps": 1000}
+# (i) and (ii): the loss falls by at least this many nats over a clean
+# run's steps (its first step's loss less its last's), and a planted sign
+# flip of the update must read below it (``flipped_fall``: the flipped
+# steps' batches, their mean loss before less after).  On an H100
+# (PERF.md, Training): (i) fell 10.14 clean, -19.51 flipped; (ii) 4.43,
+# -3.73.
+TRAIN_FALL_GATE = 1.0
+# (iii): a straight run of TRAINER_STEPS steps; Trainer.run with a
+# checkpoint every TRAINER_CKPT_EVERY and an injected failure at
+# TRAINER_FAIL_AT; a new Trainer that resumes; the reference's trainer
+# test's optimizer.  The end states must be equal.  The params are the
+# Trainer's draw at its true fan-in (``trainer_fan_in``).  The straight
+# run's batches' mean loss falls by TRAINER_FALL_GATE nats or more over
+# it, and with the update's sign flipped by less: xlstm-125m learns
+# slowly here beside a batch-to-batch spread of up to 0.1 nats, so the
+# fall is read on the same batches before and after (on an H100: 0.2069
+# clean, -0.1174 flipped; PERF.md, Training).
+TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_FAIL_AT = 5, 3, 4
+TRAINER_OPT = {"lr": 1e-3, "warmup_steps": 2, "total_steps": 50}
+TRAINER_FALL_GATE = 0.05
+# (iv): card against host, f32, TF32 off; each quantity's error over its
+# gate, the reading is the largest (PERF.md, Training: the update read
+# 2.8e-4 clean and 0.396 with the bias correction one step off; m and the
+# grads 5.5e-6 clean).  loss: relative; grads, m and v: max |d|
+# over the leaf's max |x|, the largest over leaves; update:
+# ||d(new - old)|| / ||new - old|| per leaf (Adam's first step moves an
+# entry by about lr * sign(g), and the card and the host may part on the
+# sign of entries whose g is at the rounding level).
+TRAIN_CHECK_ROWS, TRAIN_CHECK_SEQ = 2, 64
+TRAIN_CHECK_OPT = {"lr": 1e-3, "warmup_steps": 0, "total_steps": 10**9,
+                   "grad_clip": 0.25}
+TRAIN_CHECK_GATES = {"loss": 1e-5, "update": 3e-3, "m": 1e-4, "v": 2e-4,
+                     "grads": 1e-4}
+
+
+def train_work(cfg, params, opt_state, err, tokens: int) -> dict:
+    """One training step's model FLOPs (``model_flops``: 6 x active
+    params x tokens; remat's recompute not counted) and the optimizer's
+    state bytes: every state leaf (master, m, v and their scales, the
+    error feedback) read and written once, the grads read once (f32 when
+    accumulated, else in the params' dtype) and the params written
+    once."""
+    from repro_torch.models.registry import ShapeCell
+    from repro_torch.roofline.analysis import model_flops
+    n = sum(t.numel() for t in _leaves(params))
+    state = opt_state["master"], opt_state["m"], opt_state["v"], err
+    grad_bytes = 4 * n if cfg.accum_steps > 1 else _weight_bytes(params)
+    return {"flops": model_flops(cfg, ShapeCell("train", tokens, 1,
+                                                "train")),
+            "state_bytes": float(2 * sum(_weight_bytes(s) for s in state
+                                         if s is not None)
+                                 + grad_bytes + _weight_bytes(params))}
+
+
+def _leaves(tree):
+    from repro_torch.models.common import tree_leaves
+    return list(tree_leaves(tree, torch.is_tensor))
+
+
+def train_bound_ms(work: dict, rates: dict, rate: str = "bf16"):
+    """(ms, by): the larger of the FLOPs at the tensor rate ``rates[rate]``
+    and the state bytes at the HBM rate."""
+    t_ops = work["flops"] / rates[rate]
+    t_bytes = work["state_bytes"] / rates["bytes"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _init_train(cfg, seed):
+    from repro_torch.models import make_arch
+    from repro_torch.models.common import init_params
+    arch = make_arch(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator("cuda").manual_seed(seed),
+                         arch.param_specs(cfg))
+    return arch, params
+
+
+def batches_loss(arch, params, data, steps) -> float:
+    """The mean loss of ``params`` over the batches of ``steps``."""
+    from repro_torch.data import batch_for_step
+    from repro_torch.sharding import ShardCtx
+    with torch.no_grad():
+        return statistics.fmean(
+            float(arch.loss(params, batch_for_step(data, i), arch.cfg,
+                            ShardCtx())[0]) for i in steps)
+
+
+def flipped_fall(arch, opt, params, opt_state, err, data, start: int,
+                 n: int = TRAIN_FLIP_STEPS) -> float:
+    """The planted fault: ``n`` steps with the learning rate negated (the
+    update's sign flipped) from the given state on batches ``start``..;
+    returns the loss fall on those batches (their mean loss before the
+    flipped steps less after)."""
+    from repro_torch.data import batch_for_step
+    from repro_torch.sharding import ShardCtx
+    from repro_torch.train import make_train_step
+    steps = range(start, start + n)
+    before = batches_loss(arch, params, data, steps)
+    flip = make_train_step(arch, dataclasses.replace(opt, lr=-opt.lr),
+                           ShardCtx(), compression=err is not None)
+    for i in steps:
+        flip(params, opt_state, batch_for_step(data, i),
+             *([err] if err is not None else []))
+    return before - batches_loss(arch, params, data, steps)
+
+
+def fall_checks(failures, label, fall, flip, gate, steps) -> None:
+    """The loss fall over a clean run of ``steps`` steps must reach
+    ``gate`` and the sign-flipped fall ``flip`` stay below it."""
+    if not fall >= gate:
+        failures.append(f"phase 2k {label}: the loss fell {fall:.4g} nats "
+                        f"over {steps} steps (gate {gate})")
+    if not flip < gate:
+        failures.append(f"phase 2k {label}: with the update's sign flipped "
+                        f"the loss fell {flip:.4g} nats (gate {gate})")
+
+
+def train_case(failures, label, cfg, opt, compression, rates, smi):
+    """Phase 2k (i)/(ii): ``TRAIN_STEPS`` steps of ``make_train_step`` on
+    the card, each synchronized and timed, one more under
+    ``torch.profiler``, then the planted sign flip.  Returns the record."""
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.optim import apply_updates, compress, init_opt_state
+    from repro_torch.sharding import ShardCtx
+    from repro_torch.train import make_train_step
+    t0 = time.time()
+    arch, params = _init_train(cfg, SEED + 10)
+    opt_state = init_opt_state(params, opt)
+    err = compress.init_error(params) if compression else None
+    init_s = time.time() - t0
+    step = make_train_step(arch, opt, ShardCtx(), compression=compression)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=SEED)
+    extra = [err] if compression else []
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        batch = batch_for_step(data, i)
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        out = step(params, opt_state, batch, *extra)
+        losses.append(float(out[2]["loss_total"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - a) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    # one more step in its two parts: the grads (forward, remat's
+    # recompute, backward), then compression and the AdamW update
+    batch = batch_for_step(data, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    _, _, grads = step.grads_of(params, batch)
+    torch.cuda.synchronize()
+    b = time.perf_counter()
+    if compression:
+        grads, _ = compress.compress_tree(grads, err)
+    apply_updates(params, grads, opt_state, opt)
+    torch.cuda.synchronize()
+    split = {"grads_ms": (b - a) * 1e3,
+             "update_ms": (time.perf_counter() - b) * 1e3}
+    del grads
+    prof = lm_profiled(lambda: step(params, opt_state,
+                                    batch_for_step(data, TRAIN_STEPS + 1),
+                                    *extra),
+                       f"train_{label.strip('()')}", 1)
+    flip = flipped_fall(arch, opt, params, opt_state, err, data,
+                        TRAIN_STEPS + 2)
+    fall = (losses[0] - losses[-1] if all(map(math.isfinite, losses))
+            else math.nan)
+    fall_checks(failures, label, fall, flip, TRAIN_FALL_GATE, TRAIN_STEPS)
+    work = train_work(cfg, params, opt_state, err, TRAIN_BATCH * TRAIN_SEQ)
+    bound, by = train_bound_ms(work, rates)
+    med = statistics.median(times)
+    rec = {"arch": cfg.arch, "n_layers": cfg.n_layers,
+           "params": sum(t.numel() for t in _leaves(params)),
+           "state_bytes": sum(_weight_bytes(s) for s in
+                              (params, opt_state, err) if s is not None),
+           "accum_steps": cfg.accum_steps, "remat": cfg.remat,
+           "quantize_state": opt.quantize_state, "compression": compression,
+           "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ, "losses": losses,
+           "step_ms": times, "step_ms_median": med, "split": split,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+           "model_flops": work["flops"], "work": work, "bound_ms": bound,
+           "bound_by": by, "share_of_bound": bound / med,
+           "peak_gib": peak / 2**30, "init_s": init_s, "trace": prof,
+           "fall": fall, "flipped_fall": flip, "gate": TRAIN_FALL_GATE}
+    log(f"phase 2k {label}: {cfg.arch} {cfg.n_layers} layers, "
+        f"{rec['params'] / 1e9:.3f}e9 params, state "
+        f"{rec['state_bytes'] / 1e9:.2f} GB, {TRAIN_BATCH}x{TRAIN_SEQ} "
+        f"tokens, accum {cfg.accum_steps}, remat {cfg.remat}, 8-bit state "
+        f"{opt.quantize_state}, compression {compression}: step "
+        f"{med:.1f} ms median ({min(times):.1f}-{max(times):.1f}; one "
+        f"more split: grads {split['grads_ms']:.1f} ms, compression and "
+        f"update {split['update_ms']:.1f} ms), "
+        f"{rec['tokens_per_s']:.0f} tokens/s; model {work['flops']:.4g} "
+        f"FLOP, state {work['state_bytes'] / 1e9:.2f} GB -> bound "
+        f"{bound:.2f} ms ({by}), {rec['share_of_bound']:.3f} of it; "
+        f"{prof['kernels_per_call']:.0f} kernels per step, idle "
+        f"{prof['idle_share']:.3f}; peak {rec['peak_gib']:.2f} GiB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (fell {fall:.3f}, gate "
+        f"{TRAIN_FALL_GATE}; sign flipped: fell {flip:.3f}) | {smi}")
+    del params, opt_state, err
+    torch.cuda.empty_cache()
+    return rec
+
+
+def qwen3_train_case(failures, smi, rates):
+    """Phase 2k (i)."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_config("qwen3-14b"), n_layers=4)
+    if not cfg.remat:
+        failures.append("phase 2k (i): remat is off")
+    return train_case(failures, "(i)", cfg, AdamWConfig(**TRAIN_OPT), False,
+                      rates, smi)
+
+
+def olmoe_train_case(failures, smi, rates):
+    """Phase 2k (ii)."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), n_layers=4,
+                              accum_steps=2)
+    return train_case(failures, "(ii)", cfg,
+                      AdamWConfig(**TRAIN_OPT, quantize_state=True), True,
+                      rates, smi)
+
+
+def _state_gap(a, b) -> tuple[bool, float]:
+    """(every leaf equal, the largest |a - b|) over two state trees."""
+    equal, gap = True, 0.0
+    for x, y in zip(_leaves(a), _leaves(b)):
+        x, y = x.detach(), y.detach()
+        equal &= torch.equal(x, y)
+        gap = max(gap, float((x.double() - y.double()).abs().max()))
+    return equal, gap
+
+
+def trainer_case(failures, smi, rates):
+    """Phase 2k (iii): xlstm-125m whole through the ``Trainer``: a straight
+    run of ``run_step`` calls; ``Trainer.run`` with checkpoints that fails
+    at an injected step; a new Trainer that resumes from the last
+    COMMITted step and finishes (the restore and its last save timed); the
+    two end states compared (a second straight run gives the spread where they
+    differ), and again with a planted fault (the resumed run one step
+    behind, replaying a batch), which must part; one more step under
+    ``torch.profiler``; the straight run's loss fall against
+    ``TRAINER_FALL_GATE``, then the planted sign flip from its end.  Both
+    fresh runs start from :func:`trainer_fan_in`."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_arch
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import InjectedFailure, Trainer, TrainLoopConfig
+    cfg = get_config("xlstm-125m")
+    arch = make_arch(cfg)
+    opt = AdamWConfig(**TRAINER_OPT)
+    root = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(name, **kw):
+        return Trainer(arch, opt, TrainLoopConfig(**{
+            "total_steps": TRAINER_STEPS, "ckpt_every": TRAINER_CKPT_EVERY,
+            "log_every": 1, "keep_ckpts": 1, "seed": SEED,
+            "ckpt_dir": os.path.join(root, name)} | kw))
+
+    def straight_run():
+        tr = trainer("straight")
+        trainer_fan_in(tr)
+        return tr, [tr.run_step() for _ in range(TRAINER_STEPS)]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    straight, hist = straight_run()
+    tree = straight._state_tree()
+    nbytes = _weight_bytes(tree)
+    failing = trainer("resumed", inject_failure_at=TRAINER_FAIL_AT)
+    trainer_fan_in(failing)
+    # the straight run's start: its batches' loss before it
+    batches = range(TRAINER_STEPS)
+    before = batches_loss(arch, failing.params, failing.data_cfg, batches)
+    try:
+        failing.run()
+        failures.append("phase 2k (iii): the injected failure did not "
+                        "raise")
+    except InjectedFailure:
+        failing.ckpt.wait()
+    del failing
+    resumed = trainer("resumed")
+    t0 = time.time()
+    resumed.try_resume()
+    torch.cuda.synchronize()
+    restore_s = time.time() - t0
+    saved = tree_map(lambda t: t.detach().clone(), resumed._state_tree(),
+                     torch.is_tensor)
+    t0 = time.time()
+    rhist = resumed.run()
+    # the run's last save (save_async, then wait): its time less its steps'
+    save_s = time.time() - t0 - sum(h["step_seconds"] for h in rhist)
+    peak = torch.cuda.max_memory_allocated()
+    resumes = [e["step"] for e in resumed.events if e["kind"] == "resume"]
+    if resumed.step != TRAINER_STEPS or resumes != \
+            [TRAINER_FAIL_AT - TRAINER_FAIL_AT % TRAINER_CKPT_EVERY]:
+        failures.append(f"phase 2k (iii): resumed at {resumes}, ended at "
+                        f"step {resumed.step}")
+    fall = before - batches_loss(arch, straight.params, straight.data_cfg,
+                                 batches)
+    equal, gap = _state_gap(tree, resumed._state_tree())
+    spread = master_spread = None
+    if not equal:
+        again, _ = straight_run()
+        _, spread = _state_gap(tree, again._state_tree())
+        _, master_spread = _state_gap(tree["opt"]["master"],
+                                      again.opt_state["master"])
+        del again
+        if gap > spread:
+            failures.append(f"phase 2k (iii): resumed vs straight max |d| "
+                            f"{gap} past two straight runs' {spread}")
+    # the planted fault: the restored state resumed one step behind, read
+    # on the f32 master weights (a bf16 param hides a step below its ulp)
+    behind = trainer("behind")
+    behind.params, behind.opt_state = saved["params"], saved["opt"]
+    behind.step = resumes[0] - 1 if resumes else 0
+    while behind.step < TRAINER_STEPS:
+        behind.run_step()
+    _, fault_gap = _state_gap(tree["opt"]["master"],
+                              behind.opt_state["master"])
+    if not fault_gap > (master_spread or 0.0):
+        failures.append(f"phase 2k (iii): resumed one step behind, the end "
+                        f"state is {fault_gap} from the straight run's")
+    del behind, saved
+    prof = lm_profiled(straight.run_step, "train_iii", 1)
+    losses = [h["loss"] for h in hist]
+    flip = flipped_fall(arch, opt, straight.params, straight.opt_state,
+                        None, straight.data_cfg, straight.step)
+    fall_checks(failures, "(iii)", fall, flip, TRAINER_FALL_GATE,
+                TRAINER_STEPS)
+    times = [h["step_seconds"] * 1e3 for h in hist]
+    med = statistics.median(times)
+    tokens = straight.data_cfg.global_batch * straight.data_cfg.seq_len
+    work = train_work(cfg, straight.params, straight.opt_state, None, tokens)
+    bound, by = train_bound_ms(work, rates)
+    rec = {"arch": cfg.arch, "params": sum(
+               t.numel() for t in _leaves(straight.params)),
+           "steps": TRAINER_STEPS, "ckpt_every": TRAINER_CKPT_EVERY,
+           "fail_at": TRAINER_FAIL_AT, "resumed_at": resumes,
+           "tokens_per_step": tokens, "losses": losses,
+           "batches_loss_before": before, "fall": fall,
+           "flipped_fall": flip, "gate": TRAINER_FALL_GATE,
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "resumed_bitwise": equal, "resumed_max_abs": gap,
+           "straight_spread": spread, "one_step_behind_max_abs": fault_gap,
+           "step_ms": times, "step_ms_median": med,
+           "tokens_per_s": tokens / med * 1e3,
+           "model_flops": work["flops"], "work": work, "bound_ms": bound,
+           "bound_by": by, "share_of_bound": bound / med,
+           "peak_gib": peak / 2**30, "trace": prof, "ckpt_bytes": nbytes,
+           "ckpt_save_s": save_s, "ckpt_restore_s": restore_s}
+    log(f"phase 2k (iii): {cfg.arch} whole, Trainer, {TRAINER_STEPS} "
+        f"steps of {straight.data_cfg.global_batch}x"
+        f"{straight.data_cfg.seq_len}: step {med:.1f} ms median "
+        f"({min(times):.1f}-{max(times):.1f}), "
+        f"{rec['tokens_per_s']:.0f} tokens/s; model {work['flops']:.4g} "
+        f"FLOP, state {work['state_bytes'] / 1e9:.2f} GB -> bound "
+        f"{bound:.3f} ms ({by}), {rec['share_of_bound']:.4f} of it; "
+        f"{prof['kernels_per_call']:.0f} kernels per step, idle "
+        f"{prof['idle_share']:.3f}; peak {rec['peak_gib']:.2f} GiB; "
+        f"failure at {TRAINER_FAIL_AT}, resumed at {resumes}: end state "
+        f"{'bitwise equal to' if equal else 'max |d| ' + str(gap) + ' from'}"
+        f" the straight run's (two straight runs: {spread}); resumed one "
+        f"step behind: master max |d| {fault_gap:.3g}; checkpoint "
+        f"{nbytes / 1e9:.3f} GB saved in {save_s:.2f}s, restored in "
+        f"{restore_s:.2f}s; loss {losses[0]:.4f} -> {losses[-1]:.4f}, on "
+        f"the run's batches fell {fall:.4f} (gate {TRAINER_FALL_GATE}; sign "
+        f"flipped: fell {flip:.4f}), grad norm {rec['grad_norms'][0]:.4g} -> "
+        f"{rec['grad_norms'][-1]:.4g} (clip {opt.grad_clip}) | {smi}")
+    del straight, resumed, tree
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _check_errors(card, host, gates, stop_at=None) -> dict:
+    """Each quantity's error, card (tensors on the card) against host
+    (tensors on the host, moved over a leaf at a time), over its gate, in
+    ``gates``' order; with ``stop_at``, stops after the first quantity
+    whose ratio reaches it."""
+    out = {}
+    for q in gates:
+        if q == "loss":
+            err = abs(card[q] - host[q]) / abs(host[q])
+        else:
+            err = 0.0
+            for c, h in zip(card[q], host[q]):
+                h = h.to(c.device)
+                if q == "update":
+                    e = float(torch.linalg.vector_norm(c - h)
+                              / torch.linalg.vector_norm(h))
+                else:
+                    e = float((c - h).abs().max() / h.abs().max())
+                err = max(err, e)
+                del h
+        out[q] = err / gates[q]
+        if stop_at is not None and out[q] >= stop_at:
+            break
+    return out
+
+
+def _check_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3-14b"), n_layers=1,
+                               accum_steps=2)
+
+
+def _check_params():
+    """Case (iv)'s params on the card, in f32 (drawn in bf16 from the
+    seed, as every case's are, then widened)."""
+    from repro_torch.models.common import tree_map
+    arch, p = _init_train(_check_cfg(), SEED + 12)
+    return arch, tree_map(lambda t: t.float(), p, torch.is_tensor)
+
+
+def _check_batch(device=None):
+    from repro_torch.data import DataConfig, batch_for_step
+    return batch_for_step(DataConfig(
+        vocab=_check_cfg().vocab, seq_len=TRAIN_CHECK_SEQ,
+        global_batch=TRAIN_CHECK_ROWS, seed=SEED + 11), 0, device)
+
+
+def _check_run(arch, params, opt_cfg, batch, start_step=0):
+    """Case (iv)'s step, ``grads_of`` then ``apply_updates`` (what
+    ``make_train_step`` runs), from fresh optimizer state at
+    ``start_step``; returns the quantities compared and the seconds of
+    each part."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import apply_updates, init_opt_state
+    from repro_torch.sharding import ShardCtx
+    from repro_torch.train import make_train_step
+    def sync():
+        if batch["tokens"].is_cuda:
+            torch.cuda.synchronize()
+
+    old = tree_map(lambda t: t.detach().clone(), params, torch.is_tensor)
+    st = init_opt_state(params, opt_cfg)
+    st["step"].fill_(start_step)
+    step = make_train_step(arch, opt_cfg, ShardCtx())
+    sync()
+    t0 = time.time()
+    loss, _, grads = step.grads_of(params, batch)
+    sync()
+    t1 = time.time()
+    params, st, met = apply_updates(params, grads, st, opt_cfg)
+    sync()
+    t2 = time.time()
+    with torch.no_grad():
+        for o, p in zip(_leaves(old), _leaves(params)):
+            o.neg_().add_(p)              # new - old
+    work = train_work(arch.cfg, params, st, None, batch["tokens"].numel())
+    return {"work": work, "loss": float(loss), "grads": _leaves(grads),
+            "m": _leaves(st["m"]), "v": _leaves(st["v"]),
+            "update": _leaves(old), "grad_norm": float(met["grad_norm"]),
+            "grads_s": t1 - t0, "update_s": t2 - t1}
+
+
+def train_check_case(failures, smi, rates):
+    """Phase 2k (iv): one full-width qwen3-14b layer with the full
+    vocabulary in f32 (TF32 off), two microbatches: the step's grads
+    (``make_train_step(...).grads_of``) and one AdamW update on the card
+    against the same on the host's CPU from the same params, clean and
+    with each planted fault (the clip not applied, one microbatch
+    dropped, the bias correction one step off), each of which must read
+    past the gate."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import AdamWConfig
+    if torch.backends.cuda.matmul.allow_tf32:
+        failures.append("phase 2k (iv): TF32 is on")
+    opt = AdamWConfig(**TRAIN_CHECK_OPT)
+    batch = _check_batch()
+    t_case = time.time()
+    arch, params = _check_params()
+    host_params = tree_map(lambda t: t.to("cpu", copy=True), params,
+                           torch.is_tensor)
+    card = _check_run(arch, params, opt, batch)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    t0 = time.time()
+    host = _check_run(arch, host_params, opt, _check_batch("cpu"))
+    host_s = time.time() - t0
+    del host_params
+    clean = _check_errors(card, host, TRAIN_CHECK_GATES)
+    reading = max(clean.values())
+    norms = [card["grad_norm"], host["grad_norm"]]
+    card_s = {k: card[k] for k in ("grads_s", "update_s")}
+    work = card["work"]
+    bound, by = train_bound_ms(work, rates, "f32")
+    if not reading <= 1.0:
+        failures.append(f"phase 2k (iv): card vs host {clean} (each over "
+                        f"its gate, {TRAIN_CHECK_GATES})")
+    if not norms[1] > 2 * opt.grad_clip:
+        failures.append(f"phase 2k (iv): grad norm {norms[1]} does not "
+                        f"pass twice the clip {opt.grad_clip}")
+    del card
+    torch.cuda.empty_cache()
+
+    def dropping(loss_fn):
+        calls = []
+
+        def loss(params, batch, cfg_, ctx_):
+            total, metrics = loss_fn(params, batch, cfg_, ctx_)
+            calls.append(1)
+            return (total * 0.0 if len(calls) == 2 else total), metrics
+        return loss
+
+    faults = {
+        "clip not applied": lambda a, p: _check_run(
+            a, p, dataclasses.replace(opt, grad_clip=float("inf")), batch),
+        "one microbatch dropped": lambda a, p: _check_run(
+            dataclasses.replace(a, loss=dropping(a.loss)), p, opt, batch),
+        "bias correction one step off": lambda a, p: _check_run(
+            a, p, opt, batch, start_step=1),
+    }
+    fault_readings = {}
+    for name, fn in faults.items():
+        a, p = _check_params()
+        got = fn(a, p)
+        del p
+        errs = _check_errors(got, host, TRAIN_CHECK_GATES, stop_at=2.0)
+        fault_readings[name] = {"errors": errs,
+                                "reading": max(errs.values())}
+        if not max(errs.values()) > 1.0:
+            failures.append(f"phase 2k (iv): planted fault '{name}' reads "
+                            f"{errs}, within the gate")
+        del got
+        torch.cuda.empty_cache()
+    rec = {"params": sum(t.numel() for t in host["grads"]),
+           "rows": TRAIN_CHECK_ROWS, "seq": TRAIN_CHECK_SEQ,
+           "model_flops": work["flops"], "work": work, "bound_ms": bound,
+           "bound_by": by,
+           "peak_gib": peak / 2**30,
+           "accum_steps": _check_cfg().accum_steps,
+           "gates": TRAIN_CHECK_GATES, "clean_errors": clean,
+           "reading": reading, "faults": fault_readings,
+           "grad_norm_card_host": norms, "card_s": card_s,
+           "host_s": host_s, "host_grads_s": host["grads_s"],
+           "host_update_s": host["update_s"],
+           "seconds": time.time() - t_case}
+    log(f"phase 2k (iv): qwen3-14b, one layer and the full vocabulary, "
+        f"{rec['params'] / 1e9:.3f}e9 params in f32, "
+        f"{TRAIN_CHECK_ROWS}x{TRAIN_CHECK_SEQ} tokens in 2 microbatches: "
+        f"card vs host, each over its gate {TRAIN_CHECK_GATES}: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in clean.items())
+        + f" (reading {reading:.3g}, limit 1); grad norm card "
+        f"{norms[0]:.6g}, host {norms[1]:.6g} (clip {opt.grad_clip}); "
+        "planted faults "
+        + ", ".join(f"{k} {v['reading']:.3g}"
+                    for k, v in fault_readings.items())
+        + f" (each from its first quantity past 2); card step "
+        f"{sum(card_s.values()) * 1e3:.0f} ms (grads "
+        f"{card_s['grads_s'] * 1e3:.0f}, update "
+        f"{card_s['update_s'] * 1e3:.0f}; one synchronized call, the first "
+        f"at these shapes) against a bound of {bound:.1f} ms ({by}: "
+        f"{work['flops']:.4g} FLOP at the f32 rate, "
+        f"{work['state_bytes'] / 1e9:.1f} GB), peak "
+        f"{rec['peak_gib']:.2f} GiB; "
+        f"host {host_s:.1f}s (grads {host['grads_s']:.1f}s, "
+        f"update {host['update_s']:.1f}s) | {smi}")
+    del host
+    return rec
+
+
+def train_phase(failures, smi, hbm_bw, peak_bf16, peak_f32):
+    """Phase 2k: LM training on the card (see the comment above
+    ``TRAIN_SEQ``), one case at a time, each freed before the next.  It
+    launches none of K1-K5.  Returns the record."""
+    from repro_torch.kernels import engine as keng
+    t_phase = time.time()
+    rates = {"bytes": hbm_bw, "bf16": peak_bf16, "f32": peak_f32}
+    before = dict(keng.LAUNCHES)
+    rec = {"card": smi, "seconds_per_case": {}}
+    for name, case in (("(i)", qwen3_train_case), ("(ii)", olmoe_train_case),
+                       ("(iii)", trainer_case), ("(iv)", train_check_case)):
+        t0 = time.time()
+        torch.cuda.empty_cache()
+        rec[name] = case(failures, smi, rates)
+        rec["seconds_per_case"][name] = time.time() - t0
+    launched = {k: keng.LAUNCHES[k] - before.get(k, 0)
+                for k in keng.LAUNCHES if keng.LAUNCHES[k] != before.get(k)}
+    if launched:
+        failures.append(f"phase 2k launched kernels of ours: {launched}")
+    rec["seconds"] = time.time() - t_phase
+    log(f"phase 2k: {rec['seconds']:.1f}s ("
+        + ", ".join(f"{k} {v:.1f}s"
+                    for k, v in rec["seconds_per_case"].items()) + ")")
+    return rec
 
 def serving_times(smi):
     """Phase 3's serving times: the per-bucket dispatch overhead (the
@@ -2902,6 +3576,12 @@ def main() -> int:
     if failures:
         raise SystemExit("phase 2j failed:\n" + "\n".join(failures))
 
+    # ---- phase 2k: LM training, qwen3-14b and olmoe-1b-7b at full width -
+    torch.cuda.empty_cache()
+    train = train_phase(failures, smi, hbm_bw, peak_bf16_tc, peak_f32)
+    if failures:
+        raise SystemExit("phase 2k failed:\n" + "\n".join(failures))
+
     # ---- phase 2c: sliding-window attention at gemma2-27b's width --------
     cfg = GEMMA2_LOCAL
     swa_kw = {"window": cfg["window"], "tq": cfg["tq"],
@@ -3563,7 +4243,7 @@ def main() -> int:
                    "host_ram": mem,
                    "serving": serve | {"launches": named(serve["launches"])},
                    "serving_times": serving, "distributed": distributed,
-                   "lm_serving": lm,
+                   "lm_serving": lm, "lm_training": train,
                    "plans_verified": tanalysis.counters()["verifications"]
                    - verified0,
                    "seconds": time.time() - t_start}, fh, indent=1,

@@ -14,5 +14,5 @@ def config() -> ModelConfig:
         n_layers=12, d_model=768, n_heads=4, n_kv=4, d_head=192,
         d_ff=0, vocab=50304, slstm_layers=(3, 9),
         ssm=SsmCfg(chunk=64, head_dim=192),
-        rope_theta=None, supports_long_context=True,
+        rope_theta=None, supports_long_context=True, remat=False,
         tie_embeddings=True)

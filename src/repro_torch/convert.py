@@ -78,11 +78,11 @@ def params_from_reference(tree, *, device, dtype: torch.dtype | None = None):
     if isinstance(tree, tuple):        # xLSTM's recurrent states
         return tuple(params_from_reference(v, device=device, dtype=dtype)
                      for v in tree)
-    a = np.ascontiguousarray(tree)
+    a = np.array(tree, order="C")        # a copy; 0-d stays 0-d
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(a.copy())
+        t = torch.from_numpy(a)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)

@@ -13,6 +13,7 @@ import math
 from typing import Any, Callable, Iterator
 
 import torch
+import torch.utils.checkpoint
 
 from ..device import resolve_device
 
@@ -111,6 +112,17 @@ def stack_specs(spec_tree: PyTree, n: int) -> PyTree:
     return tree_map(
         lambda s: PSpec((n,) + s.shape, (None,) + s.logical, s.dtype,
                         s.init, s.init_scale), spec_tree)
+
+
+def remat(enabled: bool, fn: Callable, *args):
+    """``fn(*args)``; with ``enabled`` and grad on, its activations are
+    recomputed in the backward pass instead of kept (the reference's
+    ``jax.checkpoint``).  The recompute runs the same ops in the same
+    order, so losses and grads are bit-identical either way."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------

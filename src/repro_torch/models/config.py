@@ -65,6 +65,8 @@ class ModelConfig:
     block_q: int = 512
     block_k: int = 1024
     attn_impl: str = "auto"
+    remat: bool = True          # recompute each unit's body in backward
+    accum_steps: int = 1        # gradient-accumulation microbatches
     decode_kv_seq_shard: bool = False   # flash-decode: KV cache seq over TP
     fuse_qkv: bool = False      # single fused qkv projection einsum
     max_seq: int = 4096

@@ -2,10 +2,12 @@
 
 Layers are stacked per *pattern unit*, as in the reference, and the
 port loops over the units in Python on views of the stacked tensors
-(the reference's ``scan_layers``, ``remat`` and ``seq_shard`` are XLA
-knobs and have no counterpart here).  Heterogeneous stacks (gemma2
-local/global alternation) unroll inside the unit.  KV caches are
-updated in place, which stands in for the reference's donated carries.
+(the reference's ``scan_layers`` and ``seq_shard`` are mesh knobs of
+the sharded slice).  With ``cfg.remat`` each unit's body is recomputed
+in the backward pass (``torch.utils.checkpoint``, as the reference wraps
+it in ``jax.checkpoint``).  Heterogeneous stacks (gemma2 local/global
+alternation) unroll inside the unit.  KV caches are updated in place,
+which stands in for the reference's donated carries.
 """
 from __future__ import annotations
 
@@ -16,8 +18,8 @@ import torch
 
 from ..sharding import ShardCtx
 from .attention import AttnCfg, attention, attn_param_specs, make_cache
-from .common import (PSpec, cross_entropy, rms_norm, softcap, stack_specs,
-                     tree_map)
+from .common import (PSpec, cross_entropy, remat, rms_norm, softcap,
+                     stack_specs, tree_map)
 from .config import ModelConfig
 from .mlp import mlp, mlp_param_specs
 from .moe import moe_ffn, moe_param_specs
@@ -106,7 +108,8 @@ def lm_apply(params: dict, h: torch.Tensor, cfg: ModelConfig,
         up = tree_map(lambda t: t[r], params["units"], torch.is_tensor)
         uc = (tree_map(lambda t: t[r], caches, torch.is_tensor)
               if caches is not None else None)
-        h, a = _unit_body(cfg, ctx, up, h, uc, pos0, cache_len)
+        h, a = remat(cfg.remat, _unit_body, cfg, ctx, up, h, uc, pos0,
+                     cache_len)
         aux = aux + a
     h = _norm(h, params["ln_final"], cfg)
     return h, (caches if caches is not None else {}), aux
@@ -142,8 +145,8 @@ def _assemble_inputs(params, batch, cfg, ctx):
 
 def lm_loss(params: dict, batch: dict, cfg: ModelConfig,
             ctx: ShardCtx) -> tuple[torch.Tensor, dict]:
-    """The forward value of the training loss (the backward pass waits
-    for the training slice)."""
+    """The training loss (next-token CE plus the MoE aux losses) and its
+    parts; autograd differentiates it."""
     h = _assemble_inputs(params, batch, cfg, ctx)
     h, _, aux = lm_apply(params, h, cfg, ctx)
     tokens = batch["tokens"]

@@ -20,8 +20,8 @@ from ..device import resolve_device
 from ..sharding import ShardCtx
 from .attention import (AttnCfg, _heads, attention, attn_param_specs,
                         make_cache)
-from .common import (PSpec, cross_entropy, layer_norm, sinusoidal_positions,
-                     stack_specs, tree_map)
+from .common import (PSpec, cross_entropy, layer_norm, remat,
+                     sinusoidal_positions, stack_specs, tree_map)
 from .config import ModelConfig
 from .mlp import mlp, mlp_param_specs
 
@@ -86,11 +86,15 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig,
     h = ctx.constrain(frames + pos[None], "dp", None, None)
     c = _attn_cfg(cfg, causal=False)
     for i in range(cfg.encoder_layers):
-        lp = _layer(params["enc_layers"], i)
-        a, _ = attention(lp["attn"], _ln(h, lp["ln1"]), c, ctx)
-        h = h + a
-        h = h + mlp(lp["mlp"], _ln(h, lp["ln2"]), "gelu", ctx)
+        h = remat(cfg.remat, _enc_layer, _layer(params["enc_layers"], i), h,
+                  c, ctx)
     return _ln(h, params["ln_enc"])
+
+
+def _enc_layer(lp, h, c: AttnCfg, ctx: ShardCtx):
+    a, _ = attention(lp["attn"], _ln(h, lp["ln1"]), c, ctx)
+    h = h + a
+    return h + mlp(lp["mlp"], _ln(h, lp["ln2"]), "gelu", ctx)
 
 
 def decode_stack(params, h, enc_out, cfg: ModelConfig, ctx: ShardCtx,
@@ -98,27 +102,32 @@ def decode_stack(params, h, enc_out, cfg: ModelConfig, ctx: ShardCtx,
     """Decoder layers.  caches: {"self": kv, "cross": kv} stacked per
     layer (the self caches written in place), or None (cross-attention
     to ``enc_out``)."""
-    c_self = _attn_cfg(cfg, causal=True)
-    c_cross = _attn_cfg(cfg, causal=False)
     for i in range(cfg.n_layers):
-        lp = _layer(params["dec_layers"], i)
         lc = _layer(caches, i) if caches is not None else None
-        a, _ = attention(lp["self_attn"], _ln(h, lp["ln1"]), c_self, ctx,
-                         pos0=pos0, cache=None if lc is None else lc["self"],
-                         cache_len=cache_len)
-        h = h + a
-        if lc is not None:
-            # the cache holds the encoder's K/V: kv_x marks the call as
-            # cross-attention and is not read
-            x_attn, _ = attention(lp["cross_attn"], _ln(h, lp["ln2"]),
-                                  c_cross, ctx, cache=lc["cross"],
-                                  kv_x=h[:, :1])
-        else:
-            x_attn, _ = attention(lp["cross_attn"], _ln(h, lp["ln2"]),
-                                  c_cross, ctx, kv_x=enc_out)
-        h = h + x_attn
-        h = h + mlp(lp["mlp"], _ln(h, lp["ln3"]), "gelu", ctx)
+        h = remat(cfg.remat, _dec_layer, cfg, ctx,
+                  _layer(params["dec_layers"], i), lc, h, enc_out, pos0,
+                  cache_len)
     return _ln(h, params["ln_dec"]), caches
+
+
+def _dec_layer(cfg: ModelConfig, ctx: ShardCtx, lp, lc, h, enc_out,
+               pos0: int, cache_len: int | None):
+    a, _ = attention(lp["self_attn"], _ln(h, lp["ln1"]),
+                     _attn_cfg(cfg, causal=True), ctx, pos0=pos0,
+                     cache=None if lc is None else lc["self"],
+                     cache_len=cache_len)
+    h = h + a
+    c_cross = _attn_cfg(cfg, causal=False)
+    if lc is not None:
+        # the cache holds the encoder's K/V: kv_x marks the call as
+        # cross-attention and is not read
+        x_attn, _ = attention(lp["cross_attn"], _ln(h, lp["ln2"]), c_cross,
+                              ctx, cache=lc["cross"], kv_x=h[:, :1])
+    else:
+        x_attn, _ = attention(lp["cross_attn"], _ln(h, lp["ln2"]), c_cross,
+                              ctx, kv_x=enc_out)
+    h = h + x_attn
+    return h + mlp(lp["mlp"], _ln(h, lp["ln3"]), "gelu", ctx)
 
 
 def _embed_dec(params, tokens, pos0: int, cfg: ModelConfig):
@@ -137,7 +146,7 @@ def _logits(params, h):
 
 
 def whisper_loss(params, batch, cfg: ModelConfig, ctx: ShardCtx):
-    """The forward value of the training loss."""
+    """The training loss; autograd differentiates it."""
     enc_out = encode(params, batch["frames"], cfg, ctx)
     tokens = batch["tokens"]
     h = _embed_dec(params, tokens, 0, cfg)

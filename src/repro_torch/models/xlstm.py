@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..sharding import ShardCtx
-from .common import PSpec, cross_entropy, rms_norm
+from .common import PSpec, cross_entropy, remat, rms_norm
 from .config import ModelConfig
 from .transformer import embed, unembed
 
@@ -275,7 +275,8 @@ def xlstm_apply(params, h, cfg: ModelConfig, ctx: ShardCtx, states=None):
     for key, s in _layer_keys(cfg):
         block = slstm_block if s else mlstm_block
         st = states[key] if states is not None else None
-        h, ns = block(params["layers"][key], h, cfg, ctx, st)
+        h, ns = remat(cfg.remat, block, params["layers"][key], h, cfg, ctx,
+                      st)
         if states is not None:
             new_states[key] = ns
     h = rms_norm(h, params["ln_final"], cfg.norm_eps)
@@ -283,7 +284,7 @@ def xlstm_apply(params, h, cfg: ModelConfig, ctx: ShardCtx, states=None):
 
 
 def xlstm_loss(params, batch, cfg: ModelConfig, ctx: ShardCtx):
-    """The forward value of the training loss."""
+    """The training loss; autograd differentiates it."""
     h = embed(params, batch["tokens"], cfg, ctx)
     h, _ = xlstm_apply(params, h, cfg, ctx)
     logits = unembed(params, h[:, :-1], cfg, ctx)

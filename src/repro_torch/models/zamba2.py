@@ -25,7 +25,8 @@ import torch.nn.functional as F
 
 from ..sharding import ShardCtx
 from .attention import AttnCfg, attention, make_cache
-from .common import PSpec, cross_entropy, rms_norm, stack_specs, tree_map
+from .common import (PSpec, cross_entropy, remat, rms_norm, stack_specs,
+                     tree_map)
 from .config import ModelConfig
 from .mamba2 import (mamba_block, mamba_param_specs, mamba_state_init,
                      mamba_state_specs)
@@ -146,14 +147,14 @@ def zamba_apply(params, h, cfg: ModelConfig, ctx: ShardCtx, pos0: int = 0,
         up = tree_map(lambda t: t[r], params["units"], torch.is_tensor)
         st = (tree_map(lambda t: t[r], state, torch.is_tensor)
               if state is not None else None)
-        h = zamba_unit(cfg, ctx, params["shared"], up, h, h0, st,
-                       fire=r % 2 == 1, pos0=pos0, cache_len=cache_len)
+        h = remat(cfg.remat, zamba_unit, cfg, ctx, params["shared"], up, h,
+                  h0, st, r % 2 == 1, pos0, cache_len)
     h = rms_norm(h, params["ln_final"], cfg.norm_eps)
     return h, state
 
 
 def zamba_loss(params, batch, cfg: ModelConfig, ctx: ShardCtx):
-    """The forward value of the training loss."""
+    """The training loss; autograd differentiates it."""
     h = embed(params, batch["tokens"], cfg, ctx)
     h, _ = zamba_apply(params, h, cfg, ctx)
     logits = unembed(params, h[:, :-1], cfg, ctx)

@@ -24,23 +24,30 @@ carried across, so the LoRA merge and every bias take part.
 import contextlib
 import dataclasses
 import functools
-import math
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_config as jget_config
 from repro.models import make_arch as jmake_arch
 from repro.models.common import init_params as jinit_params
 from repro.models.common import is_pspec as jis_pspec
+from repro.optim import AdamWConfig as JAdamWConfig
+from repro.optim import init_opt_state as jinit_opt_state
 from repro.sharding import ShardCtx as JShardCtx
+from repro.train import make_train_step as jmake_train_step
 from repro_torch import params_from_reference
 from repro_torch.configs import get_config
 from repro_torch.models import make_arch
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.optim import AdamWConfig, init_opt_state
 from repro_torch.sharding import ShardCtx
+from repro_torch.train import make_train_step
 
 TRANSFORMER_IDS = ("qwen3-14b", "yi-9b", "gemma2-27b", "nemotron-4-340b",
                    "internvl2-76b", "olmoe-1b-7b", "qwen2-moe-a2.7b")
@@ -111,25 +118,17 @@ def _reference_init(arch_id: str, dtype: str):
     return jcfg, jarch, jax.tree.map(np.asarray, jp)
 
 
-def scale_to_fan_in(params, specs):
-    """Rescale the port's ``params`` in place to their true fan-in: a
-    weight that reads d_model (``"fsdp"`` first) to std 1/sqrt(d_model),
-    one that writes it (``"fsdp"`` last) to 1/sqrt(the dims it
-    contracts).  The reference's init takes the second-to-last dim as the
-    fan-in: a head count for (d, heads, d_head), 2 for (d, 2, d_ff)."""
-    for t, sp in zip(tree_leaves(params, torch.is_tensor),
-                     tree_leaves(specs)):
-        if sp.init != "normal" or "fsdp" not in sp.logical:
-            continue
-        j = sp.logical.index("fsdp")
-        if j == len(sp.shape) - 1:
-            first = next(i for i, a in enumerate(sp.logical)
-                         if a is not None)
-            fan = math.prod(sp.shape[first:j])
-        else:
-            fan = sp.shape[j]
-        if fan != sp.shape[-2]:
-            t.mul_(math.sqrt(sp.shape[-2] / fan))
+def _chip_smoke():
+    """``chip_smoke.py`` (repo root) as a module, for its rescaling of
+    the reference's init to the true fan-in."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+scale_to_fan_in = _chip_smoke().scale_to_fan_in
 
 
 def pair(arch_id: str, dtype: str = "bf16", fan_in: bool = False) -> Pair:
@@ -294,3 +293,62 @@ def tokens_held(got, want, logits, tol: float) -> int:
         assert got[row, :n].tolist() == want[row, :n].tolist(), (row, n)
         held += n
     return held
+
+
+# --- one training step in both packages (tests/test_torch_train*.py) ---
+# the first moment after one step from fresh state is m = (1 - b1) *
+# clip * g: the grads, compared leaf by leaf.  Each leaf is held within
+# ``rtol`` of its largest entry plus TRAIN_FLOOR of the tree's largest:
+# the floor covers leaves whose gradient is zero up to rounding (the
+# sLSTM's input-gate bias, whose exact gradient nearly cancels through
+# the stabilizer: 7e-10 against 54 elsewhere)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=30)
+TRAIN_FLOOR = 1e-8
+
+
+def _moments(tree, jax_tree: bool):
+    leaves = (jax.tree.leaves(tree) if jax_tree
+              else list(tree_leaves(tree, torch.is_tensor)))
+    return [np.asarray(x, np.float32) if jax_tree else x.float().numpy()
+            for x in leaves]
+
+
+def _assert_leaves_close(want, got, rtol):
+    assert len(want) == len(got)
+    floor = TRAIN_FLOOR * max(float(np.abs(w).max()) for w in want)
+    for w, g in zip(want, got):
+        assert w.shape == g.shape
+        tol = rtol * float(np.abs(w).max()) + floor
+        assert float(np.abs(w - g).max()) <= tol
+
+
+def one_step(arch_id, fan_in, accum=1, rows=2, seq=16, seed=3):
+    """The reference's jitted step and the port's from the same params
+    and batch; returns ((metrics, state) of the reference, of the
+    port)."""
+    p = pair(arch_id, "f32", fan_in)
+    jcfg = dataclasses.replace(p.jcfg, accum_steps=accum)
+    cfg = dataclasses.replace(p.cfg, accum_steps=accum)
+    jarch, arch = jmake_arch(jcfg), make_arch(cfg)
+    batch = inputs(cfg, rows, seq, seed)
+    jopt, opt = JAdamWConfig(**TRAIN_OPT), AdamWConfig(**TRAIN_OPT)
+    jstep = jax.jit(jmake_train_step(jarch, jopt, JCTX))
+    _, jstate, jmet = jstep(p.jparams, jinit_opt_state(p.jparams, jopt),
+                            as_jax(batch, "f32"))
+    step = make_train_step(arch, opt, CTX)
+    _, state, met = step(p.params, init_opt_state(p.params, opt),
+                         as_torch(batch, "f32"))
+    return (jmet, jstate), (met, state)
+
+
+def assert_step_matches(ref, port, rtol, metric_rtol=1e-5):
+    (jmet, jstate), (met, state) = ref, port
+    assert set(met) == set(jmet)
+    for k in ("loss_total", "loss", "grad_norm", "lr"):
+        assert float(met[k]) == pytest.approx(float(jmet[k]),
+                                              rel=metric_rtol), k
+    assert float(jmet["grad_norm"]) > 1.0       # the clip is active
+    assert int(state["step"]) == int(jstate["step"]) == 1
+    for key in ("m", "v"):
+        _assert_leaves_close(_moments(jstate[key], True),
+                             _moments(state[key], False), rtol)

@@ -1,4 +1,5 @@
-"""``repro_torch`` stands alone: no JAX, no ``repro``, no ``triton``.
+"""``repro_torch`` stands alone: no JAX, no ``repro``, no ``triton``, no
+``ml_dtypes``.
 
 Importing the port must load neither ``jax`` nor any ``repro`` module
 and must not need ``triton`` or ``nvcc`` (kernels are built at first
@@ -9,8 +10,11 @@ paper pipelines through ``CasperEngine``, analyzes a plan
 (``core/halo.py``), runs sliding-window attention through
 ``kernels.ops.swa`` and serves a reduced qwen3-14b (``configs``,
 ``models``, ``serve.ServeEngine``; ``roofline.analysis`` and
-``sharding`` beside them) and reduced zamba2, xLSTM and Whisper, and
-an AST scan of the package's sources
+``sharding`` beside them) and reduced zamba2, xLSTM and Whisper, trains
+a reduced qwen3-14b for two steps through the ``Trainer`` (``train``,
+``optim`` with 8-bit state and gradient compression, ``checkpointing``
+with bf16 leaves, ``data``) and resumes it, and an AST scan of the
+package's sources
 (the analysis, serving, halo and LM modules among them), of
 ``chip_smoke.py`` and of the helpers it loads from ``tests/`` finds no
 such import.
@@ -30,7 +34,7 @@ import sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "repro", "triton"):
+        if top in ("jax", "jaxlib", "repro", "triton", "ml_dtypes"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -85,8 +89,26 @@ for arch_id in ("zamba2-7b", "xlstm-125m", "whisper-tiny"):
         batch, 2)
     assert toks.shape == (2, 2) and n_params(cfg) > 0
 assert ShardCtx().constrain(toks) is toks
+import tempfile
+from repro_torch.checkpointing import latest_step
+from repro_torch.data import DataConfig, batch_for_step
+from repro_torch.optim import AdamWConfig
+from repro_torch.train import Trainer, TrainLoopConfig
+cfg = get_config("qwen3-14b", reduced=True)
+with tempfile.TemporaryDirectory() as d:
+    lc = TrainLoopConfig(total_steps=2, ckpt_every=1, ckpt_dir=d,
+                         grad_compression=True)
+    opt = AdamWConfig(quantize_state=True)
+    hist = Trainer(make_arch(cfg), opt, lc, device="cpu").run()
+    assert hist[-1]["step"] == 2 and latest_step(d) == 2
+    tr = Trainer(make_arch(cfg), opt, lc, device="cpu")
+    assert tr.try_resume() and tr.step == 2
+    assert tr.params["embed"].dtype == torch.bfloat16
+assert batch_for_step(DataConfig(vocab=9, seq_len=4, global_batch=2), 0,
+                      "cpu")["tokens"].shape == (2, 4)
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton")]
+       if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton",
+                              "ml_dtypes")]
 assert not bad, bad
 print("isolated")
 """
@@ -127,10 +149,13 @@ def test_sources_import_no_jax_and_no_repro():
                 "models/common.py", "models/moe.py", "models/mlp.py",
                 "models/transformer.py", "models/registry.py",
                 "models/mamba2.py", "models/zamba2.py", "models/xlstm.py",
-                "models/whisper.py"):
+                "models/whisper.py", "optim/adamw.py", "optim/compress.py",
+                "train/loop.py", "checkpointing/ckpt.py",
+                "data/synthetic.py"):
         assert PORT / mod in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for mod in _imports(tree):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+            assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+                (path, mod)

@@ -1,6 +1,7 @@
 """How well conditioned zamba2-7b and xlstm-125m are at their random init
 and after ``chip_smoke.scale_scores``, on the card: why phase 2j checks
-the weights with their query and key projections rescaled (PERF.md).
+the weights with their query and key projections rescaled, and why
+phase 2k (iii) trains xlstm-125m at its true fan-in (PERF.md).
 
 Run on a GPU host from the repo root (about a minute on an H100):
 
@@ -18,7 +19,15 @@ prints one JSON object with, under ``reference_init`` and under
   the shared block's query magnitudes;
 * ``zamba_f32_decode``: decode vs prefill logits in f32 after 512
   prompt tokens and 4 decode steps, on phase 2j's tokens and on tokens
-  drawn from another seed.
+  drawn from another seed;
+
+and, under ``xlstm_train``, phase 2k (iii)'s straight run (the
+``Trainer``'s data and optimizer, bf16) from the Trainer's draw as it
+is, with ``scale_scores`` and at its true fan-in (``trainer_fan_in``,
+what (iii) trains): the grad norm on the first batch, the leaf with the
+largest share of its square, the losses and grad norms of
+``TRAINER_STEPS`` steps, and the fall of those batches' mean loss over
+the run (what (iii) gates).
 
 The port casts to float32 where the reference does; the f64 runs keep
 float64 through those casts with :func:`keep_float64`, a patch of
@@ -40,10 +49,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import batch_for_step  # noqa: E402
 from repro_torch.models import make_arch, xlstm as txl, zamba2 as tzb  # noqa: E402
 from repro_torch.models.common import init_params, rms_norm, tree_map  # noqa: E402
 from repro_torch.models.transformer import embed, unembed  # noqa: E402
+from repro_torch.optim import AdamWConfig, init_opt_state  # noqa: E402
 from repro_torch.sharding import ShardCtx  # noqa: E402
+from repro_torch.train import Trainer, TrainLoopConfig  # noqa: E402
 
 CTX = ShardCtx()
 
@@ -120,6 +132,48 @@ def xlstm_report(scaled):
             "block_delta_max_abs": deltas}
 
 
+def _named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, t in enumerate(tree):
+            yield from _named_leaves(t, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def xlstm_train_report(weights):
+    cfg = get_config("xlstm-125m")
+    arch = make_arch(cfg)
+    opt = AdamWConfig(**cs.TRAINER_OPT)
+    tr = Trainer(arch, opt, TrainLoopConfig(
+        seed=cs.SEED,
+        ckpt_dir=os.path.join(ROOT, "build", "lm_conditioning_ckpt")))
+    if weights == "fan_in":
+        cs.trainer_fan_in(tr)
+    else:
+        tr.init_state()
+    if weights == "scaled_scores":
+        cs.scale_scores(tr.params, arch.param_specs(cfg))
+        tr.opt_state = init_opt_state(tr.params, opt)
+    _, _, grads = tr._train_step.grads_of(
+        tr.params, batch_for_step(tr.data_cfg, 0))
+    sq = {k: float(g.float().square().sum())
+          for k, g in _named_leaves(grads)}
+    del grads
+    top = max(sq, key=sq.get)
+    steps = range(cs.TRAINER_STEPS)
+    before = cs.batches_loss(arch, tr.params, tr.data_cfg, steps)
+    hist = [tr.run_step() for _ in steps]
+    return {"grad_norm": sum(sq.values()) ** 0.5, "largest_leaf": top,
+            "largest_leaf_share": sq[top] / sum(sq.values()),
+            "losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "batches_fall": before - cs.batches_loss(arch, tr.params,
+                                                     tr.data_cfg, steps)}
+
+
 def zamba_reports(scaled):
     cfg, p = params("zamba2-7b", 3, scaled)
     toks = prompt_tokens(cfg, 4, cs.ZAMBA_UNIT_ROWS, cs.ZAMBA_UNIT_PROMPT)
@@ -188,6 +242,10 @@ def main() -> int:
         part["zamba_unit"], part["zamba_f32_decode"] = zamba_reports(scaled)
         torch.cuda.empty_cache()
         rec[name] = part
+    rec["xlstm_train"] = {}
+    for weights in ("reference_init", "scaled_scores", "fan_in"):
+        rec["xlstm_train"][weights] = xlstm_train_report(weights)
+        torch.cuda.empty_cache()
     line = json.dumps(rec)
     print(line)
     if args.out:
