@@ -187,7 +187,12 @@ TF32 passes, ``swa_tf32.cu``) from ``src/repro_torch/kernels/csrc``
    full vocabulary in f32: the step's loss, grads, moments and update on
    the card against the host's (``TRAIN_CHECK_GATES``), clean and with
    the clip not applied, one microbatch dropped and the bias correction
-   one step off.  Every plan of phases 2 and 3 is lowered under
+   one step off; (l) the sharded LM paths (``repro_torch.sharding``:
+   DTensors on a ``DeviceMesh``), eight ranks on the card over gloo on a
+   (2, 4) mesh, each case held against the same run on one device, each
+   gate beside a planted fault (see the comment above ``LM2L_GATES``).
+   Every plan of phases 2 and 3 is
+   lowered under
    ``CASPER_VERIFY=strict`` (``repro_torch.analysis``): a finding fails
    the run;
 3. times one fused block per phase-2 case with CUDA events (median),
@@ -225,8 +230,8 @@ kernel, K1/K2 of 3-D specs on the streamed kernel, K3, K4, K5 bf16, f16
 and f32; K2 and K4 carry the serving rows under ``rows``; K2, K2 rank 3
 and K4 count their phase-2f slab launches; each entry adds the phase-2h
 launches its wrapper counted, by rank; K2, K2 rank 3 and K4 add the
-phase-2i ranks' launches; phases 2j and 2k launch none of them) before the
-last line, which is ``{"ok": true, "device": {...}}``.  Full
+phase-2i ranks' launches; phases 2j, 2k and 2l launch none of them) before
+the last line, which is ``{"ok": true, "device": {...}}``.  Full
 results go to ``build/chip_smoke.json``.  Exits non-zero, printing
 no result, when CUDA is missing or any check fails.
 """
@@ -1013,20 +1018,6 @@ ZAMBA_UNIT_ROWS, ZAMBA_UNIT_PROMPT = 2, 320
 LM_F32_ATOL = {"qwen3-14b": 2e-3, "zamba2-7b": 5e-4, "xlstm-125m": 1e-2}
 
 
-def scale_scores(params, specs):
-    """Rescale in place every query and key projection (``wq``, ``wk``:
-    (d_in, heads, d_head), stacked or not) to std 1/sqrt(d_in).  The
-    reference's init takes a weight's second-to-last dim as its fan-in,
-    here the head count, so without a qk-norm the scores reach the
-    hundreds and one bf16 rounding moves a whole softmax row."""
-    for key in sorted(params):
-        if isinstance(params[key], dict):
-            scale_scores(params[key], specs[key])
-        elif key in ("wq", "wk"):
-            shape = specs[key].shape
-            params[key].mul_(math.sqrt(shape[-2] / shape[-3]))
-
-
 def scale_to_fan_in(params, specs):
     """Rescale the port's ``params`` in place to their true fan-in: a
     weight that reads d_model (``"fsdp"`` first) to std 1/sqrt(d_model),
@@ -1465,6 +1456,7 @@ def lm_serve_and_check(failures, label, arch, cfg, params, prompt, n_tokens,
     place: the case's later checks see the rescaled weights too) and
     ``lm_check`` in bf16 against ``LM_DECODE_ATOL``.  Returns the row and
     the teacher-forced tokens."""
+    from repro_torch.models.common import scale_scores
     row, toks = lm_serve(failures, label, arch, cfg, params, prompt,
                          n_tokens, max_len, prefill_reps, work, rates, smi)
     scale_scores(params, arch.param_specs(cfg))
@@ -2329,6 +2321,303 @@ def train_phase(failures, smi, hbm_bw, peak_bf16, peak_f32):
         + ", ".join(f"{k} {v:.1f}s"
                     for k, v in rec["seconds_per_case"].items()) + ")")
     return rec
+
+# phase 2l: the sharded LM paths (repro_torch.sharding: DTensors on a
+# DeviceMesh; ROADMAP item 13d), eight ranks on the card over gloo, as 2i
+# (NCCL refuses two ranks on one GPU): a (2, 4) ("data", "model") mesh,
+# bf16, seeded weights at full width (the ranks: tests/_lm_chip.py, its
+# CHIP sizes).  (i) qwen3-14b, depth cut to 8 of its 40 layers, TP-only
+# params (serve_params_tp_only), wq/wk at their true fan-in
+# (scale_scores, as 2j checks), prefill 4 x 256 then 8 teacher-forced
+# decode steps, with decode_kv_seq_shard off and on (flash-decode over a
+# KV cache whose sequence is sharded over "model"); (ii) qwen3-14b at 2
+# layers, FSDP + TP, one AdamW step (f32 moments), its params saved as a
+# checkpoint on (2, 4) and restored on (4, 2) and on (8, 1), the
+# optimizer state re-meshed beside them, the whole state re-meshed onto
+# (2, 4) and a second step; (iii) olmoe-1b-7b at 2 of 16 layers, prefill 4 x
+# 256 with MoE dispatch "ep" and "local", and layer 0's MoE block alone
+# on a seeded input.  The parent runs each case on one device first (the
+# references); the ranks' results are held against them.
+#
+# Every gate sits 2x or more from its clean reading and from its planted
+# fault's; on an H100 at 700 W (PERF.md, phase 2l), clean / fault:
+# serving's max |logit| gap 0.1172 (dense) and 0.1133 (flash) / 2.590
+# and 2.578 (the last decode step run again one cache slot late), flash
+# vs dense 0.08594.  Training, per leaf (the worst leaf), as the gap's
+# norm over the reference's: the f32 master's change 0.1957 (Adam's
+# first step is lr * sign(g), and entries whose g cancels to bf16 noise
+# flip) / 0.9996 with one dp rank's gradient lost (one device's step on
+# dp rank 0's rows, its grads halved) and 2.000 with the update's sign
+# flipped; the first moment 0.02986 / 0.8880; the second step's loss
+# 2.861e-5 / 3.681e-4 with the first update skipped; the first loss
+# keeps the reference tests' 5e-3 (1.38e-4).  MoE: layer 0's block, max
+# |gap| over its largest output, 0 (bitwise) / 0.5138 with expert 0's
+# output dropped; the logits (gate 0.125) read one bf16 ulp, 0.03125,
+# and do not see that fault.
+LM2L_GATES = {"serve": 0.5, "flash_vs_dense": 0.25, "loss1": 5e-3,
+              "master": 0.45, "m": 0.1, "loss2": 1e-4, "moe": 0.125,
+              "moe_layer": 0.05}
+
+
+def sharded_phase(failures, smi):
+    """Phase 2l (see the comment above ``LM2L_GATES``).  It launches none
+    of K1-K5.  Returns the record."""
+    import numpy as np
+    from repro_torch.models import make_arch
+    from repro_torch.models.common import (init_params, scale_scores,
+                                           tree_leaves, tree_map)
+    from repro_torch.optim import AdamWConfig, apply_updates, init_opt_state
+    from repro_torch.sharding import ShardCtx
+    from repro_torch.train import make_train_step
+    world, dist_world = load_helper("_lm_chip"), load_helper("_dist_world")
+    t_phase = time.time()
+    out_dir = os.path.join(ROOT, "build", "dist2l")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(os.path.join(out_dir, "train"))
+    scfg, tcfg, mcfg = world.chip_cfgs()
+    C = world.CHIP
+    ctx = ShardCtx()
+    p = C["prompt"]
+
+    def tokens(cfg, rows, n, salt=0):
+        return torch.from_numpy(world.chip_tokens(cfg.vocab, rows, n,
+                                                  salt)).cuda()
+    # (i) the single-device serving run
+    arch = make_arch(scfg)
+    specs = arch.param_specs(scfg)
+    params = init_params(torch.Generator("cuda").manual_seed(
+        C["serve_seed"]), specs)
+    scale_scores(params, specs)
+    toks = tokens(scfg, C["rows"], p + C["decode"])
+    with torch.inference_mode():
+        st, n, lg = arch.prefill(params, {"tokens": toks[:, :p]}, scfg, ctx,
+                                 max_len=C["max_len"])
+        logits = [lg[:, -1].float().cpu()]
+        for i in range(C["decode"]):
+            st, n, lg = arch.decode(params, st, n, toks[:, p + i:p + i + 1],
+                                    scfg, ctx)
+            logits.append(lg[:, -1].float().cpu())
+    ref_serve = torch.stack(logits, 1).numpy()
+    del params, st, lg
+    torch.cuda.empty_cache()
+    # (ii) two single-device steps; the first's change of the f32 master
+    # and its first moment, to files (bfloat16 bits)
+    arch = make_arch(tcfg)
+    specs = arch.param_specs(tcfg)
+    opt = AdamWConfig(**world.CHIP_OPT)
+    step = make_train_step(arch, opt, ctx)
+    batches = [{"tokens": tokens(tcfg, C["train_rows"], C["train_seq"],
+                                 salt=k)} for k in (1, 2)]
+
+    def fresh():
+        p = init_params(torch.Generator("cuda").manual_seed(
+            C["train_seed"]), specs)
+        return p, init_opt_state(p, opt), [
+            t.clone() for t in tree_leaves(p, torch.is_tensor)]
+    params, state, init = fresh()
+    params, state, met1 = step(params, state, batches[0])
+    for i, (p0, ma, m) in enumerate(zip(
+            init, tree_leaves(state["master"], torch.is_tensor),
+            tree_leaves(state["m"], torch.is_tensor))):
+        np.save(os.path.join(out_dir, "train", f"d{i}.npy"),
+                world.bf16_bits(ma - p0.float()))
+        np.save(os.path.join(out_dir, "train", f"m{i}.npy"),
+                world.bf16_bits(m))
+    del init
+    _, _, met2 = step(params, state, batches[1])
+    ref_train = {"loss1": float(met1["loss"]), "loss2": float(met2["loss"])}
+    del params, state
+    torch.cuda.empty_cache()
+    # the planted faults, on one device: the second batch's loss with the
+    # first update skipped, and the first step with one dp rank's gradient
+    # lost (the rows of dp rank 0 alone; their mean-loss grads halved, as
+    # a sum over dp of per-rank shares of the whole batch's mean leaves
+    # them)
+    params, state, init = fresh()
+    with torch.no_grad():
+        ref_train["loss2_skipped"] = float(arch.loss(
+            params, batches[1], tcfg, ctx)[0])
+    _, _, grads = step.grads_of(params, {
+        "tokens": batches[0]["tokens"][:C["train_rows"] // 2]})
+    apply_updates(params, tree_map(lambda g: g * 0.5, grads,
+                                   torch.is_tensor), state, opt)
+    del grads
+    lost = []
+    for i, (p0, ma, m) in enumerate(zip(
+            init, tree_leaves(state["master"], torch.is_tensor),
+            tree_leaves(state["m"], torch.is_tensor))):
+        ref = [world.from_bf16_bits(np.load(os.path.join(
+            out_dir, "train", f"{k}{i}.npy")), "cuda") for k in ("d", "m")]
+        sums, maxes = world.step_sums(ma - p0.float(), ref[0], m, ref[1])
+        lost.append(world.step_gaps(sums.tolist(), maxes.tolist()))
+    del params, state, init, step, ref
+    torch.cuda.empty_cache()
+    # (iii) the single-device MoE prefill
+    arch = make_arch(mcfg)
+    params = init_params(torch.Generator("cuda").manual_seed(
+        C["moe_seed"]), arch.param_specs(mcfg))
+    moe_toks = tokens(mcfg, C["rows"], p, salt=3)
+    with torch.inference_mode():
+        _, _, lg = arch.prefill(params, {"tokens": moe_toks}, mcfg, ctx,
+                                max_len=p)
+    ref_moe = lg[:, -1].float().cpu().numpy()
+    ref_moe_layer = world.moe_layer(params, torch.from_numpy(
+        world.moe_layer_input(mcfg)).to("cuda", torch.bfloat16), mcfg, ctx)
+    ref_moe_layer = ref_moe_layer.float().cpu().numpy()
+    del params, lg
+    torch.cuda.empty_cache()
+    t_ref = time.time() - t_phase
+    log(f"phase 2l: single-device references in {t_ref:.1f}s "
+        f"({scfg.arch} {scfg.n_layers} of 40 layers serving, "
+        f"{tcfg.n_layers} layers training, {mcfg.arch} {mcfg.n_layers} "
+        f"layers; depth cut to fit the phase's time, widths published)")
+    t0 = time.time()
+    ranks = dist_world.run_world(
+        "chip", 8, out_dir, device="cuda", timeout=900, script=world.SCRIPT,
+        env=dict(os.environ,
+                 PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    t_world = time.time() - t0
+    rec = {"card": smi, "reference_s": t_ref, "world_s": t_world,
+           "gates": LM2L_GATES, "ranks": [r["chip"] for r in ranks]}
+    for r in ranks:
+        for name, (ok, detail) in r["checks"].items():
+            if not ok:
+                failures.append(f"phase 2l rank {r['rank']} {name}: "
+                                f"{detail}")
+
+    def gap(a, b):
+        return float(np.abs(np.asarray(a, np.float64)
+                            - np.asarray(b, np.float64)).max())
+    got = {k: np.load(os.path.join(out_dir, f"serve_{k}.npy"))
+           for k in ("dense", "flash")}
+    fault = {k: np.load(os.path.join(out_dir, f"serve_{k}_fault.npy"))
+             for k in ("dense", "flash")}
+    g = LM2L_GATES
+    serve = {k: [gap(got[k][:, i], ref_serve[:, i])
+                 for i in range(ref_serve.shape[1])] for k in got}
+    serve["fault"] = {k: gap(fault[k], ref_serve[:, -1]) for k in fault}
+    serve["flash_vs_dense"] = gap(got["flash"], got["dense"])
+    rec["serve_gaps"] = serve
+    for k in ("dense", "flash"):
+        if max(serve[k]) > g["serve"]:
+            failures.append(f"phase 2l (i) {k}: logits part from one "
+                            f"device by {max(serve[k]):.4g} > {g['serve']}")
+        if serve["fault"][k] <= 2 * g["serve"]:
+            failures.append(f"phase 2l (i) {k}: the planted fault reads "
+                            f"{serve['fault'][k]:.4g}, not above 2x the "
+                            f"gate {g['serve']}")
+    if serve["flash_vs_dense"] > g["flash_vs_dense"]:
+        failures.append(f"phase 2l (i): flash vs dense on the mesh "
+                        f"{serve['flash_vs_dense']:.4g} > "
+                        f"{g['flash_vs_dense']}")
+    tr = [r["chip"]["training"] for r in ranks]
+
+    def worst(gaps, key):
+        return max(x[key] for x in gaps)
+    mesh_gaps = tr[0]["step_gaps"]
+    train = {"loss1": abs(tr[0]["loss1"] - ref_train["loss1"]),
+             "loss2": abs(tr[0]["loss2"] - ref_train["loss2"]),
+             "reference": ref_train,
+             "loss2_skipped": abs(ref_train["loss2_skipped"]
+                                  - ref_train["loss2"])}
+    for key in ("delta_rel", "m_rel", "delta_max_rel", "m_max_rel",
+                "flipped_rel"):
+        train[key] = worst(mesh_gaps, key)
+        train[f"dp_lost_{key}"] = worst(lost, key)
+    rec["train_gaps"] = train
+    for k in ("loss1", "loss2"):
+        if not train[k] <= g[k]:
+            failures.append(f"phase 2l (ii) {k}: {train[k]:.4g} > {g[k]}")
+    for k, gate in (("delta_rel", g["master"]), ("m_rel", g["m"])):
+        if not train[k] <= gate:
+            failures.append(f"phase 2l (ii) {k}: {train[k]:.4g} > {gate}")
+    # the planted faults, each read 2x or more past its gate
+    for k, gate in (("loss2_skipped", g["loss2"]),
+                    ("flipped_rel", g["master"]),
+                    ("dp_lost_delta_rel", g["master"]),
+                    ("dp_lost_m_rel", g["m"])):
+        if not train[k] > 2 * gate:
+            failures.append(f"phase 2l (ii): the planted fault {k} reads "
+                            f"{train[k]:.4g}, not above 2x the gate {gate}")
+
+    moe = {k: gap(np.load(os.path.join(out_dir, f"moe_{k}.npy")), ref_moe)
+           for k in ("ep", "local")}
+    moe["ep_vs_local"] = gap(np.load(os.path.join(out_dir, "moe_ep.npy")),
+                             np.load(os.path.join(out_dir, "moe_local.npy")))
+    top = float(np.abs(ref_moe_layer).max())
+    for k in ("ep", "local", "fault"):
+        y = world.from_bf16_bits(np.load(os.path.join(
+            out_dir, f"moe_layer_{k}.npy")), "cpu").numpy()
+        moe[f"layer_{k}"] = gap(y, ref_moe_layer) / top
+    rec["moe_gaps"] = moe
+    for k, gate in (("ep", g["moe"]), ("local", g["moe"]),
+                    ("layer_ep", g["moe_layer"]),
+                    ("layer_local", g["moe_layer"])):
+        if moe[k] > gate:
+            failures.append(f"phase 2l (iii) {k}: {moe[k]:.4g} > {gate}")
+    if not moe["layer_fault"] > 2 * g["moe_layer"]:
+        failures.append(f"phase 2l (iii): the planted fault (expert "
+                        f"{C['moe_fault_expert']} dropped) reads "
+                        f"{moe['layer_fault']:.4g}, not above 2x the gate "
+                        f"{g['moe_layer']}")
+    # what each rank reports
+    for r in ranks:
+        c = r["chip"]
+        sv, t2, m = c["serving"], c["training"], c["moe"]
+        log(f"  2l rank {r['rank']}: (i) dense prefill "
+            f"{sv['dense']['prefill_ms']:.1f} ms, decode "
+            f"{statistics.median(sv['dense']['decode_ms']):.1f} ms/step "
+            f"(collectives {sv['dense']['decode_collective_share']:.2f}); "
+            f"flash prefill {sv['flash']['prefill_ms']:.1f} ms, decode "
+            f"{statistics.median(sv['flash']['decode_ms']):.1f} ms/step "
+            f"(collectives {sv['flash']['decode_collective_share']:.2f}), "
+            f"peak {sv['peak_gib']:.2f} GiB; (ii) step "
+            f"{t2['step_ms']:.1f} ms (collectives "
+            f"{t2['step_collective_share']:.2f}), params checkpoint "
+            f"{t2['ckpt_bytes'] / 1e9:.2f} GB saved in {t2['save_s']:.1f} "
+            f"s, restored on (4, 2) in {t2['restore_4x2_s']:.1f} s, (8, 1) "
+            f"{t2['restore_8x1_s']:.1f} s, optimizer state onto (8, 1) "
+            f"{t2['remesh_opt_s']:.1f} s, all onto (2, 4) "
+            f"{t2['remesh_s']:.1f} s, "
+            f"step 2 {t2['step2_ms']:.1f} ms, peak {t2['peak_gib']:.2f} "
+            f"GiB; (iii) prefill ep {m['ep']['prefill_ms']:.1f} ms "
+            f"(collectives {m['ep']['collective_share']:.2f}), local "
+            f"{m['local']['prefill_ms']:.1f} ms | launches {c['launches']}")
+    log(f"phase 2l (i): logits vs one device per step, dense "
+        f"{[round(x, 4) for x in serve['dense']]}, flash "
+        f"{[round(x, 4) for x in serve['flash']]} (gate {g['serve']}); "
+        f"planted fault {serve['fault']}; flash vs dense on the mesh "
+        f"{serve['flash_vs_dense']:.4g} (gate {g['flash_vs_dense']}) | "
+        f"card {smi}")
+    log(f"phase 2l (ii): loss {tr[0]['loss1']:.5f} vs {ref_train['loss1']:.5f}"
+        f" on one device; per leaf, worst of the f32 master's change "
+        f"|d| / |ref| {train['delta_rel']:.4g} (gate {g['master']}; max "
+        f"entry {train['delta_max_rel']:.4g} of the largest), first moment "
+        f"{train['m_rel']:.4g} (gate {g['m']}; max entry "
+        f"{train['m_max_rel']:.4g}); planted faults: update's sign flipped "
+        f"{train['flipped_rel']:.4g}, one dp rank's gradient lost "
+        f"{train['dp_lost_delta_rel']:.4g} / {train['dp_lost_m_rel']:.4g} "
+        f"(max entry {train['dp_lost_delta_max_rel']:.4g} / "
+        f"{train['dp_lost_m_max_rel']:.4g}); state "
+        f"{tr[0]['state_bytes'] / 1e9:.2f} GB on 8 ranks; after restore "
+        f"and remesh, step 2 loss {tr[0]['loss2']:.5f} vs "
+        f"{ref_train['loss2']:.5f} (gap {train['loss2']:.4g}, gate "
+        f"{g['loss2']}; the first update skipped: "
+        f"{train['loss2_skipped']:.4g}) | card {smi}")
+    log(f"phase 2l (iii): {mcfg.arch} logits vs one device: ep "
+        f"{moe['ep']:.4g}, local {moe['local']:.4g}, ep vs local "
+        f"{moe['ep_vs_local']:.4g} (gate {g['moe']}); layer 0's MoE block "
+        f"vs one device, max |gap| over its largest output: ep "
+        f"{moe['layer_ep']:.4g}, local {moe['layer_local']:.4g} (gate "
+        f"{g['moe_layer']}), planted fault (expert "
+        f"{C['moe_fault_expert']}'s output dropped) "
+        f"{moe['layer_fault']:.4g} | card {smi}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rec["seconds"] = time.time() - t_phase
+    log(f"phase 2l: {rec['seconds']:.1f}s (references {t_ref:.1f}s, 8 ranks"
+        f" {t_world:.1f}s)")
+    return rec
+
 
 def serving_times(smi):
     """Phase 3's serving times: the per-bucket dispatch overhead (the
@@ -3582,6 +3871,12 @@ def main() -> int:
     if failures:
         raise SystemExit("phase 2k failed:\n" + "\n".join(failures))
 
+    # ---- phase 2l: the sharded LM paths, eight ranks on the card ---------
+    torch.cuda.empty_cache()
+    sharded = sharded_phase(failures, smi)
+    if failures:
+        raise SystemExit("phase 2l failed:\n" + "\n".join(failures[:40]))
+
     # ---- phase 2c: sliding-window attention at gemma2-27b's width --------
     cfg = GEMMA2_LOCAL
     swa_kw = {"window": cfg["window"], "tq": cfg["tq"],
@@ -4244,6 +4539,7 @@ def main() -> int:
                    "serving": serve | {"launches": named(serve["launches"])},
                    "serving_times": serving, "distributed": distributed,
                    "lm_serving": lm, "lm_training": train,
+                   "lm_sharded": sharded,
                    "plans_verified": tanalysis.counters()["verifications"]
                    - verified0,
                    "seconds": time.time() - t_start}, fh, indent=1,

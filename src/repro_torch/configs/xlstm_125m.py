@@ -14,5 +14,6 @@ def config() -> ModelConfig:
         n_layers=12, d_model=768, n_heads=4, n_kv=4, d_head=192,
         d_ff=0, vocab=50304, slstm_layers=(3, 9),
         ssm=SsmCfg(chunk=64, head_dim=192),
-        rope_theta=None, supports_long_context=True, remat=False,
+        rope_theta=None, supports_long_context=True, scan_layers=False,
+        remat=False,
         tie_embeddings=True)

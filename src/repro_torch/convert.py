@@ -11,7 +11,8 @@ same inputs through these.  For serving, :func:`request_from_reference`
 and :func:`serve_config_from_reference` carry a reference request or
 serving config across, duck-typed likewise.  For the language models,
 :func:`params_from_reference` carries a parameter tree (the reference's
-init as numpy arrays) and :func:`config_from_reference` a model config.
+init as numpy arrays), onto a ``DeviceMesh`` where given one and the
+tree's specs, and :func:`config_from_reference` a model config.
 """
 from __future__ import annotations
 
@@ -66,12 +67,28 @@ def serve_config_from_reference(obj):
         "default_deadline_s", "shed_policy", "pad_buckets")})
 
 
-def params_from_reference(tree, *, device, dtype: torch.dtype | None = None):
+def params_from_reference(tree, *, device, dtype: torch.dtype | None = None,
+                          mesh=None, specs=None, overrides=None):
     """The port's parameter tree from nested dicts (and tuples) of numpy
     arrays (the reference's parameters or states, ``np.asarray``'d), on
     ``device``; with ``dtype``, every floating leaf cast to it.  A
     bfloat16 array (numpy knows it only through ``ml_dtypes``) crosses as
-    its bits."""
+    its bits.  With a ``DeviceMesh`` and the tree's ``specs`` (a PSpec
+    tree), each leaf becomes a DTensor placed by its logical axes (with
+    ``overrides``), one leaf at a time, every rank keeping its block."""
+    if mesh is not None:
+        from .models.common import leaf_placements
+        from .sharding import distribute
+        if isinstance(tree, (dict, tuple)):
+            keys = sorted(tree) if isinstance(tree, dict) else \
+                range(len(tree))
+            out = {k: params_from_reference(
+                tree[k], device=device, dtype=dtype, mesh=mesh,
+                specs=specs[k], overrides=overrides) for k in keys}
+            return out if isinstance(tree, dict) else tuple(out.values())
+        return distribute(params_from_reference(tree, device=device,
+                                                dtype=dtype),
+                          mesh, leaf_placements(mesh, specs, overrides))
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device=device, dtype=dtype)
                 for k, v in tree.items()}

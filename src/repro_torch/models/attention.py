@@ -18,6 +18,14 @@ attends over the cache after K/V are written into it, so K/V are rounded
 to bfloat16 on the cached path even in a float32 run.  Cross-attention
 (``kv_x``, whisper's decoder) takes K/V from the source without rope,
 numbers keys from 0, and reads a cache of the source's K/V as it is.
+
+On a mesh the tensors are DTensors.  The cache is written block by block
+(:func:`_write_cache`: each rank writes the positions its block holds),
+since a slice of a sharded dim has no in-place DTensor form.  With
+``decode_seq_shard`` a one-token decode step is flash-decoding over a
+KV cache whose sequence is sharded over ``model``
+(:func:`_flash_decode_seqsharded`, the reference's ``shard_map`` body on
+explicit local tensors).
 """
 from __future__ import annotations
 
@@ -28,7 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..sharding import ShardCtx
+from ..sharding import (ShardCtx, _mesh_axes, as_dtensor, axis_names,
+                        axis_size, block_start, from_local, is_device_mesh,
+                        is_dtensor, placements, whole_along)
 from .common import PSpec, rms_norm, rope, softcap as _softcap
 
 NEG_INF = -1e30
@@ -49,6 +59,7 @@ class AttnCfg:
     block_q: int = 512
     block_k: int = 1024
     impl: str = "auto"                 # auto|dense|blockwise
+    decode_seq_shard: bool = False     # flash-decode: KV seq over TP group
     fuse_qkv: bool = False             # one fused qkv projection
 
     @property
@@ -166,6 +177,73 @@ def _sdpa_blockwise(q, k, v, q_pos0: int, c: AttnCfg, kv_len=None):
     return out[:, :, :, :sq].to(q.dtype)
 
 
+def _flash_decode_seqsharded(q, k, v, kv_len: int, c: AttnCfg,
+                             ctx: ShardCtx):
+    """Decode attention with the KV cache sequence-sharded over the TP
+    (``model``) axis: flash-decoding.  Each rank reduces its KV block with
+    a local softmax; the partials combine with a MAX all-reduce of ``m``
+    and SUM all-reduces of ``l`` and ``p·V`` over ``model``, in float32
+    (payloads of (B, H, D) per rank against reading a replicated cache).
+
+    q: (B, H, 1, D), replicated over ``model``; k/v: (B, Hkv, S, D)
+    with S sharded over ``model``.  Returns (B, H, 1, D), the reference's
+    ``shard_map`` body on local tensors.
+    """
+    import torch.distributed as dist
+    mesh = ctx.cmesh
+    dp = _mesh_axes(mesh, "dp")
+    scale = c.scale or 1.0 / math.sqrt(c.d_head)
+    b = q.shape[0]
+    dp_ok = b % math.prod(axis_size(mesh, a) for a in dp) == 0
+    bax = dp if dp_ok else None
+    q_pl = placements(mesh, (bax, None, None, None))
+    kv_pl = placements(mesh, (bax, None, "model", None))
+    q_ = as_dtensor(q, mesh).redistribute(mesh, q_pl).to_local()
+    q_ = q_.reshape(q_.shape[0], c.n_kv, c.group, 1, c.d_head)
+    k_ = as_dtensor(k, mesh).redistribute(mesh, kv_pl).to_local()
+    v_ = as_dtensor(v, mesh).redistribute(mesh, kv_pl).to_local()
+    group = mesh.get_group("model")
+    i = mesh.get_local_rank("model")
+    s_loc = k_.shape[2]
+    # this block's first key: i * s_loc where the model axis divides S
+    lo = i * -(-k.shape[2] // axis_size(mesh, "model"))
+    kpos = lo + torch.arange(s_loc, device=k_.device)
+    s = _scores(q_.float(), k_.float(), c)
+    valid = kpos < kv_len
+    if c.window is not None:
+        valid = valid & (kpos > (kv_len - 1) - c.window)
+    s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
+    m = torch.amax(s, dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    dist.all_reduce(l, group=group)
+    acc = torch.matmul(p, v_.float()[:, :, None])
+    dist.all_reduce(acc, group=group)
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q_.dtype)
+    return from_local(out.reshape(out.shape[0], c.n_heads, 1, c.d_head),
+                      mesh, q_pl)
+
+
+def _write_cache(buf, new, idx: int) -> None:
+    """buf[:, :, idx:idx+S] = new, in place.  On a mesh each rank writes
+    the positions of its block of ``buf`` (``new`` moved to ``buf``'s
+    placements with the sequence dim whole)."""
+    s = new.shape[2]
+    if not is_dtensor(buf):
+        buf[:, :, idx:idx + s] = new.to(buf.dtype)
+        return
+    want = whole_along(buf, 2).placements      # buf's, the sequence whole
+    src = as_dtensor(new, buf.device_mesh).redistribute(
+        buf.device_mesh, want).to_local()
+    local = buf.to_local()
+    lo = block_start(buf, 2)
+    a, z = max(idx, lo), min(idx + s, lo + local.shape[2])
+    if a < z:
+        local[:, :, a - lo:z - lo] = src[:, :, a - idx:z - idx].to(
+            local.dtype)
+
+
 def make_cache(c: AttnCfg, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """Zeroed K/V of ``max_len`` positions on ``device`` (``None``: the
@@ -174,6 +252,47 @@ def make_cache(c: AttnCfg, batch: int, max_len: int,
     shape = (batch, c.n_kv, max_len, c.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _core(q, k, v, qpos, pos0: int, c: AttnCfg, self_uncached: bool,
+          kv_len):
+    """The attention of (B, H, Sq, D) queries over (B, Hkv, Skv, D) keys
+    and values, (B, H, Sq, D) out.  Keys are numbered from ``pos0`` for
+    self-attention without a cache, from 0 otherwise."""
+    b, _, s, d = q.shape
+    qg = q.reshape(b, k.shape[1], -1, s, d)
+    skv = k.shape[2]
+    impl = c.impl
+    if impl == "auto":
+        impl = "dense" if (s * skv <= 512 * 512) else "blockwise"
+    if impl == "dense":
+        kpos = torch.arange(skv, device=q.device)
+        if self_uncached:
+            kpos = pos0 + kpos
+        o = _sdpa_dense(qg, k, v, qpos, kpos, c, kv_len)
+    else:
+        o = _sdpa_blockwise(qg, k, v, pos0, c, kv_len)
+    return o.reshape(b, -1, s, d)
+
+
+def _core_on_mesh(q, k, v, qpos, pos0: int, c: AttnCfg, ctx: ShardCtx,
+                  self_uncached: bool, kv_len):
+    """:func:`_core` on each rank's block of (batch, KV heads), as a
+    ``shard_map`` would run it: the batch over ``dp`` and the KV heads
+    (with their query heads) over ``model`` where those divide them, the
+    sequence whole; the block's result is the DTensor's local part.
+    Every step of the core is local to a (batch, head) pair, and on a
+    (2, 2, 2) mesh DTensor's strategy search for its products alone
+    takes minutes."""
+    mesh = ctx.cmesh
+    b = q.shape[0]
+    dp = _mesh_axes(mesh, "dp")
+    bax = dp if b % math.prod(axis_size(mesh, a) for a in dp) == 0 else None
+    hax = "model" if c.n_kv % axis_size(mesh, "model") == 0 else None
+    pl = placements(mesh, (bax, hax, None, None))
+    o = _core(*(as_dtensor(t, mesh).redistribute(mesh, pl).to_local()
+                for t in (q, k, v)), qpos, pos0, c, self_uncached, kv_len)
+    return from_local(o, mesh, pl)
 
 
 def _heads(x, w):
@@ -228,26 +347,22 @@ def attention(
     kv_len = None
     if cache is not None and kv_x is None:
         idx = cache_len if cache_len is not None else 0
-        cache["k"][:, :, idx:idx + s] = k.to(cache["k"].dtype)
-        cache["v"][:, :, idx:idx + s] = v.to(cache["v"].dtype)
+        _write_cache(cache["k"], k, idx)
+        _write_cache(cache["v"], v, idx)
         k, v = cache["k"], cache["v"]
         kv_len = idx + s
 
-    qg = q.reshape(b, c.n_kv, c.group, s, c.d_head)
-    skv = k.shape[2]
-
-    impl = c.impl
-    if impl == "auto":
-        impl = "dense" if (s * skv <= 512 * 512) else "blockwise"
-    if impl == "dense":
-        kpos = torch.arange(skv, device=x.device)
-        if cache is None and kv_x is None:
-            kpos = pos0 + kpos
-        o = _sdpa_dense(qg, k, v, qpos, kpos, c, kv_len)
-    else:
-        o = _sdpa_blockwise(qg, k, v, pos0, c, kv_len)
-
-    o = o.reshape(b, c.n_heads, s, c.d_head).transpose(1, 2)
     hd = c.n_heads * c.d_head          # wo: (n_heads, d_head, d_out)
+    if (c.decode_seq_shard and cache is not None and s == 1 and kv_x is None
+            and is_device_mesh(ctx.mesh)
+            and "model" in axis_names(ctx.mesh)):
+        o = _flash_decode_seqsharded(q, k, v, kv_len, c, ctx)
+    elif is_dtensor(q):
+        o = _core_on_mesh(q, k, v, qpos, pos0, c, ctx, cache is None
+                          and kv_x is None, kv_len)
+    else:
+        o = _core(q, k, v, qpos, pos0, c, cache is None and kv_x is None,
+                  kv_len)
+    o = o.transpose(1, 2)
     y = o.reshape(b, s, hd) @ p["wo"].reshape(hd, -1)
     return ctx.constrain(y, "dp", None, None), cache

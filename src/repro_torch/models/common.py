@@ -1,10 +1,11 @@
 """Shared model substrate: param specs, init, norms, rope, losses.
 
-Parameters are plain nested dicts of tensors.  Their shapes are declared
-once as :class:`PSpec` trees, with the logical sharding axes of the
-reference kept as data (:mod:`repro_torch.sharding`).  A tree is walked
-in sorted key order, the order ``jax.tree`` uses, so one generator seed
-gives one set of parameters whatever order the dicts were built in.
+Parameters are plain nested dicts of tensors.  Their shapes and
+logical sharding axes are declared once as :class:`PSpec` trees; init,
+abstract (dry-run) instantiation and sharding all derive from the same
+declaration.  A tree is walked in sorted key order, the order
+``jax.tree`` uses, so one generator seed gives one set of parameters
+whatever order the dicts were built in, on one device or on a mesh.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import torch
 import torch.utils.checkpoint
 
 from ..device import resolve_device
+from ..sharding import (NamedSharding, distribute, is_device_mesh,
+                        placements, resolve, whole_along)
 
 PyTree = Any
 DEFAULT_PARAM_DTYPE = torch.bfloat16
@@ -94,12 +97,112 @@ def _init_one(gen: torch.Generator, spec: PSpec,
     return out
 
 
-def init_params(gen: torch.Generator, specs: PyTree,
-                device=None) -> PyTree:
+def init_params(gen: torch.Generator, specs: PyTree, device=None, *,
+                mesh=None, overrides: dict | None = None) -> PyTree:
     """Random parameters for ``specs`` from ``gen``, on ``device``
-    (``None``: the card).  ``gen`` must live on that device."""
+    (``None``: the card).  ``gen`` must live on that device.
+
+    With a ``DeviceMesh``, every rank draws each leaf whole on its device,
+    one leaf at a time, from the same stream as on one device, and keeps
+    only its block as a DTensor (``resolve`` of the leaf's logical axes,
+    with ``overrides``): the params equal the single-device ones bit for
+    bit, nothing is broadcast, and no rank holds more than one whole
+    leaf at a time."""
     dev = resolve_device(device)
-    return tree_map(lambda s: _init_one(gen, s, dev), specs)
+    if mesh is None:
+        return tree_map(lambda s: _init_one(gen, s, dev), specs)
+    return tree_map(lambda s: distribute(
+        _init_one(gen, s, dev), mesh, leaf_placements(mesh, s, overrides)),
+        specs)
+
+
+def scale_scores(params: PyTree, specs: PyTree) -> None:
+    """Rescale in place every query and key projection (``wq``, ``wk``:
+    (d_in, heads, d_head), stacked or not) to std 1/sqrt(d_in).  The
+    reference's init takes a weight's second-to-last dim as its fan-in,
+    here the head count, so without a qk-norm the scores reach the
+    hundreds and one bf16 rounding moves a whole softmax row.
+    ``chip_smoke.py`` holds its bf16 serving checks on these weights; on a
+    mesh each DTensor leaf scales its own block."""
+    for key in sorted(params):
+        if isinstance(params[key], dict):
+            scale_scores(params[key], specs[key])
+        elif key in ("wq", "wk"):
+            shape = specs[key].shape
+            params[key].mul_(math.sqrt(shape[-2] / shape[-3]))
+
+
+def leaf_placements(mesh, spec: PSpec, overrides: dict | None = None
+                    ) -> tuple:
+    """The DTensor placements of a ``spec`` leaf on ``mesh``."""
+    return placements(mesh, resolve(mesh, spec.logical, spec.shape,
+                                    overrides))
+
+
+def place_params(params: PyTree, specs: PyTree, mesh,
+                 overrides: dict | None = None) -> PyTree:
+    """``params`` (whole in every rank: from numpy, or gathered) as
+    DTensors on ``mesh``, each rank keeping its block of each leaf."""
+    placed = [distribute(t, mesh, leaf_placements(mesh, s, overrides))
+              for t, s in zip(tree_leaves(params, torch.is_tensor),
+                              tree_leaves(specs))]
+    it = iter(placed)
+    return tree_map(lambda _: next(it), params, torch.is_tensor)
+
+
+def place_state(state: PyTree, specs: PyTree, ctx) -> PyTree:
+    """A decode state made whole (zeros) placed by its ``specs`` on
+    ``ctx``'s compute mesh, as the reference's dry run shards it; the
+    identity without a mesh."""
+    if not is_device_mesh(ctx.mesh):
+        return state
+    return place_params(state, specs, ctx.cmesh)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractTensor:
+    """A leaf's global shape and dtype and, on a mesh, its sharding,
+    with no storage (the reference's ``ShapeDtypeStruct``)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    sharding: NamedSharding | None = None
+
+    @property
+    def shard_shape(self) -> tuple[int, ...]:
+        if self.sharding is None:
+            return self.shape
+        return self.sharding.shard_shape(self.shape)
+
+    @property
+    def placements(self) -> tuple | None:
+        return None if self.sharding is None else self.sharding.placements
+
+    @property
+    def shard_bytes(self) -> int:
+        """Bytes of the largest shard (the bytes per device)."""
+        return math.prod(self.shard_shape) * self.dtype.itemsize
+
+
+def abstract_params(specs: PyTree, mesh, overrides: dict | None = None
+                    ) -> PyTree:
+    """An :class:`AbstractTensor` per leaf, sharded on ``mesh`` (a
+    ``DeviceMesh`` or a :class:`~repro_torch.sharding.MeshShape`; the
+    dry-run path needs no devices)."""
+
+    def one(s: PSpec):
+        if mesh is None:
+            return AbstractTensor(s.shape, s.dtype)
+        return AbstractTensor(s.shape, s.dtype, NamedSharding(
+            mesh, resolve(mesh, s.logical, s.shape, overrides)))
+
+    return tree_map(one, specs)
+
+
+def param_shardings(specs: PyTree, mesh) -> PyTree:
+    return tree_map(
+        lambda s: NamedSharding(mesh, resolve(mesh, s.logical, s.shape)),
+        specs)
 
 
 def param_count(specs: PyTree) -> int:
@@ -179,8 +282,13 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None,
                   z_loss: float = 0.0) -> torch.Tensor:
-    """Mean next-token CE.  logits (..., V) f32; labels (...) int."""
-    logits = logits.float()
+    """Mean next-token CE.  logits (..., V) f32; labels (...) int.
+
+    On a mesh, logits sharded over the vocabulary are gathered over it
+    first: the gold logit's gather from a vocabulary-sharded DTensor has
+    no working DTensor form (its masked partial result fails to
+    reduce)."""
+    logits = whole_along(logits, -1).float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = lse - gold

@@ -65,10 +65,18 @@ class ModelConfig:
     block_q: int = 512
     block_k: int = 1024
     attn_impl: str = "auto"
+    # the reference scans its layers with lax.scan when True; the port
+    # runs the same per-unit loop either way (the same ops in the same
+    # order), so the flag changes no arithmetic here
+    scan_layers: bool = True
     remat: bool = True          # recompute each unit's body in backward
+    seq_shard: bool = True      # Megatron-SP: residual stream seq over TP
     accum_steps: int = 1        # gradient-accumulation microbatches
     decode_kv_seq_shard: bool = False   # flash-decode: KV cache seq over TP
     fuse_qkv: bool = False      # single fused qkv projection einsum
+    serve_params_tp_only: bool = False  # inference: no FSDP, params TP-only
+                                        # (replicated over dp; no per-layer
+                                        # weight gathers at decode)
     max_seq: int = 4096
     # which shape cells this arch supports (DESIGN.md §4 skips)
     supports_long_context: bool = False

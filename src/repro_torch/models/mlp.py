@@ -2,14 +2,20 @@
 
 The activation runs in float32 and is cast back to the activations'
 dtype before the product with ``up`` (or with ``w_out``), as in the
-reference.
+reference.  On a mesh the gated products run one per half of ``w_in``:
+flattening its (2, d_ff) with d_ff sharded has no DTensor view (torch
+2.11 refuses it).  One device keeps the reference's one product over the
+flattened weight: split there, the backward adds the two halves' input
+grads in bfloat16, and qwen3's grads part from the reference's op by op
+past the 0.1% of a leaf's largest that tests/test_torch_train_rounding.py
+allows.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..sharding import ShardCtx
+from ..sharding import ShardCtx, is_dtensor
 from .common import PSpec
 
 GATED = {"swiglu", "geglu"}
@@ -31,9 +37,13 @@ def mlp(p: dict, x: torch.Tensor, act: str, ctx: ShardCtx) -> torch.Tensor:
     d = x.shape[-1]
     if act in GATED:
         w_in = p["w_in"]
-        h = (x @ w_in.reshape(d, -1)).unflatten(-1, w_in.shape[1:])
-        h = ctx.constrain(h, "dp", None, None, "tp")
-        gate, up = h[..., 0, :], h[..., 1, :]
+        if is_dtensor(w_in):
+            gate, up = (ctx.constrain(x @ w_in[:, z], "dp", None, "tp")
+                        for z in (0, 1))
+        else:
+            h = (x @ w_in.reshape(d, -1)).unflatten(-1, w_in.shape[1:])
+            h = ctx.constrain(h, "dp", None, None, "tp")
+            gate, up = h[..., 0, :], h[..., 1, :]
         if act == "swiglu":
             h = F.silu(gate.float()).to(x.dtype) * up
         else:

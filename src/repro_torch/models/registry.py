@@ -7,20 +7,26 @@ Every arch exposes, as in the reference:
   decode(params, state, len, tok, cfg, ctx)-> (state, len, logits)
   decode_state_specs(cfg, batch, max_len)  -> PSpec tree
   decode_state_init(cfg, batch, max_len)   -> tensors
-and ``input_specs(cfg, cell)`` gives the batch a shape cell feeds it.
+and ``input_specs(cfg, cell, mesh)`` gives the batch a shape cell feeds
+it, with its shardings on ``mesh``.
 
 All four families are ported: the transformer (dense, MoE, the VLM
 backbone), zamba2 (Mamba2 with a shared attention block), xLSTM and
 Whisper.  Every decode-state initializer defaults to the card and
-raises where CUDA is missing, unless given ``device``.
+raises where CUDA is missing, unless given ``device``.  The entry points
+``make_arch`` gives run under :func:`~repro_torch.sharding.on_mesh`, so
+that on a mesh the plain tensors model code makes count as replicated.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
 
+from ..sharding import NamedSharding, on_mesh, resolve
+from .common import AbstractTensor
 from .config import ModelConfig
 from . import transformer as tf
 from . import whisper as wh
@@ -104,37 +110,53 @@ def family_impl(cfg: ModelConfig) -> str:
     return "transformer"
 
 
+def _in_mesh_scope(fn: Callable) -> Callable:
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with on_mesh():
+            return fn(*args, **kwargs)
+    return run
+
+
 def make_arch(cfg: ModelConfig) -> ArchDef:
-    return ArchDef(cfg=cfg, **_FAMILY_DEFS[family_impl(cfg)])
+    defs = dict(_FAMILY_DEFS[family_impl(cfg)])
+    for k in ("loss", "prefill", "decode"):
+        defs[k] = _in_mesh_scope(defs[k])
+    return ArchDef(cfg=cfg, **defs)
 
 
 # ---------------------------------------------------------------------------
 # batch construction per shape cell
 # ---------------------------------------------------------------------------
-@dataclasses.dataclass(frozen=True)
-class TensorSpec:
-    """Shape and dtype of one model input (the reference's
-    ``ShapeDtypeStruct``)."""
-    shape: tuple[int, ...]
-    dtype: torch.dtype
+def _sds(shape, dtype, mesh, logical) -> AbstractTensor:
+    if mesh is None:
+        return AbstractTensor(tuple(shape), dtype)
+    return AbstractTensor(tuple(shape), dtype, NamedSharding(
+        mesh, resolve(mesh, logical, shape)))
 
 
-def input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
-    """Shape/dtype records of the model inputs for one shape cell."""
+def input_specs(cfg: ModelConfig, cell: ShapeCell, mesh=None) -> dict:
+    """Abstract model inputs for one shape cell: shape, dtype and, on
+    ``mesh`` (a ``DeviceMesh`` or a ``MeshShape``), sharding."""
     b, s = cell.global_batch, cell.seq_len
+    bax = "dp" if b > 1 else None
     if cell.kind in ("train", "prefill"):
         if cfg.family == "audio":
-            return {"frames": TensorSpec((b, s, cfg.d_model), torch.bfloat16),
-                    "tokens": TensorSpec((b, min(s, cfg.max_seq)),
-                                         torch.int32)}
-        batch = {"tokens": TensorSpec((b, s - (cfg.n_patches or 0)),
-                                      torch.int32)}
+            return {
+                "frames": _sds((b, s, cfg.d_model), torch.bfloat16, mesh,
+                               (bax, "sp" if b == 1 else None, None)),
+                "tokens": _sds((b, min(s, cfg.max_seq)), torch.int32, mesh,
+                               (bax, None)),
+            }
+        batch = {"tokens": _sds((b, s - (cfg.n_patches or 0)), torch.int32,
+                                mesh, (bax, None))}
         if cfg.n_patches:
-            batch["patch_embeds"] = TensorSpec(
-                (b, cfg.n_patches, cfg.d_model), torch.bfloat16)
+            batch["patch_embeds"] = _sds(
+                (b, cfg.n_patches, cfg.d_model), torch.bfloat16, mesh,
+                (bax, None, None))
         return batch
     # decode: one token per sequence
-    return {"tokens": TensorSpec((b, 1), torch.int32)}
+    return {"tokens": _sds((b, 1), torch.int32, mesh, (bax, None))}
 
 
 def make_batch(cfg: ModelConfig, cell: ShapeCell,

@@ -20,7 +20,7 @@ from ..device import resolve_device
 from ..sharding import ShardCtx
 from .attention import (AttnCfg, _heads, attention, attn_param_specs,
                         make_cache)
-from .common import (PSpec, cross_entropy, layer_norm, remat,
+from .common import (PSpec, cross_entropy, layer_norm, place_state, remat,
                      sinusoidal_positions, stack_specs, tree_map)
 from .config import ModelConfig
 from .mlp import mlp, mlp_param_specs
@@ -201,8 +201,11 @@ def whisper_prefill(params, batch, cfg: ModelConfig, ctx: ShardCtx,
     b, s = tokens.shape
     self_c = make_cache(_attn_cfg(cfg, causal=True), b, max_len or s,
                         device=params["embed"].device)
-    caches = {"self": {k: v.new_zeros((cfg.n_layers,) + v.shape)
-                       for k, v in self_c.items()},
+    self_c = {k: v.new_zeros((cfg.n_layers,) + v.shape)
+              for k, v in self_c.items()}
+    caches = {"self": place_state(
+                  self_c, whisper_state_specs(cfg, b, max_len or s)["self"],
+                  ctx),
               "cross": _cross_kv(params, enc_out, cfg)}
     h = _embed_dec(params, tokens, 0, cfg)
     h, caches = decode_stack(params, h, None, cfg, ctx, pos0=0,

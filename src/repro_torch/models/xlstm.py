@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..sharding import ShardCtx
-from .common import PSpec, cross_entropy, remat, rms_norm
+from .common import PSpec, cross_entropy, place_state, remat, rms_norm
 from .config import ModelConfig
 from .transformer import embed, unembed
 
@@ -329,7 +329,9 @@ def xlstm_prefill(params, batch, cfg: ModelConfig, ctx: ShardCtx,
                   max_len: int | None = None):
     tokens = batch["tokens"]
     b, s = tokens.shape
-    states = xlstm_state_init(cfg, b, device=params["embed"].device)
+    states = place_state(xlstm_state_init(cfg, b,
+                                          device=params["embed"].device),
+                         xlstm_state_specs(cfg, b), ctx)
     h = embed(params, tokens, cfg, ctx)
     h, states = xlstm_apply(params, h, cfg, ctx, states)
     logits = unembed(params, h[:, -1:], cfg, ctx)

@@ -25,8 +25,8 @@ import torch.nn.functional as F
 
 from ..sharding import ShardCtx
 from .attention import AttnCfg, attention, make_cache
-from .common import (PSpec, cross_entropy, remat, rms_norm, stack_specs,
-                     tree_map)
+from .common import (PSpec, cross_entropy, place_state, remat, rms_norm,
+                     stack_specs, tree_map)
 from .config import ModelConfig
 from .mamba2 import (mamba_block, mamba_param_specs, mamba_state_init,
                      mamba_state_specs)
@@ -39,7 +39,8 @@ def shared_attn_cfg(cfg: ModelConfig) -> AttnCfg:
     return AttnCfg(
         d_model=2 * cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
         d_head=cfg.d_head, rope_theta=cfg.rope_theta,
-        block_q=cfg.block_q, block_k=cfg.block_k, impl=cfg.attn_impl)
+        block_q=cfg.block_q, block_k=cfg.block_k, impl=cfg.attn_impl,
+        decode_seq_shard=cfg.decode_kv_seq_shard)
 
 
 def _unit_specs(cfg: ModelConfig) -> dict[str, Any]:
@@ -199,8 +200,9 @@ def zamba_prefill(params, batch, cfg: ModelConfig, ctx: ShardCtx,
                   max_len: int | None = None):
     tokens = batch["tokens"]
     b, s = tokens.shape
-    state = zamba_state_init(cfg, b, max_len or s,
-                             device=params["embed"].device)
+    state = place_state(zamba_state_init(cfg, b, max_len or s,
+                                         device=params["embed"].device),
+                        zamba_state_specs(cfg, b, max_len or s), ctx)
     h = embed(params, tokens, cfg, ctx)
     h, state = zamba_apply(params, h, cfg, ctx, pos0=0, state=state,
                            cache_len=0)

@@ -11,6 +11,16 @@ step.  The schedule and the bias corrections are f32 tensors, as the
 reference computes them.  :func:`apply_updates` updates the params, the
 master weights and the moments in place (the reference donates them), so
 a step holds one copy of the state.
+
+On a mesh every leaf is a DTensor: the master and the float32 moments
+take the param's placements, so the update runs on each rank's local
+blocks, with the step's scalars (clip, lr, bias corrections) whole.  The
+8-bit moments keep their blocks whole along the last dim (the
+reference's ``opt_state_specs`` leave it unsharded: ``logical[:-1] +
+(None, None)``), so a leaf whose last dim is sharded is updated in that
+layout (its grad and master moved there, the master moved back), and
+its quantization runs on the local blocks too (torch 2.11's DTensor
+fails to plan the block padding).
 """
 from __future__ import annotations
 
@@ -21,6 +31,8 @@ from typing import Any
 import torch
 
 from ..models.common import PSpec, is_pspec, tree_leaves, tree_map
+from ..sharding import (from_local, full_tensor, is_dtensor, on_mesh,
+                        whole_along)
 
 QBLOCK = 256         # elements per quantization block
 # on the host, a large leaf is updated in slices of about this many
@@ -116,6 +128,32 @@ def _dequantize_log(s: dict, shape: tuple[int, ...]) -> torch.Tensor:
     return _unblocked(v, shape)
 
 
+def _blocks_whole(x: torch.Tensor) -> torch.Tensor:
+    """``x`` on a mesh with its last dim whole (the 8-bit moments'
+    layout)."""
+    return whole_along(x, -1)
+
+
+def _on_blocks(quantize, x: torch.Tensor) -> dict:
+    """``quantize(x)``; on a mesh, on the local part of ``x`` in the
+    moments' layout (last dim whole), each output a DTensor of the
+    blocked shape with ``x``'s placements for the leading dims."""
+    if not is_dtensor(x):
+        return quantize(x)
+    x = _blocks_whole(x)
+    lead = tuple(x.shape[:-1])
+    return {k: from_local(t, x.device_mesh, x.placements,
+                          lead + tuple(t.shape[-2:]))
+            for k, t in quantize(x.to_local()).items()}
+
+
+def _local(x):
+    """The local part of a DTensor, or of each tensor of a moment."""
+    if isinstance(x, dict):
+        return {k: _local(t) for k, t in x.items()}
+    return x.to_local() if is_dtensor(x) else x
+
+
 def _is_moment(x) -> bool:
     return torch.is_tensor(x) or (isinstance(x, dict) and "q" in x)
 
@@ -161,17 +199,21 @@ def opt_state_specs(param_specs: Any, c: AdamWConfig) -> dict:
 def init_opt_state(params: Any, c: AdamWConfig) -> dict:
     """Step 0, f32 master copies of ``params`` and zero moments, on the
     params' device."""
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):                     # a DTensor keeps p's placements
+        return torch.zeros_like(p, dtype=torch.float32)
 
     def moment_m(p):
-        return _quantize_signed(zeros(p)) if c.quantize_state else zeros(p)
+        if not c.quantize_state:
+            return zeros(p)
+        return _on_blocks(_quantize_signed, zeros(p))
 
     def moment_v(p):
-        return _quantize_log(zeros(p)) if c.quantize_state else zeros(p)
+        if not c.quantize_state:
+            return zeros(p)
+        return _on_blocks(_quantize_log, zeros(p))
 
     dev = next(iter(tree_leaves(params, torch.is_tensor))).device
-    return {
+    return {                          # the step is a plain tensor
         "step": torch.zeros((), dtype=torch.int32, device=dev),
         "master": tree_map(
             lambda p: p.detach().to(torch.float32, copy=True), params,
@@ -200,7 +242,13 @@ def apply_updates(params: Any, grads: Any, state: dict, c: AdamWConfig
                   ) -> tuple[Any, dict, dict]:
     """One AdamW step; returns (params, state, metrics).  ``params``
     (cast from the new master weights to each one's dtype) and
-    ``state`` are updated in place and returned."""
+    ``state`` are updated in place and returned.  On a mesh each grad is
+    moved to its param's placements first."""
+    with on_mesh():
+        return _apply_updates(params, grads, state, c)
+
+
+def _apply_updates(params, grads, state, c):
     state["step"].add_(1)
     step = state["step"]
     gnorm = global_norm(grads)
@@ -210,7 +258,9 @@ def apply_updates(params: Any, grads: Any, state: dict, c: AdamWConfig
     b1c = 1 - torch.pow(c.b1, stepf)
     b2c = 1 - torch.pow(c.b2, stepf)
 
-    def upd(p, g, master, m, v):
+    clip = full_tensor(clip)
+
+    def upd_local(g, master, m, v):
         g = g.to(torch.float32) * clip
         if c.quantize_state:
             m_f = _dequantize_signed(m, g.shape)
@@ -229,7 +279,22 @@ def apply_updates(params: Any, grads: Any, state: dict, c: AdamWConfig
         if c.quantize_state:
             _store(m, _quantize_signed(m_f))
             _store(v, _quantize_log(v_f))
-        p.copy_(master)
+
+    def upd(p, g, master, m, v):
+        if not is_dtensor(p):
+            upd_local(g, master, m, v)
+            p.copy_(master)
+            return
+        if tuple(g.placements) != tuple(p.placements):
+            g = g.redistribute(p.device_mesh, p.placements)
+        work = master
+        if c.quantize_state:
+            g, work = _blocks_whole(g), _blocks_whole(master)
+        upd_local(g.to_local(), work.to_local(), _local(m), _local(v))
+        if work is not master:
+            master.copy_(work.redistribute(master.device_mesh,
+                                           master.placements))
+        p.to_local().copy_(master.to_local())
 
     for p, g, ma, m, v in zip(
             tree_leaves(params, torch.is_tensor),
@@ -238,7 +303,7 @@ def apply_updates(params: Any, grads: Any, state: dict, c: AdamWConfig
             tree_leaves(state["m"], _is_moment),
             tree_leaves(state["v"], _is_moment)):
         if (p.device.type == "cpu" and not c.quantize_state
-                and p.numel() > HOST_SLICE):
+                and not is_dtensor(p) and p.numel() > HOST_SLICE):
             rows = max(1, HOST_SLICE // p.shape[-1])
             for part in zip(*(t.reshape(-1, t.shape[-1]).split(rows)
                               for t in (p, g, ma, m, v))):

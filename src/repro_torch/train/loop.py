@@ -7,14 +7,19 @@
 * straggler watchdog: a per-step deadline at ``watchdog_factor`` x the
   running p95; a trip records the event;
 * failure injection (``inject_failure_at``) for the restart tests;
+* elastic re-mesh: ``Trainer.remesh(new_mesh)`` re-shards the live
+  state onto another mesh (checkpoints are logically global, so a run
+  also resumes on another mesh);
 * optional int8 + error-feedback gradient compression ahead of the
   update.
 
-One device; the reference's ``mesh`` and ``remesh`` belong to the
-sharded slice (ROADMAP item 13d).  The step runs eagerly: autograd
-through the model's loss, then :func:`~repro_torch.optim.apply_updates`,
-which updates the params and the optimizer state in place where the
-reference donates them.
+On one device (``mesh=None``) or on a ``DeviceMesh``: there the params,
+the optimizer state and the error buffers are DTensors placed by their
+specs' logical axes (FSDP over ``data``, TP over ``model``), each batch
+is sharded over ``dp``, and every rank of the world runs the same calls.
+The step runs eagerly: autograd through the model's loss, then
+:func:`~repro_torch.optim.apply_updates`, which updates the params and
+the optimizer state in place where the reference donates them.
 """
 from __future__ import annotations
 
@@ -29,11 +34,13 @@ import torch
 from ..checkpointing import CheckpointManager
 from ..data.synthetic import DataConfig, batch_for_step
 from ..device import resolve_device
-from ..models.common import init_params, tree_leaves, tree_map
+from ..models.common import (init_params, leaf_placements, tree_leaves,
+                             tree_map)
 from ..models.registry import ArchDef
 from ..optim import AdamWConfig, apply_updates, init_opt_state
 from ..optim import compress as gcomp
-from ..sharding import ShardCtx
+from ..optim import opt_state_specs
+from ..sharding import ShardCtx, full_tensor, is_dtensor, on_mesh, to_mesh
 
 
 def _default_ckpt_dir() -> str:
@@ -65,16 +72,27 @@ def make_train_step(arch: ArchDef, opt_cfg: AdamWConfig, ctx: ShardCtx,
     place.  With ``cfg.accum_steps`` > 1 microbatch i is rows
     i*B/accum .. (i+1)*B/accum - 1; its grads are summed in f32 in
     microbatch order and divided by ``accum``, as the reference's scan
-    does."""
+    does.  On ``ctx``'s mesh the batch (whole in every rank) is sharded
+    over ``dp`` per microbatch, each grad takes its param's placements,
+    and the metrics come back whole."""
     cfg = arch.cfg
     accum = max(1, cfg.accum_steps)
+
+    def place(batch):
+        return {k: ctx.place(v, "dp", *([None] * (v.ndim - 1)))
+                for k, v in batch.items()}
 
     def value_and_grad(params, batch):
         leaves = [t.requires_grad_() for t in
                   tree_leaves(params, torch.is_tensor)]
-        loss, metrics = arch.loss(params, batch, cfg, ctx)
-        grads = torch.autograd.grad(loss, leaves)
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+        with on_mesh():             # remat recomputes in the backward
+            loss, metrics = arch.loss(params, place(batch), cfg, ctx)
+            grads = torch.autograd.grad(loss, leaves)
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if is_dtensor(g) and g.placements != p.placements else g
+                 for g, p in zip(grads, leaves)]
+        return (full_tensor(loss.detach()),
+                {k: full_tensor(v.detach()) for k, v in metrics.items()},
                 grads)
 
     def grads_of(params, batch):
@@ -89,8 +107,8 @@ def make_train_step(arch: ArchDef, opt_cfg: AdamWConfig, ctx: ShardCtx,
                 loss, _, g = value_and_grad(
                     params, {k: v[i] for k, v in micro.items()})
                 if grads is None:
-                    grads = [torch.zeros(x.shape, dtype=torch.float32,
-                                         device=x.device) for x in g]
+                    grads = [torch.zeros_like(x, dtype=torch.float32)
+                             for x in g]
                     loss_sum = torch.zeros((), dtype=torch.float32,
                                            device=loss.device)
                 for a, b in zip(grads, g):
@@ -112,7 +130,8 @@ def make_train_step(arch: ArchDef, opt_cfg: AdamWConfig, ctx: ShardCtx,
         params, opt_state, opt_metrics = apply_updates(
             params, grads, opt_state, opt_cfg)
         del grads
-        metrics = {**metrics, **opt_metrics, "loss_total": loss}
+        metrics = {**metrics, "loss_total": loss,
+                   **{k: full_tensor(v) for k, v in opt_metrics.items()}}
         if compression:
             return params, opt_state, metrics, err
         return params, opt_state, metrics
@@ -123,15 +142,22 @@ def make_train_step(arch: ArchDef, opt_cfg: AdamWConfig, ctx: ShardCtx,
 
 
 class Trainer:
+    """The training loop on ``device`` (``None``: the card), on one
+    device or, with ``mesh`` (a ``DeviceMesh`` of the world's ranks,
+    each of which builds its own ``Trainer`` and makes the same calls),
+    sharded."""
+
     def __init__(self, arch: ArchDef, opt_cfg: AdamWConfig,
                  loop_cfg: TrainLoopConfig,
-                 data_cfg: DataConfig | None = None, device=None):
+                 data_cfg: DataConfig | None = None, device=None, *,
+                 mesh=None):
         self.arch = arch
         self.cfg = arch.cfg
         self.opt_cfg = opt_cfg
         self.loop_cfg = loop_cfg
         self.device = resolve_device(device)
-        self.ctx = ShardCtx()
+        self.mesh = mesh
+        self.ctx = ShardCtx(mesh)
         self.data_cfg = data_cfg or DataConfig(
             vocab=self.cfg.vocab, seq_len=min(self.cfg.max_seq, 128),
             global_batch=8, seed=loop_cfg.seed)
@@ -154,7 +180,7 @@ class Trainer:
         if gen is None:
             gen = torch.Generator(self.device).manual_seed(self.loop_cfg.seed)
         specs = self.arch.param_specs(self.cfg)
-        self.params = init_params(gen, specs, self.device)
+        self.params = init_params(gen, specs, self.device, mesh=self.mesh)
         self.opt_state = init_opt_state(self.params, self.opt_cfg)
         if self.loop_cfg.grad_compression:
             self.err = gcomp.init_error(self.params)
@@ -180,6 +206,28 @@ class Trainer:
         self.step = step
         self.events.append({"kind": "resume", "step": step})
         return True
+
+    def remesh(self, new_mesh) -> None:
+        """Elastic rescale: re-shard the live params, optimizer state and
+        error buffers onto ``new_mesh`` (of the same world), and record a
+        ``remesh`` event."""
+        specs = self.arch.param_specs(self.cfg)
+        trees = {"params": (self.params, specs),
+                 "opt": (self.opt_state,
+                         opt_state_specs(specs, self.opt_cfg))}
+        if self.err is not None:
+            trees["err"] = (self.err, specs)
+        moved = {k: remesh_tree(t, sp, new_mesh)
+                 for k, (t, sp) in trees.items()}
+        self.params, self.opt_state = moved["params"], moved["opt"]
+        self.err = moved.get("err")
+        self.mesh = new_mesh
+        self.ctx = ShardCtx(new_mesh)
+        self.events.append({"kind": "remesh", "step": self.step,
+                            "mesh": str(new_mesh)})
+        self._train_step = make_train_step(
+            self.arch, self.opt_cfg, self.ctx,
+            compression=self.loop_cfg.grad_compression)
 
     # -- loop ----------------------------------------------------------------
     def _deadline(self) -> float | None:
@@ -232,3 +280,18 @@ class Trainer:
         self.ckpt.save_async(self.step, self._state_tree())
         self.ckpt.wait()
         return history
+
+
+def remesh_tree(tree, specs, mesh):
+    """Each DTensor leaf of ``tree`` placed on ``mesh`` by its spec, one
+    leaf at a time, each rank receiving only the pieces of its new block
+    it does not hold (:func:`~repro_torch.sharding.to_mesh`); plain
+    leaves (the optimizer's step) as they are."""
+    pairs = dict(zip(map(id, tree_leaves(tree, torch.is_tensor)),
+                     tree_leaves(specs)))
+
+    def one(t):
+        if not is_dtensor(t):
+            return t
+        return to_mesh(t, mesh, leaf_placements(mesh, pairs[id(t)]))
+    return tree_map(one, tree, torch.is_tensor)

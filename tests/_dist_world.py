@@ -158,11 +158,14 @@ def free_port() -> int:
 
 
 def run_world(suite: str, world: int, out_dir: str, *, device: str = "cpu",
-              timeout: float = 600.0, env: dict | None = None) -> list[dict]:
+              timeout: float = 600.0, env: dict | None = None,
+              script: str | None = None) -> list[dict]:
     """Run ``suite`` on ``world`` ranks (one process each) and return
     every rank's record.  Raises ``RuntimeError`` with the failing rank's
     output when a rank exits non-zero, and ``TimeoutError`` past
-    ``timeout`` seconds; either way every rank still running is killed."""
+    ``timeout`` seconds; either way every rank still running is killed.
+    ``script`` is the ranks' program (default: this file); it takes this
+    file's arguments and writes ``out_dir/rank<R>.json``."""
     os.makedirs(out_dir, exist_ok=True)
     port = free_port()
     penv = dict(os.environ if env is None else env)
@@ -172,7 +175,8 @@ def run_world(suite: str, world: int, out_dir: str, *, device: str = "cpu",
         log = open(os.path.join(out_dir, f"rank{rank}.log"), "w+")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--rank", str(rank),
+            [sys.executable, script or os.path.abspath(__file__),
+             "--rank", str(rank),
              "--world", str(world), "--port", str(port), "--out", out_dir,
              "--suite", suite, "--device", device],
             stdout=log, stderr=subprocess.STDOUT, env=penv))

@@ -40,6 +40,7 @@ from repro.core import plan as jplan
 from repro.core.stencil import factor_taps as j_factor_taps
 from repro_torch import CasperEngine, PAPER_PIPELINES, PAPER_STENCILS
 from repro_torch import analysis
+from repro_torch import sharding as tsharding
 from repro_torch.analysis import casper_lint, launch_lint, verify
 from repro_torch.core import perfmodel as tpm
 from repro_torch.core import plan as tplan
@@ -135,9 +136,13 @@ def test_engine_analyze_every_paper_stencil_and_pipeline():
 
 
 def test_only_mesh_is_left_unported():
-    # the mesh was the last refusal: the port has no unported path left,
-    # and its verifier runs every reference check ("distributed" too)
+    # the mesh was the last refusal, and it is accepted now: the port has
+    # no unported path left, and its verifier runs every reference check
+    # ("distributed" too)
     assert not hasattr(tplan, "_NOT_PORTED")
+    assert not hasattr(tsharding, "SHARDED_SLICE")
+    mesh = tsharding.MeshShape((2, 2), ("data", "model"))
+    assert tsharding.ShardCtx(mesh=mesh).pspec("fsdp") == tsharding.P("data")
     assert "distributed" in verify.CHECKS
     # the counterparts keep the reference's names, vmem -> smem
     ref_names = set(janalysis.CHECKS) - {"vmem-budget"}

@@ -89,6 +89,10 @@ for arch_id in ("zamba2-7b", "xlstm-125m", "whisper-tiny"):
         batch, 2)
     assert toks.shape == (2, 2) and n_params(cfg) > 0
 assert ShardCtx().constrain(toks) is toks
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import production_mesh_shape
+assert dryrun.cell_record("qwen3-14b", "decode_32k", False)["status"] == "ok"
+assert production_mesh_shape(multi_pod=True).size == 512
 import tempfile
 from repro_torch.checkpointing import latest_step
 from repro_torch.data import DataConfig, batch_for_step
@@ -135,6 +139,8 @@ def test_sources_import_no_jax_and_no_repro():
     # chip_smoke.py and the helpers it loads from tests/
     files = sorted(PORT.rglob("*.py")) + [
         SRC.parent / "chip_smoke.py", SRC.parent / "tests" / "_dist_world.py",
+        SRC.parent / "tests" / "_lm_world.py",
+        SRC.parent / "tests" / "_lm_chip.py",
         SRC.parent / "tests" / "_pipeline_cases.py"]
     assert len(files) >= 10
     assert PORT / "kernels" / "swa.py" in files
@@ -151,7 +157,8 @@ def test_sources_import_no_jax_and_no_repro():
                 "models/mamba2.py", "models/zamba2.py", "models/xlstm.py",
                 "models/whisper.py", "optim/adamw.py", "optim/compress.py",
                 "train/loop.py", "checkpointing/ckpt.py",
-                "data/synthetic.py"):
+                "data/synthetic.py", "launch/__init__.py", "launch/mesh.py",
+                "launch/dryrun.py"):
         assert PORT / mod in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

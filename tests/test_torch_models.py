@@ -36,7 +36,7 @@ from repro_torch.models import mlp as tmlp, moe as tmoe
 from repro_torch.models import transformer as ttf
 from repro_torch.roofline import analysis as troof
 from repro_torch.serve import ServeEngine
-from repro_torch.sharding import ShardCtx
+from repro_torch.sharding import MeshShape, P, ShardCtx
 
 from _lm_reference import (ATOL, BF16_ATOL, CTX, DTYPES, JCTX,
                            TRANSFORMER_IDS, as_jax, as_torch, inputs,
@@ -345,7 +345,8 @@ def test_gemma2_embed_scale_and_unembed_rounding():
 # ---------------------------------------------------------------------------
 def test_card_by_default_and_no_fallback():
     """``device=None`` is the card; without CUDA it raises, never runs on
-    the host.  A mesh is the sharded slice's."""
+    the host.  A mesh is accepted (the sharded paths,
+    ``tests/test_torch_sharded_*.py``)."""
     if torch.cuda.is_available():
         pytest.skip("CUDA is available: device=None runs on the card")
     cfg = get_config("qwen3-14b", reduced=True)
@@ -360,8 +361,8 @@ def test_card_by_default_and_no_fallback():
         arch.decode_state_init(cfg, 2, 16)
     with pytest.raises(RuntimeError, match="CUDA"):
         tattn.make_cache(ttf.attn_cfg_for(cfg, "global"), 2, 16)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        ShardCtx(mesh=object())
+    mesh = MeshShape((2, 2), ("data", "model"))
+    assert ShardCtx(mesh=mesh).pspec("dp", "tp") == P("data", "model")
 
 
 @pytest.mark.parametrize("arch_id", ARCH_IDS)

@@ -1,5 +1,5 @@
 """How well conditioned zamba2-7b and xlstm-125m are at their random init
-and after ``chip_smoke.scale_scores``, on the card: why phase 2j checks
+and after ``scale_scores`` (``repro_torch.models.common``), on the card: why phase 2j checks
 the weights with their query and key projections rescaled, and why
 phase 2k (iii) trains xlstm-125m at its true fan-in (PERF.md).
 
@@ -51,7 +51,8 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import batch_for_step  # noqa: E402
 from repro_torch.models import make_arch, xlstm as txl, zamba2 as tzb  # noqa: E402
-from repro_torch.models.common import init_params, rms_norm, tree_map  # noqa: E402
+from repro_torch.models.common import (  # noqa: E402
+    init_params, rms_norm, scale_scores, tree_map)
 from repro_torch.models.transformer import embed, unembed  # noqa: E402
 from repro_torch.optim import AdamWConfig, init_opt_state  # noqa: E402
 from repro_torch.sharding import ShardCtx  # noqa: E402
@@ -91,7 +92,7 @@ def params(name, seed, scaled):
     p = init_params(torch.Generator("cuda").manual_seed(cs.SEED + seed),
                     specs)
     if scaled:
-        cs.scale_scores(p, specs)
+        scale_scores(p, specs)
     return cfg, p
 
 
@@ -155,7 +156,7 @@ def xlstm_train_report(weights):
     else:
         tr.init_state()
     if weights == "scaled_scores":
-        cs.scale_scores(tr.params, arch.param_specs(cfg))
+        scale_scores(tr.params, arch.param_specs(cfg))
         tr.opt_state = init_opt_state(tr.params, opt)
     _, _, grads = tr._train_step.grads_of(
         tr.params, batch_for_step(tr.data_cfg, 0))
