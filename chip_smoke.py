@@ -230,8 +230,8 @@ kernel, K1/K2 of 3-D specs on the streamed kernel, K3, K4, K5 bf16, f16
 and f32; K2 and K4 carry the serving rows under ``rows``; K2, K2 rank 3
 and K4 count their phase-2f slab launches; each entry adds the phase-2h
 launches its wrapper counted, by rank; K2, K2 rank 3 and K4 add the
-phase-2i ranks' launches; phases 2j, 2k and 2l launch none of them) before
-the last line, which is ``{"ok": true, "device": {...}}``.  Full
+phase-2i ranks' launches; phases 2j, 2k, 2l and 2m launch none of them)
+before the last line, which is ``{"ok": true, "device": {...}}``.  Full
 results go to ``build/chip_smoke.json``.  Exits non-zero, printing
 no result, when CUDA is missing or any check fails.
 """
@@ -290,7 +290,7 @@ CARD_RATES = {
     "H100 PCIe": (2.0e12, 25.6e12, 51.2e12, 756e12, 378e12, 756e12),
     "H100 NVL": (3.9e12, 30e12, 60e12, 835e12, 417.5e12, 835e12),
     "H200": (4.8e12, 34e12, 67e12, 989e12, 494.7e12, 989e12),
-    "H100": (3.35e12, 34e12, 67e12, 989e12, 494.7e12, 989e12),   # SXM
+    "H100": None,     # SXM: repro_torch.roofline.analysis.HARDWARE
 }
 
 # Sliding-window attention at gemma2-27b's local layers
@@ -344,6 +344,11 @@ def log(*args):
 
 
 def card_rates(name: str):
+    if CARD_RATES["H100"] is None:  # the dry run's table: one source
+        from repro_torch.roofline.analysis import HARDWARE
+        h = HARDWARE["H100"]
+        CARD_RATES["H100"] = tuple(h[k] for k in (
+            "hbm_bw", "f64", "f32", "bf16", "tf32", "f16"))
     for key, rates in CARD_RATES.items():
         if key in name:
             return key, rates
@@ -2619,6 +2624,355 @@ def sharded_phase(failures, smi):
     return rec
 
 
+# phase 2m: the dry run (repro_torch.launch.dryrun, roofline.graph_walk)
+# held against the card; it launches none of K1-K5.  (i) FLOPs: the
+# walked graph of 2k (i)'s step (qwen3-14b, 4 of 40 layers, remat, 4 x
+# 1,024 tokens, f32 AdamW, one device), traced with make_fx on fake
+# copies of the card's tensors, against FlopCounterMode's count of the
+# same step run on the card (within DRYRUN_FLOPS_GATE), and its ratio to
+# train_work's model FLOPs logged; (ii) the liveness walk's peak against
+# torch.cuda.max_memory_allocated() of that step, less what earlier
+# phases left allocated (what was allocated before the step beyond the
+# storages of its params, state and tokens), within DRYRUN_PEAK_GATE,
+# and the walk's argument bytes equal to those storages; (iii) the
+# roofline lower bound (walked FLOPs and bytes at the data-sheet rates)
+# against the measured step time, logged; (iv) 2l's dense decode step
+# and FSDP + TP step traced on a fake 8-rank (2, 4) world
+# (tests/_dryrun_chip.py, a CPU process): per collective kind the count,
+# operand bytes and wire bytes equal to what CommDebugMode recorded on
+# rank 0 of 2l's ranks (tests/_lm_chip.py comms_of, on untimed steps),
+# and CommDebugMode's own counts per op, each op's kind read from its
+# name apart from the walker, equal to the walk's per kind, with every
+# op in the walker's table under that kind (comm_count_gaps); (v)
+# lower_stencil's plan on 2i's (4, 2) mesh and cases (f64, sweeps 4,
+# iters 10): the exchange rounds and bytes sent per rank equal to 2i's
+# halo.EXCHANGE; (vi) lower_cell for qwen3-14b train_4k
+# and decode_32k on both production meshes (four CPU processes), logged.
+# The planted faults, each of which must fail its gate: (i) the step
+# traced with remat off (the recompute unseen), (ii) a liveness walk that
+# never frees, (iv) every group read at twice its size, and the walker's
+# table without the op that rank 0 recorded most often, (v) the plan
+# lowered at 3 sweeps for 4.  The CPU jobs run beside (i)-(iii).
+DRYRUN_FLOPS_GATE = 0.01
+DRYRUN_PEAK_GATE = (0.8, 1.25)
+DRYRUN_CELLS = (("qwen3-14b", "train_4k"), ("qwen3-14b", "decode_32k"))
+
+
+def _dryrun_jobs(out_dir):
+    """Start phase 2m's CPU processes (tests/_dryrun_chip.py): the (iv)
+    traces and the (vi) cells.  Returns {name: (process, out path)}."""
+    script = os.path.join(ROOT, "tests", "_dryrun_chip.py")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    jobs = {"comms": ["--job", "comms"]}
+    for arch, cell in DRYRUN_CELLS:
+        for mesh in ("pod", "multipod"):
+            jobs[f"{cell}_{mesh}"] = ["--job", "cell", "--arch", arch,
+                                      "--cell", cell, "--mesh", mesh]
+    procs = {}
+    for name, argv in jobs.items():
+        path = os.path.join(out_dir, f"{name}.json")
+        log_f = open(os.path.join(out_dir, f"{name}.log"), "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, script, *argv, "--out", path], stdout=log_f,
+            stderr=subprocess.STDOUT, env=env), path, log_f)
+    return procs
+
+
+def _dryrun_results(procs, failures, timeout):
+    """Wait for the jobs (killing any left at ``timeout`` seconds) and
+    read their records."""
+    deadline = time.time() + timeout
+    out = {}
+    for name, (proc, path, log_f) in procs.items():
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log_f.close()
+        if proc.returncode != 0 or not os.path.exists(path):
+            with open(log_f.name) as f:
+                tail = f.read()[-1500:]
+            failures.append(f"phase 2m job {name}: exit {proc.returncode}:"
+                            f" {tail}")
+            continue
+        with open(path) as f:
+            out[name] = json.load(f)
+    return out
+
+
+def _kinds_equal(a: dict, b: dict) -> bool:
+    keys = set(a) | set(b)
+    return all(a.get(k, {}).get(f, 0.0) == b.get(k, {}).get(f, 0.0)
+               for k in keys for f in ("count", "operand_bytes",
+                                       "wire_bytes"))
+
+
+def comm_count_gaps(counts: dict, walked: dict, table: dict,
+                    kind_of) -> list:
+    """What phase 2m (iv) finds between ``CommDebugMode``'s own counts
+    per op on a rank (``counts``) and the walk's per kind (``walked``):
+    each op that ``kind_of`` (its name's kind, written apart from the
+    walker) does not know or that the walker's ``table`` lacks or files
+    under another kind, and any kind whose count differs."""
+    gaps, per = [], {}
+    for op, n in counts.items():
+        kind, filed = kind_of(op), table.get(op.rpartition(".")[2])
+        if kind is None or filed != kind:
+            gaps.append(f"{op} is {kind} by its name, {filed} in the "
+                        "walker's table")
+        per[kind] = per.get(kind, 0) + n
+    want = {k: v["count"] for k, v in walked.items()}
+    if per != want:
+        gaps.append(f"CommDebugMode's counts per kind {per} vs the walk's "
+                    f"{want}")
+    return gaps
+
+
+def dryrun_phase(failures, smi, rates, sharded, distributed):
+    """Phase 2m (see the comment above ``DRYRUN_FLOPS_GATE``).  Returns
+    the record."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import PAPER_PIPELINES, PAPER_STENCILS
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.launch import dryrun
+    from repro_torch.models import make_arch
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.roofline import graph_walk
+    from repro_torch.sharding import MeshShape, ShardCtx
+    from repro_torch.train import make_train_step
+    t_phase = time.time()
+    out_dir = os.path.join(ROOT, "build", "dryrun2m")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    procs = _dryrun_jobs(out_dir)
+    rec = {"card": smi}
+    try:
+        # (i)-(iii): 2k (i)'s step on the card and its walked graph
+        cfg = dataclasses.replace(get_config("qwen3-14b"), n_layers=4)
+        arch, params = _init_train(cfg, SEED + 10)
+        opt = AdamWConfig(**TRAIN_OPT)
+        state = init_opt_state(params, opt)
+        step = make_train_step(arch, opt, ShardCtx())
+        data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=SEED)
+        step(params, state, batch_for_step(data, 0))          # warm-up
+        batch = batch_for_step(data, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        a = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - a) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        with FlopCounterMode(display=False) as fc:
+            step(params, state, batch_for_step(data, 2))
+        counted = float(fc.get_total_flops())
+        leaves = list(tree_leaves(params, torch.is_tensor)) + list(
+            tree_leaves(state, torch.is_tensor))
+
+        def traced(stp):
+            def fn(*xs):
+                it = iter(xs[:-1])
+                p = tree_map(lambda _: next(it), params, torch.is_tensor)
+                o = tree_map(lambda _: next(it), state, torch.is_tensor)
+                out = stp(p, o, {"tokens": xs[-1]})
+                return [t for t in tree_leaves(out, torch.is_tensor)
+                        if torch.is_tensor(t)]
+            return graph_walk.trace(fn, *leaves, batch["tokens"])
+        a = time.perf_counter()
+        gm = traced(step)
+        trace_s = time.perf_counter() - a
+        a = time.perf_counter()
+        tot = graph_walk.walk(gm, 1)
+        walk_s = time.perf_counter() - a
+        never = graph_walk.memory_split(gm, free=False)["peak_bytes"]
+        del gm
+        no_remat = make_train_step(
+            make_arch(dataclasses.replace(cfg, remat=False)), opt,
+            ShardCtx())
+        fault_flops = graph_walk.walk(traced(no_remat), 1).flops
+        work = train_work(cfg, params, state, None,
+                          TRAIN_BATCH * TRAIN_SEQ)
+        del params, state
+        torch.cuda.empty_cache()
+        lo, hi = DRYRUN_PEAK_GATE
+        pred = tot.memory["peak_bytes"]
+        # the step's own peak: tensors that earlier phases left allocated
+        # (what was allocated before the step beyond its arguments, the
+        # storages of its params, state and tokens) are not the step's
+        seen, args = set(), 0
+        for t in leaves + [batch["tokens"]]:
+            st = t.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                args += st.nbytes()
+        step_peak = peak - before + args
+        args_walked = tot.memory["argument_size_in_bytes"]
+        t_c = tot.flops / rates["bf16"]
+        t_m = tot.bytes / rates["bytes"]
+        rec["train_step"] = {
+            "flops_walked": tot.flops, "flops_counted": counted,
+            "flops_ratio": tot.flops / counted,
+            "flops_fault_no_remat": fault_flops,
+            "model_flops": work["flops"],
+            "walked_over_model": tot.flops / work["flops"],
+            "bytes_walked": tot.bytes, "memory": tot.memory,
+            "peak_measured": peak, "allocated_before": before,
+            "argument_bytes": args, "argument_bytes_walked": args_walked,
+            "peak_of_step": step_peak, "peak_ratio": pred / step_peak,
+            "peak_fault_never_free": never,
+            "peak_fault_ratio": never / step_peak,
+            "step_ms": step_ms, "t_compute_ms": t_c * 1e3,
+            "t_memory_ms": t_m * 1e3,
+            "bound_ms": max(t_c, t_m) * 1e3,
+            "bound_share_of_step": max(t_c, t_m) * 1e3 / step_ms,
+            "trace_s": trace_s, "walk_s": walk_s}
+        r = rec["train_step"]
+        if abs(r["flops_ratio"] - 1) > DRYRUN_FLOPS_GATE:
+            failures.append(f"phase 2m (i): walked {tot.flops:.6g} FLOPs vs"
+                            f" FlopCounterMode's {counted:.6g}")
+        if abs(fault_flops / counted - 1) <= DRYRUN_FLOPS_GATE:
+            failures.append("phase 2m (i): the planted fault (remat off) "
+                            f"passes: {fault_flops:.6g}")
+        if not lo <= r["peak_ratio"] <= hi:
+            failures.append(f"phase 2m (ii): predicted peak {pred / 2**30:.3f}"
+                            f" GiB vs the step's {step_peak / 2**30:.3f} GiB")
+        if args_walked != args:
+            failures.append(f"phase 2m (ii): the walk's argument bytes "
+                            f"{args_walked:.0f} vs the step's storages "
+                            f"{args}")
+        if lo <= r["peak_fault_ratio"] <= hi:
+            failures.append("phase 2m (ii): the planted fault (never free) "
+                            f"passes: {never / 2**30:.3f} GiB")
+        log(f"phase 2m (i): {cfg.arch} {cfg.n_layers} layers, "
+            f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens, one device: walked "
+            f"{tot.flops:.6g} FLOPs, FlopCounterMode on the card "
+            f"{counted:.6g} (ratio {r['flops_ratio']:.6f}, gate "
+            f"{DRYRUN_FLOPS_GATE}; planted fault, remat off: "
+            f"{fault_flops / counted:.4f}); walked / train_work's model "
+            f"FLOPs {r['walked_over_model']:.4f}; trace {trace_s:.1f}s, "
+            f"walk {walk_s:.1f}s | card {smi}")
+        log(f"phase 2m (ii): liveness peak {pred / 2**30:.3f} GiB "
+            f"(arguments {args_walked / 2**30:.3f}; the step's storages "
+            f"{args / 2**30:.3f}, temp "
+            f"{tot.memory['temp_size_in_bytes'] / 2**30:.3f}) vs the step's "
+            f"{step_peak / 2**30:.3f} GiB (max_memory_allocated "
+            f"{peak / 2**30:.3f} GiB less {(before - args) / 2**30:.3f} GiB "
+            f"that earlier phases left allocated): ratio "
+            f"{r['peak_ratio']:.4f}, gate {DRYRUN_PEAK_GATE}; planted fault,"
+            f" never free: {never / 2**30:.3f} GiB, ratio "
+            f"{r['peak_fault_ratio']:.3f}")
+        log(f"phase 2m (iii): roofline lower bound {r['bound_ms']:.2f} ms "
+            f"(compute {t_c * 1e3:.2f} ms at {rates['bf16']:.4g} FLOP/s, "
+            f"memory {t_m * 1e3:.2f} ms: {tot.bytes / 1e9:.2f} GB at "
+            f"{rates['bytes']:.4g} B/s; data-sheet rates) vs the measured "
+            f"step {step_ms:.2f} ms: {r['bound_share_of_step']:.4f} of it "
+            f"| card {smi}")
+
+        # (v): the plan's exchange vs 2i's halo.EXCHANGE, per rank
+        world = load_helper("_dist_world")
+        mesh = MeshShape((4, 2), world.MESH_NAMES)
+        rows = {}
+        for key, desc, shape, axes in world.CHIP_FULL:
+            spec = (PAPER_STENCILS[desc[1]] if desc[0] == "stencil"
+                    else PAPER_PIPELINES[desc[1]])
+            if desc[0] == "stencil" and desc[2] is not None:
+                spec = spec.with_boundary(desc[2])
+            pred_ex, fault_ex = (
+                {x["rank"]: x for x in dryrun.stencil_counts(
+                    spec, shape, mesh, axes, world.CHIP_ITERS, sweeps=sw,
+                    dtype=torch.float64)["per_rank"]}
+                for sw in (world.CHIP_SWEEPS, world.CHIP_SWEEPS - 1))
+            ranks = distributed["full_width"][key]["ranks"]
+            got = [(row["exchange"]["rounds"], row["exchange"]["bytes_sent"])
+                   for row in ranks]
+            want = [(pred_ex[i]["rounds"], pred_ex[i]["bytes_sent"])
+                    for i in range(len(ranks))]
+            fault = [(fault_ex[i]["rounds"], fault_ex[i]["bytes_sent"])
+                     for i in range(len(ranks))]
+            rows[key] = {"measured": got, "predicted": want,
+                         "fault_3_sweeps": fault}
+            if got != want:
+                failures.append(f"phase 2m (v) {key}: rounds/bytes per rank"
+                                f" {got} vs the plan's {want}")
+            if fault == got:
+                failures.append(f"phase 2m (v) {key}: the planted fault (3 "
+                                "sweeps) passes")
+            log(f"phase 2m (v) {key}: per rank (rounds, bytes sent) "
+                f"measured {got}, plan {want}; planted fault (3 sweeps) "
+                f"{fault}")
+        rec["exchange"] = rows
+    finally:
+        jobs = _dryrun_results(procs, failures, timeout=600)
+    rec["jobs"] = jobs
+    # (iv): 2l's collectives on rank 0 vs the walk on a fake world
+    if "comms" in jobs:
+        kind_of = load_helper("_lm_chip").comm_kind
+        table = graph_walk._COLLECTIVE_OPS
+        rank0 = sharded["ranks"][0]
+        measured = {"dense_decode": rank0["serving"]["comms_dense_decode"],
+                    "step": rank0["training"]["comms_step"]}
+        for name, got in measured.items():
+            want = jobs["comms"][name]
+            fault = jobs["comms"]["fault_doubled_group"][name]
+            if not _kinds_equal(got["kinds"], want):
+                failures.append(f"phase 2m (iv) {name}: CommDebugMode "
+                                f"{got['kinds']} vs the walk {want}")
+            if _kinds_equal(got["kinds"], fault):
+                failures.append(f"phase 2m (iv) {name}: the planted fault "
+                                "(groups at twice their size) passes")
+            counts = got["comm_debug_counts"]
+            gaps = comm_count_gaps(counts, want, table, kind_of)
+            failures += [f"phase 2m (iv) {name}: {g}" for g in gaps]
+            # planted fault: the walker's table without the op recorded
+            # most often
+            top = max(counts, key=counts.get, default=".").rpartition(
+                ".")[2]
+            fault_gaps = comm_count_gaps(counts, want, {
+                k: v for k, v in table.items() if k != top}, kind_of)
+            if not fault_gaps:
+                failures.append(f"phase 2m (iv) {name}: the planted fault "
+                                f"(no {top} in the walker's table) passes")
+            log(f"phase 2m (iv) {name}: rank 0 CommDebugMode "
+                f"{got['kinds']} (its counts {got['comm_debug_counts']}); "
+                f"the walk on a fake (2, 4) world {want}; planted fault "
+                f"(groups doubled) wire bytes "
+                f"{ {k: v['wire_bytes'] for k, v in fault.items()} }; "
+                f"its counts per kind against the walk: {gaps or 'equal'}; "
+                f"planted fault (no {top} in the walker's table): "
+                f"{fault_gaps}")
+        log(f"phase 2m (iv): traced in {jobs['comms']['trace_s']:.1f}s on "
+            "the host")
+    for arch, cell in DRYRUN_CELLS:
+        for mesh in ("pod", "multipod"):
+            r = jobs.get(f"{cell}_{mesh}")
+            if r is None:
+                continue
+            if r.get("status") != "ok":
+                failures.append(f"phase 2m (vi) {arch} {cell} {mesh}: {r}")
+                continue
+            log(f"phase 2m (vi) {arch} {cell} {r['mesh']}: trace "
+                f"{r['trace_s']:.1f}s (depths {r['traced_depths']} x "
+                f"{r['repeats']}), walk {r['walk_s']:.1f}s; per device "
+                f"{r['memory']['peak_bytes'] / 2**30:.2f} GiB peak "
+                f"(arguments {r['memory']['argument_size_in_bytes'] / 2**30:.2f}"
+                f"), {r['flops_per_device']:.4g} FLOPs, "
+                f"{r['bytes_per_device']:.4g} B, "
+                f"{r['collective_bytes_per_device']:.4g} wire B; terms "
+                f"compute {r['t_compute_s']:.4g} s, memory "
+                f"{r['t_memory_s']:.4g} s, collective "
+                f"{r['t_collective_s']:.4g} s (data-sheet rates, model "
+                f"seconds): {r['bottleneck']}-bound")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rec["seconds"] = time.time() - t_phase
+    log(f"phase 2m: {rec['seconds']:.1f}s")
+    return rec
+
+
 def serving_times(smi):
     """Phase 3's serving times: the per-bucket dispatch overhead (the
     host's time per bucket call beyond its device time), the cost of
@@ -3877,6 +4231,13 @@ def main() -> int:
     if failures:
         raise SystemExit("phase 2l failed:\n" + "\n".join(failures[:40]))
 
+    # ---- phase 2m: the dry run held against the card ---------------------
+    torch.cuda.empty_cache()
+    dry = dryrun_phase(failures, smi, {"bytes": hbm_bw, "bf16": peak_bf16_tc},
+                       sharded, distributed)
+    if failures:
+        raise SystemExit("phase 2m failed:\n" + "\n".join(failures[:40]))
+
     # ---- phase 2c: sliding-window attention at gemma2-27b's width --------
     cfg = GEMMA2_LOCAL
     swa_kw = {"window": cfg["window"], "tq": cfg["tq"],
@@ -4539,7 +4900,7 @@ def main() -> int:
                    "serving": serve | {"launches": named(serve["launches"])},
                    "serving_times": serving, "distributed": distributed,
                    "lm_serving": lm, "lm_training": train,
-                   "lm_sharded": sharded,
+                   "lm_sharded": sharded, "dryrun": dry,
                    "plans_verified": tanalysis.counters()["verifications"]
                    - verified0,
                    "seconds": time.time() - t_start}, fh, indent=1,

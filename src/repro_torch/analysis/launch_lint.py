@@ -32,6 +32,7 @@ The VM backend runs no kernel and is skipped with an info finding.
 """
 from __future__ import annotations
 
+import math
 from collections import Counter
 
 import torch
@@ -98,6 +99,74 @@ def predicted_exchange_rounds(plan, iters: int | None = None) -> int:
     q, r = plan.decompose(iters)
     return q * _step_rounds(plan) + (_step_rounds(plan.remainder(r))
                                      if r else 0)
+
+
+def _step_exchange(plan, coord: dict, sends: list | None = None
+                   ) -> tuple[int, int]:
+    """(rounds, bytes sent) of one step of a distributed plan on the rank
+    at mesh coordinate ``coord`` (mesh dim name -> index), as
+    ``core.halo`` exchanges: dim by dim in grid order, each exchange
+    on the block already widened along the dims before it (exchanged
+    or boundary-padded); per hop two rounds, each sending its edge slab
+    unless no rank receives it or the rank is its own peer."""
+    if not plan.fused:
+        total = [0, 0]
+        for k in range(len(plan.stages)):
+            r, b = _step_exchange(plan.stage_plan(k), coord, sends)
+            total[0] += plan.sweeps * r
+            total[1] += plan.sweeps * b
+        return tuple(total)
+    itemsize = torch.empty((), dtype=getattr(torch, plan.dtype)
+                           ).element_size()
+    shape = list(plan.shard_shape)
+    rounds = sent = 0
+    for d, name in enumerate(plan.grid_axes):
+        deep = plan.deep_halo[d]
+        if name is not None and deep:
+            n = _plan.mesh_axis_size(plan.mesh, name)
+            me, size = coord[name], shape[d]
+            rest = math.prod(shape[:d] + shape[d + 1:]) * itemsize
+            for j in range(1, -(-deep // size) + 1):
+                w = min(size, deep - (j - 1) * size)
+                if plan.exchange[d] == "wrap-ring":
+                    right, left = (me + j) % n, (me - j) % n
+                elif j >= n:
+                    continue
+                else:
+                    right = me + j if me + j < n else None
+                    left = me - j if me - j >= 0 else None
+                for to, src in ((right, left), (left, right)):
+                    rounds += 1
+                    if src != me and to is not None:
+                        sent += w * rest
+                        if sends is not None:
+                            sends.append((name, to, w * rest))
+        shape[d] += 2 * deep
+    return rounds, sent
+
+
+def predicted_exchange(plan, iters: int | None = None,
+                       coord: dict | None = None,
+                       sends: list | None = None) -> dict[str, int]:
+    """``core.halo.EXCHANGE``'s ``rounds`` and ``bytes_sent`` on the rank
+    at ``coord`` (``None``: mesh coordinate 0) in ``iters``
+    applications (``None``: one step) under a distributed ``plan``; a
+    plan lowered on a :class:`~repro_torch.sharding.MeshShape` needs no
+    ranks.  ``rounds`` equals :func:`predicted_exchange_rounds`.
+    ``sends`` collects ``(mesh dim, receiver's index on it, bytes)`` per
+    send of one step (the remainder's after)."""
+    if not plan.is_distributed:
+        return {"rounds": 0, "bytes_sent": 0}
+    if iters is None:
+        iters = plan.sweeps
+    if coord is None:
+        coord = {a: 0 for a in plan.grid_axes if a is not None}
+    q, r = plan.decompose(iters)
+    rounds, sent = (q * x for x in _step_exchange(plan, coord, sends))
+    if r:
+        rr, rs = _step_exchange(plan.remainder(r), coord, sends)
+        rounds, sent = rounds + rr, sent + rs
+    return {"rounds": rounds, "bytes_sent": sent}
 
 
 def predicted_launches(plan, iters: int | None = None,

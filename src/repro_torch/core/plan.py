@@ -57,7 +57,10 @@ each rank's ``shard_shape``, the per-axis exchange strategy
 (:func:`exchange_strategy_for`) and the mesh's fingerprint (in the key);
 its shard-local block always reads the exchanged window
 (``"padded-window"``: K2/K4 for ``"cuda"``) and never streams, and
-:func:`execute` hands it to :mod:`repro_torch.core.halo`.
+:func:`execute` hands it to :mod:`repro_torch.core.halo`.  A
+:class:`~repro_torch.sharding.MeshShape` in place of the mesh lowers the
+same plan with no process group, to be read and not run (the dry run,
+``launch/dryrun.py``; ``tile="auto"`` needs the ranks).
 
 Every new plan is statically verified before it enters the cache
 (:mod:`repro_torch.analysis`): ``CASPER_VERIFY=strict`` raises, and the
@@ -758,15 +761,26 @@ def mesh_fingerprint(mesh, grid_axes) -> tuple | None:
     mesh) and the grid dim -> mesh dim assignment."""
     if mesh is None:
         return None
+    axes = tuple(grid_axes) if grid_axes is not None else None
+    if not hasattr(mesh, "mesh_dim_names"):      # a MeshShape: no ranks
+        return (tuple(mesh.axis_names), tuple(mesh.shape_tuple), None, axes)
     return (tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape),
-            tuple(int(r) for r in mesh.mesh.flatten().tolist()),
-            tuple(grid_axes) if grid_axes is not None else None)
+            tuple(int(r) for r in mesh.mesh.flatten().tolist()), axes)
+
+
+def mesh_dim_names(mesh) -> tuple:
+    """The dim names of a ``DeviceMesh`` or a
+    :class:`~repro_torch.sharding.MeshShape`."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
 
 
 def mesh_axis_size(mesh, name) -> int:
     """The extent of ``mesh``'s dim ``name`` (1 for ``None``)."""
     if name is None:
         return 1
+    if not hasattr(mesh, "mesh_dim_names"):
+        return mesh.shape[name]
     return mesh.size(list(mesh.mesh_dim_names).index(name))
 
 
@@ -810,10 +824,10 @@ def lower(spec: StencilSpec | StencilPipeline, shape: Sequence[int], dtype,
         if len(axes) != spec.ndim:
             raise ValueError("grid_axes must have one entry per grid dim")
         unknown = [a for a in axes
-                   if a is not None and a not in mesh.mesh_dim_names]
+                   if a is not None and a not in mesh_dim_names(mesh)]
         if unknown:
             raise ValueError(f"grid_axes {unknown} are not dims of the mesh "
-                             f"{mesh.mesh_dim_names}")
+                             f"{mesh_dim_names(mesh)}")
         if backend == "vm":
             raise ValueError("a distributed plan runs on backend 'ref' or "
                              "'cuda'")

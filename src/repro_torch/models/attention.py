@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..sharding import (ShardCtx, _mesh_axes, as_dtensor, axis_names,
                         axis_size, block_start, from_local, is_device_mesh,
-                        is_dtensor, placements, whole_along)
+                        is_dtensor, matmul_rows, merge_dims, placements,
+                        unflatten_dim, whole_along)
 from .common import PSpec, rms_norm, rope, softcap as _softcap
 
 NEG_INF = -1e30
@@ -298,7 +299,7 @@ def _core_on_mesh(q, k, v, qpos, pos0: int, c: AttnCfg, ctx: ShardCtx,
 def _heads(x, w):
     """einsum("bsd,dhk->bhsk", x, w) as one product."""
     d, nh, dh = w.shape
-    return (x @ w.reshape(d, nh * dh)).unflatten(-1, (nh, dh)).transpose(1, 2)
+    return unflatten_dim(x @ merge_dims(w), -1, (nh, dh)).transpose(1, 2)
 
 
 def attention(
@@ -364,5 +365,5 @@ def attention(
         o = _core(q, k, v, qpos, pos0, c, cache is None and kv_x is None,
                   kv_len)
     o = o.transpose(1, 2)
-    y = o.reshape(b, s, hd) @ p["wo"].reshape(hd, -1)
+    y = matmul_rows(merge_dims(o), merge_dims(p["wo"], 0))
     return ctx.constrain(y, "dp", None, None), cache

@@ -147,6 +147,7 @@ def _logits(params, h):
 
 def whisper_loss(params, batch, cfg: ModelConfig, ctx: ShardCtx):
     """The training loss; autograd differentiates it."""
+    params = ctx.on_cmesh(params)
     enc_out = encode(params, batch["frames"], cfg, ctx)
     tokens = batch["tokens"]
     h = _embed_dec(params, tokens, 0, cfg)
@@ -196,6 +197,7 @@ def whisper_state_init(cfg: ModelConfig, batch: int, max_len: int,
 def whisper_prefill(params, batch, cfg: ModelConfig, ctx: ShardCtx,
                     max_len: int | None = None):
     """Encode the audio and run the decoder prompt, building the caches."""
+    params = ctx.on_cmesh(params)
     enc_out = encode(params, batch["frames"], cfg, ctx)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -215,6 +217,7 @@ def whisper_prefill(params, batch, cfg: ModelConfig, ctx: ShardCtx,
 
 def whisper_decode(params, caches, cache_len: int, tokens, cfg: ModelConfig,
                    ctx: ShardCtx):
+    params = ctx.on_cmesh(params)
     h = _embed_dec(params, tokens, cache_len, cfg)
     h, caches = decode_stack(params, h, None, cfg, ctx, pos0=cache_len,
                              caches=caches, cache_len=cache_len)

@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..sharding import ShardCtx
+from ..sharding import (ShardCtx, from_local, is_dtensor, merge_dims,
+                        unflatten_dim)
 from .common import PSpec, cross_entropy, place_state, remat, rms_norm
 from .config import ModelConfig
 from .transformer import embed, unembed
@@ -32,9 +33,23 @@ MIN_DENOM = 1.0
 GATES = ("z", "i", "f", "o")
 
 
+def _log_sigmoid(x):
+    """``F.logsigmoid``; on a DTensor on its local block (DTensor has no
+    rule for ``log_sigmoid_backward``), a partial sum reduced first."""
+    if not is_dtensor(x):
+        return F.logsigmoid(x)
+    from torch.distributed.tensor import Replicate
+    places = tuple(Replicate() if p.is_partial() else p
+                   for p in x.placements)
+    if places != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, places)
+    return from_local(F.logsigmoid(x.to_local()), x.device_mesh, places,
+                      x.shape)
+
+
 def _proj(x, w):
     """einsum("bld,dhp->blhp", x, w) as one product."""
-    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    return unflatten_dim(x @ merge_dims(w, 1), -1, w.shape[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +174,9 @@ def mlstm_chunked(q, k, v, log_i, log_f, chunk: int, state=None):
 def mlstm_block(pp: dict, x, cfg: ModelConfig, ctx: ShardCtx, state=None):
     b, l, d = x.shape
     h, p = cfg.n_heads, mlstm_pdim(cfg)
-    xn = layer_norm_like(x, pp["ln"], cfg)
+    # the sequence whole for the products and the chunked scan (the
+    # residual keeps its split; Megatron's sequence parallelism)
+    xn = ctx.constrain(layer_norm_like(x, pp["ln"], cfg), "dp", None, None)
     q = _proj(xn, pp["wq"])
     # K over sqrt(p) taken in x's dtype (bfloat16 makes sqrt(384)
     # 19.625), as a host number: no device tensor, no copy per call
@@ -168,7 +185,7 @@ def mlstm_block(pp: dict, x, cfg: ModelConfig, ctx: ShardCtx, state=None):
     v = _proj(xn, pp["wv"])
     xf = xn.float()
     log_i = xf @ pp["wi"] + pp["bi"]
-    log_f = F.logsigmoid(xf @ pp["wf"] + pp["bf"])
+    log_f = _log_sigmoid(xf @ pp["wf"] + pp["bf"])
     if l == 1 and state is not None:
         y, new_state = mlstm_sequential(q, k, v, log_i, log_f, state)
     else:
@@ -177,7 +194,7 @@ def mlstm_block(pp: dict, x, cfg: ModelConfig, ctx: ShardCtx, state=None):
                                      state=state)
     og = torch.sigmoid(_proj(xf, pp["wog"].float()))
     yh = y * og
-    out = yh.to(x.dtype).reshape(b, l, h * p) @ pp["out"].reshape(h * p, d)
+    out = merge_dims(yh.to(x.dtype)) @ merge_dims(pp["out"], 0)
     return x + ctx.constrain(out, "dp", None, None), new_state
 
 
@@ -223,7 +240,7 @@ def slstm_scan(pp: dict, xn, state=None):
         g = pre[:, t] + (hprev[:, :, None, :] @ r_all)[:, :, 0]  # (b,h,4p)
         zt = torch.tanh(g[..., :p])
         li = g[..., p:2 * p]
-        lf = F.logsigmoid(g[..., 2 * p:3 * p])
+        lf = _log_sigmoid(g[..., 2 * p:3 * p])
         ot = torch.sigmoid(g[..., 3 * p:])
         m_new = torch.maximum(lf + m, li)
         ip = torch.exp(li - m_new)
@@ -238,10 +255,10 @@ def slstm_scan(pp: dict, xn, state=None):
 
 def slstm_block(pp: dict, x, cfg: ModelConfig, ctx: ShardCtx, state=None):
     b, l, d = x.shape
-    xn = layer_norm_like(x, pp["ln"], cfg)
+    xn = ctx.constrain(layer_norm_like(x, pp["ln"], cfg), "dp", None, None)
     y, new_state = slstm_scan(pp, xn, state)
     w = pp["out"]
-    out = y.to(x.dtype).reshape(b, l, -1) @ w.reshape(-1, w.shape[-1])
+    out = merge_dims(y.to(x.dtype)) @ merge_dims(w, 0)
     return x + ctx.constrain(out, "dp", None, None), new_state
 
 
@@ -275,11 +292,11 @@ def xlstm_apply(params, h, cfg: ModelConfig, ctx: ShardCtx, states=None):
     for key, s in _layer_keys(cfg):
         block = slstm_block if s else mlstm_block
         st = states[key] if states is not None else None
-        h, ns = remat(cfg.remat, block, params["layers"][key], h, cfg, ctx,
-                      st)
+        h, ns = remat(cfg.remat, block, ctx.on_cmesh(params["layers"][key]),
+                      h, cfg, ctx, st)
         if states is not None:
             new_states[key] = ns
-    h = rms_norm(h, params["ln_final"], cfg.norm_eps)
+    h = rms_norm(h, ctx.on_cmesh(params["ln_final"]), cfg.norm_eps)
     return h, new_states
 
 

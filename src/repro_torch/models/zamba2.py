@@ -23,7 +23,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from ..sharding import ShardCtx
+from ..sharding import ShardCtx, merge_dims, unflatten_dim
 from .attention import AttnCfg, attention, make_cache
 from .common import (PSpec, cross_entropy, place_state, remat, rms_norm,
                      stack_specs, tree_map)
@@ -105,15 +105,15 @@ def _apply_shared(cfg: ModelConfig, ctx: ShardCtx, shared: dict, up: dict,
             delta = (up[f"lora_{nm}_a"].float()
                      @ up[f"lora_{nm}_b"].float())
             base = p[f"w{nm}"]
-            p[f"w{nm}"] = base + delta.reshape(base.shape).to(base.dtype)
+            p[f"w{nm}"] = base + unflatten_dim(
+                delta, -1, base.shape[1:]).to(base.dtype)
     a_out, _ = attention(p, x2n, shared_attn_cfg(cfg), ctx, pos0=pos0,
                          cache=kv_cache, cache_len=cache_len)
     h = h + a_out
     x2 = torch.cat([h, h0], dim=-1)
     m_in = rms_norm(x2, shared["ln_mlp"], cfg.norm_eps)
     w_in = shared["w_in"]
-    gm = (m_in @ w_in.reshape(w_in.shape[0], -1)).unflatten(
-        -1, w_in.shape[1:])
+    gm = unflatten_dim(m_in @ merge_dims(w_in, 1), -1, w_in.shape[1:])
     hh = F.silu(gm[..., 0, :].float()).to(h.dtype) * gm[..., 1, :]
     return h + hh @ shared["w_out"]
 
@@ -144,13 +144,15 @@ def zamba_apply(params, h, cfg: ModelConfig, ctx: ShardCtx, pos0: int = 0,
     """state: {"ssm_i": stacked mamba states, "kv": stacked KV caches}
     or None; written in place and returned."""
     h0 = h
+    shared = ctx.on_cmesh(params["shared"])
     for r in range(cfg.n_layers // LAYERS_PER_UNIT):
-        up = tree_map(lambda t: t[r], params["units"], torch.is_tensor)
+        up = ctx.on_cmesh(tree_map(lambda t: t[r], params["units"],
+                                   torch.is_tensor))
         st = (tree_map(lambda t: t[r], state, torch.is_tensor)
               if state is not None else None)
-        h = remat(cfg.remat, zamba_unit, cfg, ctx, params["shared"], up, h,
+        h = remat(cfg.remat, zamba_unit, cfg, ctx, shared, up, h,
                   h0, st, r % 2 == 1, pos0, cache_len)
-    h = rms_norm(h, params["ln_final"], cfg.norm_eps)
+    h = rms_norm(h, ctx.on_cmesh(params["ln_final"]), cfg.norm_eps)
     return h, state
 
 

@@ -419,6 +419,74 @@ def whole_along(x: torch.Tensor, *dims: int) -> torch.Tensor:
     return x.redistribute(x.device_mesh, want)
 
 
+def unflatten_dim(x: torch.Tensor, dim: int, sizes: Sequence[int]
+                  ) -> torch.Tensor:
+    """``x.unflatten(dim, sizes)``; a DTensor whose ``dim`` is split into
+    blocks that ``sizes[0]`` does not divide (4 heads on 16-way TP) is
+    made whole along it first, which DTensor cannot do inside the view."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Shard
+        d = dim % x.ndim
+        n = math.prod(x.device_mesh.size(j)
+                      for j, pl in enumerate(x.placements)
+                      if isinstance(pl, Shard) and pl.dim == d)
+        if sizes[0] % n:
+            x = whole_along(x, d)
+        return _ContiguousGrad.apply(x.unflatten(dim, tuple(sizes)))
+    return x.unflatten(dim, tuple(sizes))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity; its backward makes the grad contiguous (DTensor
+    cannot undo a split as a view of a transposed grad)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+class _MergeDims(torch.autograd.Function):
+    """Dims ``dim`` and ``dim + 1`` merged; the backward splits the grad
+    with :func:`unflatten_dim`."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.sizes = dim, tuple(x.shape[dim:dim + 2])
+        return x.reshape(x.shape[:dim] + (-1,) + x.shape[dim + 2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return unflatten_dim(g, ctx.dim, ctx.sizes), None
+
+
+def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for ``x`` (b, s, k) and ``w`` (k, n).  ``@`` views ``x``
+    as (b*s, k) and the grad as (b*s, n); torch 2.11's DTensor cannot
+    fold a ``s`` split on one mesh dim into a ``b`` split on another
+    (the residual stream's sequence dim lies on "model"), so on a
+    DTensor the product is a batched one over ``b``, which views
+    nothing: the same products, FLOPs and bytes."""
+    if not (is_dtensor(x) and x.ndim == 3 and w.ndim == 2):
+        return x @ w
+    return torch.bmm(x, w.unsqueeze(0).expand(x.shape[0], *w.shape))
+
+
+def merge_dims(x: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    """``x`` with dims ``dim`` and ``dim + 1`` reshaped into one (heads
+    and head dim).  On a
+    DTensor the backward unsplits the grad through
+    :func:`unflatten_dim`: the grad of the product that follows can
+    arrive split in blocks that the head count does not divide."""
+    dim %= x.ndim
+    if is_dtensor(x):
+        return _MergeDims.apply(x, dim)
+    return x.reshape(x.shape[:dim] + (-1,) + x.shape[dim + 2:])
+
+
 def full_tensor(x: torch.Tensor) -> torch.Tensor:
     """``x`` whole: a DTensor is gathered (a collective every rank of its
     mesh joins); a plain tensor is returned as it is."""
@@ -613,6 +681,15 @@ class ShardCtx:
                 return tuple(walk(v) for v in t)
             return one(t) if torch.is_tensor(t) else t
         return walk(tree)
+
+    def on_cmesh(self, tree: Any) -> Any:
+        """``tree``'s params on :attr:`cmesh`: on a pod mesh gathered
+        over ("pod", "data") as :meth:`gather_weights` does (the
+        families that do not gather per unit); on any other mesh, or
+        none, ``tree`` itself."""
+        if self.cmesh is self.mesh:
+            return tree
+        return self.gather_weights(tree)
 
     def place(self, x: torch.Tensor, *logical: str | None):
         """A tensor that every rank holds whole (a batch, a param from

@@ -723,8 +723,51 @@ def suite_chip(r: Rank, out_dir: str) -> None:
     r.record["ii"] = full_records
 
 
+#: The dry run's exchange check (``tests/test_torch_dryrun.py``): key,
+#: spec, global shape, mesh shape, grid axes, sweeps; float32, iters=2.
+EXCHANGE_CASES = (
+    ("jacobi1d", ("stencil", "jacobi1d", None), (64,), (8,), ("sx",), 1),
+    ("7pt1d", ("stencil", "7pt1d", None), (64,), (8,), ("sx",), 1),
+    ("7pt1d_hops", ("stencil", "7pt1d", None), (32,), (8,), ("sx",), 2),
+    ("jacobi2d", ("stencil", "jacobi2d", None), (32, 48), (4, 2),
+     ("sx", "sy"), 1),
+    ("jacobi2d_periodic", ("stencil", "jacobi2d", "periodic"), (32, 48),
+     (4, 2), ("sx", "sy"), 2),
+    ("blur2d", ("stencil", "blur2d", None), (32, 48), (4, 2), ("sx", "sy"),
+     1),
+    ("heat3d", ("stencil", "heat3d", None), (16, 8, 12), (2, 2, 2),
+     ("sx", "sy", "sz"), 1),
+    ("star33_3d", ("stencil", "star33_3d", None), (16, 16, 12), (2, 2, 2),
+     ("sx", "sy", "sz"), 1),
+    ("reaction_diffusion2d", ("pipeline", "reaction_diffusion2d"), (32, 48),
+     (4, 2), ("sx", "sy"), 2),
+)
+
+
+def suite_exchange(r: Rank, out_dir: str) -> None:
+    """Every :data:`EXCHANGE_CASES` case through
+    ``distributed_stencil_fn`` (``"ref"``, iters=2): this rank's mesh
+    coordinate and the ``halo.EXCHANGE`` rounds and bytes it took."""
+    torch, rt, halo = r.torch, r.rt, r.halo
+    for key, desc, shape, mshape, axes, sweeps in EXCHANGE_CASES:
+        names = ("sx", "sy", "sz")[:len(mshape)]
+        mesh = r.mesh(mshape, names)
+        spec = build_spec(desc, rt)
+        g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            shape).astype(np.float32))
+        local = rt.shard_grid(g, mesh, axes)
+        fn = rt.distributed_stencil_fn(spec, mesh, axes, 2, sweeps=sweeps,
+                                       backend="ref", device=r.device)
+        halo.reset_exchange()
+        fn(local)
+        r.record["cases"][key] = {
+            "coord": dict(zip(names, mesh.get_coordinate())),
+            "rounds": halo.EXCHANGE["rounds"],
+            "bytes_sent": halo.EXCHANGE["bytes_sent"]}
+
+
 SUITES = {"parity": suite_parity, "single": suite_single, "fail": suite_fail,
-          "chip": suite_chip}
+          "chip": suite_chip, "exchange": suite_exchange}
 
 
 def main(argv=None) -> int:

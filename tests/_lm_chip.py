@@ -124,6 +124,73 @@ def _timed(r, fn, profile: bool = False):
     return out, dt, (_collective_share(prof, dt) if profile else None)
 
 
+#: collective kinds by the stems of their op names, in the namespaces of
+#: c10d, the functional collectives and DTensor's own; written apart from
+#: the dry run's walker (``graph_walk._COLLECTIVE_OPS``), so that phase 2m
+#: (iv) finds an op that the walker's table lacks or names wrongly
+COMM_NAMESPACES = ("c10d", "c10d_functional", "_c10d_functional",
+                   "_c10d_functional_autograd", "_dtensor")
+COMM_KINDS = (("reduce-scatter", ("reduce_scatter",)),
+              ("all-reduce", ("all_reduce", "allreduce")),
+              ("all-gather", ("all_gather", "allgather")),
+              ("all-to-all", ("all_to_all", "alltoall")),
+              ("collective-permute", ("send", "recv")),
+              ("broadcast", ("broadcast",)))
+
+
+def comm_kind(op: str):
+    """The collective kind of the op ``namespace.name`` (as
+    ``CommDebugMode.get_comm_counts`` names them), or ``None``: not a
+    collective (``wait_tensor``), or one of no kind above (``gather_``)."""
+    ns, _, name = op.rpartition(".")
+    if ns not in COMM_NAMESPACES:
+        return None
+    for kind, stems in COMM_KINDS:
+        if any(st in name for st in stems):
+            return kind
+    return None
+
+
+def comms_of(fn):
+    """(``fn()``, its collectives on this rank): per kind the count,
+    operand bytes and wire bytes, and ``CommDebugMode``'s own counts per
+    op.  Phase 2m (iv) holds the dry run's walk of the same step on a
+    fake world against them.  The kind comes from :func:`comm_kind` and
+    the operand bytes from the tensor arguments, apart from the walker;
+    the group is read as the walker reads it (``graph_walk._group``, here
+    on the real gloo groups) and priced at its ring multipliers
+    (``graph_walk._wire_multiplier``, held to the reference's in
+    ``tests/test_torch_roofline.py``)."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils._pytree import tree_leaves as leaves
+    from repro_torch.roofline import graph_walk as gw
+
+    class Comms(CommDebugMode):
+        kinds: dict = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            pkt = getattr(func, "_overloadpacket", None)
+            kind = comm_kind(str(pkt)) if pkt is not None else None
+            if kind is not None:
+                ob = float(sum(t.numel() * t.element_size()
+                               for t in leaves(args)
+                               if isinstance(t, torch.Tensor)))
+                g, _ = gw._group(args, kwargs or {})
+                k = self.kinds.setdefault(kind, {
+                    "count": 0.0, "operand_bytes": 0.0, "wire_bytes": 0.0})
+                k["count"] += 1
+                k["operand_bytes"] += ob
+                k["wire_bytes"] += ob * gw._wire_multiplier(kind, g)
+            return super().__torch_dispatch__(func, types, args, kwargs)
+    mode = Comms()
+    mode.kinds = {}
+    with mode:
+        out = fn()
+    counts = {str(k): v for k, v in mode.get_comm_counts().items()}
+    return out, {"kinds": mode.kinds, "comm_debug_counts": counts}
+
+
 def fingerprint(t, chunk: int = 1 << 22) -> int:
     """A position-weighted sum of the bits of DTensor ``t`` over its
     mesh (a collective of the world, which the mesh spans; one replica
@@ -290,6 +357,10 @@ def chip_serving(r: Rank, mesh, rec) -> None:
             steps, shares = [], []
             for i in range(CHIP["decode"]):
                 tok = ctx.place(toks[:, p + i:p + i + 1], "dp", None)
+                if i == 0 and not flash:     # phase 2m (iv)
+                    (st, n_next, lg), out["comms_dense_decode"] = comms_of(
+                        lambda: a.decode(params, st, n, tok, c, ctx))
+                    out["comms_cache_len"] = n
                 (st, n_next, lg), dt, share = _timed(
                     r, lambda: a.decode(params, st, n, tok, c, ctx),
                     profile=(i == CHIP["decode"] - 2))
@@ -422,6 +493,10 @@ def chip_training(r: Rank, m24, m42, m81, rec) -> None:
     out["loss2"] = float(met2["loss"])
     out["step2_ms"] = dt * 1e3
     out["peak_gib"] = _peak_gib(r)
+    # phase 2m (iv): the step's collectives, recorded on a third step
+    # outside the timed ones (the mode sees every op)
+    _, out["comms_step"] = comms_of(lambda: step(
+        moved["params"], moved["opt"], batches[1]))
     rec["training"] = out
     del moved
     _free(r)

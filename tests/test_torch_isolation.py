@@ -10,7 +10,9 @@ paper pipelines through ``CasperEngine``, analyzes a plan
 (``core/halo.py``), runs sliding-window attention through
 ``kernels.ops.swa`` and serves a reduced qwen3-14b (``configs``,
 ``models``, ``serve.ServeEngine``; ``roofline.analysis`` and
-``sharding`` beside them) and reduced zamba2, xLSTM and Whisper, trains
+``sharding`` beside them) and reduced zamba2, xLSTM and Whisper, walks
+a traced graph (``roofline.graph_walk``) and lowers a stencil and a
+reduced decode cell on a fake 256-rank world (``launch.dryrun``), trains
 a reduced qwen3-14b for two steps through the ``Trainer`` (``train``,
 ``optim`` with 8-bit state and gradient compression, ``checkpointing``
 with bf16 leaves, ``data``) and resumes it, and an AST scan of the
@@ -93,6 +95,16 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import production_mesh_shape
 assert dryrun.cell_record("qwen3-14b", "decode_32k", False)["status"] == "ok"
 assert production_mesh_shape(multi_pod=True).size == 512
+from repro_torch.models.registry import ShapeCell
+from repro_torch.roofline import graph_walk
+assert graph_walk.walk_fn(lambda a, b: a @ b, torch.ones(4, 8),
+                          torch.ones(8, 2)).flops == 128
+assert dryrun.lower_stencil("jacobi2d", False)["status"] == "ok"
+rec = dryrun.lower_cell("qwen3-14b", "decode_32k", False,
+                        shrink=lambda c: c.reduced(),
+                        cell=ShapeCell("decode_32k", 16, 32, "decode"))
+assert rec["status"] == "ok" and rec["flops_per_device"] > 0
+dryrun.end_fake_world()
 import tempfile
 from repro_torch.checkpointing import latest_step
 from repro_torch.data import DataConfig, batch_for_step
@@ -141,6 +153,7 @@ def test_sources_import_no_jax_and_no_repro():
         SRC.parent / "chip_smoke.py", SRC.parent / "tests" / "_dist_world.py",
         SRC.parent / "tests" / "_lm_world.py",
         SRC.parent / "tests" / "_lm_chip.py",
+        SRC.parent / "tests" / "_dryrun_chip.py",
         SRC.parent / "tests" / "_pipeline_cases.py"]
     assert len(files) >= 10
     assert PORT / "kernels" / "swa.py" in files
@@ -150,7 +163,8 @@ def test_sources_import_no_jax_and_no_repro():
                 "analysis/serve_check.py", "analysis/casper_lint.py",
                 "serve/stencil.py", "serve/scheduler.py", "serve/loadgen.py",
                 "serve/engine.py", "sharding.py", "convert.py", "device.py",
-                "roofline/analysis.py", "configs/__init__.py",
+                "roofline/analysis.py", "roofline/graph_walk.py",
+                "configs/__init__.py",
                 "configs/qwen3_14b.py", "models/attention.py",
                 "models/common.py", "models/moe.py", "models/mlp.py",
                 "models/transformer.py", "models/registry.py",
