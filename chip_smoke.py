@@ -237,6 +237,7 @@ no result, when CUDA is missing or any check fails.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import importlib.util
@@ -2339,10 +2340,15 @@ def train_phase(failures, smi, hbm_bw, peak_bf16, peak_f32):
 # layers, FSDP + TP, one AdamW step (f32 moments), its params saved as a
 # checkpoint on (2, 4) and restored on (4, 2) and on (8, 1), the
 # optimizer state re-meshed beside them, the whole state re-meshed onto
-# (2, 4) and a second step; (iii) olmoe-1b-7b at 2 of 16 layers, prefill 4 x
+# (2, 4), the first batch's loss taken there and a second step; (iii) olmoe-1b-7b at 2 of 16 layers, prefill 4 x
 # 256 with MoE dispatch "ep" and "local", and layer 0's MoE block alone
-# on a seeded input.  The parent runs each case on one device first (the
-# references); the ranks' results are held against them.
+# on a seeded input; (iv)-(vi) (tests/_lm_chip.py FAMILIES) zamba2-7b at
+# 2 units, TP-only, prefill 4 x 256 and 4 decode steps; qwen2-moe-a2.7b at
+# 2 layers, TP-only, prefill 4 x 256; one FSDP + TP AdamW step each of
+# olmoe-1b-7b (2 layers), whisper-tiny (4 + 4) and xlstm-125m (2 blocks,
+# one sLSTM) at 4 x 256, at the weights' true fan-in.  The parent runs
+# each case on one device first (the references); the ranks' results
+# are held against them.
 #
 # Every gate sits 2x or more from its clean reading and from its planted
 # fault's; on an H100 at 700 W (PERF.md, phase 2l), clean / fault:
@@ -2353,15 +2359,33 @@ def train_phase(failures, smi, hbm_bw, peak_bf16, peak_f32):
 # first step is lr * sign(g), and entries whose g cancels to bf16 noise
 # flip) / 0.9996 with one dp rank's gradient lost (one device's step on
 # dp rank 0's rows, its grads halved) and 2.000 with the update's sign
-# flipped; the first moment 0.02986 / 0.8880; the second step's loss
-# 2.861e-5 / 3.681e-4 with the first update skipped; the first loss
-# keeps the reference tests' 5e-3 (1.38e-4).  MoE: layer 0's block, max
+# flipped; the first moment 0.02986 / 0.8880; the first batch's loss on
+# the state after the checkpoint, restores and remesh against one
+# device's after its own first step (gate "loss1_after", the first
+# loss's): 1.11e-3 / 10.2 with the mesh's first update skipped (its loss
+# at the init params; the step takes that batch's loss from 12.37 to
+# 2.17).  Its clean reading is the cross entropy's summation order: one
+# device summing it over the mesh's 4 vocabulary blocks reads the mesh's
+# 2.16834 (tools/ce_order_witness.py).  One device's loss of the second
+# batch after its step 2 is no reference: that order alone moves it by
+# 1.9e-4 to 2.8e-4 (two seeds), the whole first update by 3.7e-4 to
+# 7.2e-4, and the mesh reads 6.83e-4 from it (logged).  The second
+# step's loss against the second batch's loss on the live state before
+# the round trip: equal (gate "loss2"); the first loss keeps the
+# reference tests' 5e-3 (1.38e-4).  MoE: layer 0's block, max
 # |gap| over its largest output, 0 (bitwise) / 0.5138 with expert 0's
 # output dropped; the logits (gate 0.125) read one bf16 ulp, 0.03125,
-# and do not see that fault.
+# and do not see that fault.  (iv) zamba2's logits 0.0742 / 1.197 (a
+# cache slot late); (v) qwen2-moe's 0.2617 / 3.602 (one TP rank's share
+# of the shared expert lost); (vi) per step the worst leaf's master
+# change 0.1187-0.3224 / 1.974-1.996 (sign flipped) and first moment
+# 0.0094-0.0991 (olmoe's the largest: routing flips on bf16 rounding).
 LM2L_GATES = {"serve": 0.5, "flash_vs_dense": 0.25, "loss1": 5e-3,
-              "master": 0.45, "m": 0.1, "loss2": 1e-4, "moe": 0.125,
-              "moe_layer": 0.05}
+              "master": 0.45, "m": 0.1, "loss2": 1e-4, "loss1_after": 5e-3,
+              "moe": 0.125,
+              "moe_layer": 0.05, "zamba": 0.25, "qwen2moe": 0.75,
+              "step_m": 0.25}
+LM2L_LEAF_FLOOR = 1e-6
 
 
 def sharded_phase(failures, smi):
@@ -2429,18 +2453,21 @@ def sharded_phase(failures, smi):
         np.save(os.path.join(out_dir, "train", f"m{i}.npy"),
                 world.bf16_bits(m))
     del init
+    with torch.no_grad():
+        after = float(arch.loss(params, batches[0], tcfg, ctx)[0])
     _, _, met2 = step(params, state, batches[1])
-    ref_train = {"loss1": float(met1["loss"]), "loss2": float(met2["loss"])}
+    ref_train = {"loss1": float(met1["loss"]), "loss1_after": after,
+                 "loss2": float(met2["loss"])}
     del params, state
     torch.cuda.empty_cache()
-    # the planted faults, on one device: the second batch's loss with the
-    # first update skipped, and the first step with one dp rank's gradient
-    # lost (the rows of dp rank 0 alone; their mean-loss grads halved, as
+    # the second batch's loss at the init params (logged: what one
+    # device's first update moves it by), and the planted fault, on one
+    # device: the first step with one dp rank's gradient lost (the rows of dp rank 0 alone; their mean-loss grads halved, as
     # a sum over dp of per-rank shares of the whole batch's mean leaves
     # them)
     params, state, init = fresh()
     with torch.no_grad():
-        ref_train["loss2_skipped"] = float(arch.loss(
+        ref_train["loss2_init"] = float(arch.loss(
             params, batches[1], tcfg, ctx)[0])
     _, _, grads = step.grads_of(params, {
         "tokens": batches[0]["tokens"][:C["train_rows"] // 2]})
@@ -2471,6 +2498,7 @@ def sharded_phase(failures, smi):
     ref_moe_layer = ref_moe_layer.float().cpu().numpy()
     del params, lg
     torch.cuda.empty_cache()
+    ref_families = family_references(world, out_dir)
     t_ref = time.time() - t_phase
     log(f"phase 2l: single-device references in {t_ref:.1f}s "
         f"({scfg.arch} {scfg.n_layers} of 40 layers serving, "
@@ -2520,24 +2548,29 @@ def sharded_phase(failures, smi):
     def worst(gaps, key):
         return max(x[key] for x in gaps)
     mesh_gaps = tr[0]["step_gaps"]
+    # the planted fault of "loss1_after", read on the ranks: the mesh's
+    # state with its first update skipped has the first batch's loss at
+    # the init params, its first step's loss
     train = {"loss1": abs(tr[0]["loss1"] - ref_train["loss1"]),
-             "loss2": abs(tr[0]["loss2"] - ref_train["loss2"]),
-             "reference": ref_train,
-             "loss2_skipped": abs(ref_train["loss2_skipped"]
-                                  - ref_train["loss2"])}
+             "loss1_after": abs(tr[0]["loss1_after"]
+                                - ref_train["loss1_after"]),
+             "skipped": abs(tr[0]["loss1"] - ref_train["loss1_after"]),
+             "loss2": abs(tr[0]["loss2"] - tr[0]["loss2_live"]),
+             "loss2_vs_one_device": abs(tr[0]["loss2"] - ref_train["loss2"]),
+             "reference": ref_train}
     for key in ("delta_rel", "m_rel", "delta_max_rel", "m_max_rel",
                 "flipped_rel"):
         train[key] = worst(mesh_gaps, key)
         train[f"dp_lost_{key}"] = worst(lost, key)
     rec["train_gaps"] = train
-    for k in ("loss1", "loss2"):
+    for k in ("loss1", "loss1_after", "loss2"):
         if not train[k] <= g[k]:
             failures.append(f"phase 2l (ii) {k}: {train[k]:.4g} > {g[k]}")
     for k, gate in (("delta_rel", g["master"]), ("m_rel", g["m"])):
         if not train[k] <= gate:
             failures.append(f"phase 2l (ii) {k}: {train[k]:.4g} > {gate}")
     # the planted faults, each read 2x or more past its gate
-    for k, gate in (("loss2_skipped", g["loss2"]),
+    for k, gate in (("skipped", g["loss1_after"]),
                     ("flipped_rel", g["master"]),
                     ("dp_lost_delta_rel", g["master"]),
                     ("dp_lost_m_rel", g["m"])):
@@ -2605,10 +2638,16 @@ def sharded_phase(failures, smi):
         f"(max entry {train['dp_lost_delta_max_rel']:.4g} / "
         f"{train['dp_lost_m_max_rel']:.4g}); state "
         f"{tr[0]['state_bytes'] / 1e9:.2f} GB on 8 ranks; after restore "
-        f"and remesh, step 2 loss {tr[0]['loss2']:.5f} vs "
-        f"{ref_train['loss2']:.5f} (gap {train['loss2']:.4g}, gate "
-        f"{g['loss2']}; the first update skipped: "
-        f"{train['loss2_skipped']:.4g}) | card {smi}")
+        f"and remesh, the first batch's loss {tr[0]['loss1_after']:.5f} vs "
+        f"{ref_train['loss1_after']:.5f} on one device after its first "
+        f"step (gap {train['loss1_after']:.4g}, gate {g['loss1_after']}; "
+        f"planted fault, the first update skipped on the mesh: "
+        f"{train['skipped']:.4g}); step 2 loss {tr[0]['loss2']:.5f} vs "
+        f"{tr[0]['loss2_live']:.5f} on the live state before them (gap "
+        f"{train['loss2']:.4g}, gate {g['loss2']}); vs one device's step 2 "
+        f"{ref_train['loss2']:.5f} (gap {train['loss2_vs_one_device']:.4g},"
+        f" not gated; one device's first update moved it by "
+        f"{ref_train['loss2'] - ref_train['loss2_init']:.4g}) | card {smi}")
     log(f"phase 2l (iii): {mcfg.arch} logits vs one device: ep "
         f"{moe['ep']:.4g}, local {moe['local']:.4g}, ep vs local "
         f"{moe['ep_vs_local']:.4g} (gate {g['moe']}); layer 0's MoE block "
@@ -2617,10 +2656,155 @@ def sharded_phase(failures, smi):
         f"{g['moe_layer']}), planted fault (expert "
         f"{C['moe_fault_expert']}'s output dropped) "
         f"{moe['layer_fault']:.4g} | card {smi}")
+    rec["families"] = family_checks(failures, smi, world, out_dir,
+                                    ref_families, ranks)
     shutil.rmtree(out_dir, ignore_errors=True)
     rec["seconds"] = time.time() - t_phase
     log(f"phase 2l: {rec['seconds']:.1f}s (references {t_ref:.1f}s, 8 ranks"
         f" {t_world:.1f}s)")
+    return rec
+
+
+def family_references(world, out_dir) -> dict:
+    """Phase 2l (iv)-(vi) on one device (``tests/_lm_chip.py``
+    ``FAMILIES``): zamba2's and qwen2-moe's logits, and each training
+    step's loss, with the f32 master's change and the first moment per
+    leaf written to ``out_dir/<arch>/`` (bfloat16 bits) for the ranks."""
+    import numpy as np
+    from repro_torch.models import make_arch
+    from repro_torch.models.common import (init_params, scale_scores,
+                                           tree_leaves)
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.sharding import ShardCtx
+    from repro_torch.train import make_train_step
+    F = world.FAMILIES
+    zcfg, mcfg, steps = world.family_cfgs()
+    ctx, out = ShardCtx(), {"seconds": {}}
+    t0 = time.time()
+    arch = make_arch(zcfg)
+    specs = arch.param_specs(zcfg)
+    params = init_params(torch.Generator("cuda").manual_seed(
+        F["zamba_seed"]), specs, "cuda")
+    scale_scores(params, specs)
+    toks = torch.from_numpy(world.chip_tokens(
+        zcfg.vocab, F["rows"], F["prompt"] + F["decode"], salt=5)).cuda()
+    out["zamba"] = world.serve_logits(arch, zcfg, params, ctx, toks,
+                                      F["decode"], late=False)[0].numpy()
+    del params
+    out["seconds"]["zamba"] = time.time() - t0
+    t0 = time.time()
+    arch = make_arch(mcfg)
+    params = init_params(torch.Generator("cuda").manual_seed(
+        F["moe_seed"]), arch.param_specs(mcfg), "cuda")
+    toks = torch.from_numpy(world.chip_tokens(
+        mcfg.vocab, F["rows"], F["prompt"], salt=6)).cuda()
+    out["qwen2moe"] = world.serve_logits(arch, mcfg, params, ctx, toks, 0,
+                                         False)[0].numpy()
+    del params
+    torch.cuda.empty_cache()
+    out["seconds"]["qwen2moe"] = time.time() - t0
+    opt = AdamWConfig(**world.CHIP_OPT)
+    for k, (name, cfg) in enumerate(steps.items()):
+        t0 = time.time()
+        os.makedirs(os.path.join(out_dir, name))
+        params = world.step_params(cfg, "cuda")
+        state = init_opt_state(params, opt)
+        init = [t.clone() for t in tree_leaves(params, torch.is_tensor)]
+        params, state, met = make_train_step(make_arch(cfg), opt, ctx)(
+            params, state, world.family_batch(cfg, 10 + k, "cuda"))
+        for i, (p0, ma, m) in enumerate(zip(
+                init, tree_leaves(state["master"], torch.is_tensor),
+                tree_leaves(state["m"], torch.is_tensor))):
+            for key, t in (("d", ma - p0.float()), ("m", m)):
+                np.save(os.path.join(out_dir, name, f"{key}{i}.npy"),
+                        world.bf16_bits(t))
+        out[name] = float(met["loss"])
+        del params, state, init
+        torch.cuda.empty_cache()
+        out["seconds"][name] = time.time() - t0
+    return out
+
+
+def family_checks(failures, smi, world, out_dir, ref, ranks) -> dict:
+    """Phase 2l (iv)-(vi)'s checks, against ``family_references``: (iv)
+    zamba2's logits per step within ``LM2L_GATES["zamba"]`` and its
+    planted fault (a cache slot late) past twice that; (v) qwen2-moe's
+    within ``["qwen2moe"]`` and its fault (one TP rank's share of the
+    shared expert lost) past twice; (vi) per step the loss within
+    ``["loss1"]`` and, per leaf, the f32 master's change within
+    ``["master"]`` and the first moment within ``["step_m"]`` of one
+    device's (``["step_m"]``: an MoE step's routing flips between the
+    two on bf16 rounding, olmoe's worst leaf read 0.0991), the update's
+    sign flipped past twice the master's gate."""
+    import numpy as np
+    g = LM2L_GATES
+
+    def gap(a, b):
+        return float(np.abs(np.asarray(a, np.float64)
+                            - np.asarray(b, np.float64)).max())
+    got = {k: np.load(os.path.join(out_dir, f"{k}.npy")) for k in (
+        "zamba", "zamba_fault", "qwen2moe_clean", "qwen2moe_fault")}
+    zamba = [gap(got["zamba"][:, i], ref["zamba"][:, i])
+             for i in range(ref["zamba"].shape[1])]
+    rec = {"references_s": ref["seconds"],
+           "zamba": zamba, "zamba_fault": gap(got["zamba_fault"],
+                                              ref["zamba"][:, -1]),
+           "qwen2moe": gap(got["qwen2moe_clean"], ref["qwen2moe"]),
+           "qwen2moe_fault": gap(got["qwen2moe_fault"], ref["qwen2moe"]),
+           "ranks_s": {k: v for k, v in ranks[0]["chip"]["families"].items()
+                       if k.endswith("_s")}}
+    for name, clean, fault in (("zamba", max(zamba), rec["zamba_fault"]),
+                               ("qwen2moe", rec["qwen2moe"],
+                                rec["qwen2moe_fault"])):
+        if not clean <= g[name]:
+            failures.append(f"phase 2l {name}: logits part from one device"
+                            f" by {clean:.4g} > {g[name]}")
+        if not fault > 2 * g[name]:
+            failures.append(f"phase 2l {name}: the planted fault reads "
+                            f"{fault:.4g}, not above 2x the gate {g[name]}")
+    log(f"phase 2l (iv): zamba2-7b {3 * world.FAMILIES['zamba_units']} "
+        f"layers, TP-only, prefill and {world.FAMILIES['decode']} decode "
+        f"steps: logits vs one device per step "
+        f"{[round(x, 4) for x in zamba]} (gate {g['zamba']}); planted "
+        f"fault (a cache slot late) {rec['zamba_fault']:.4g} | card {smi}")
+    log(f"phase 2l (v): qwen2-moe-a2.7b {world.FAMILIES['moe_layers']} "
+        f"layers, TP-only, prefill: logits vs one device "
+        f"{rec['qwen2moe']:.4g} (gate {g['qwen2moe']}); planted fault (one "
+        f"TP rank's share of the shared expert lost) "
+        f"{rec['qwen2moe_fault']:.4g} | card {smi}")
+    for name in world.STEP_ARCHS:
+        mine = ranks[0]["chip"]["families"][name]
+        # a leaf whose gradient cancels to rounding (the sLSTM's input
+        # gate bias: 7.6e-12 against 1e-3 elsewhere) has no relative gap
+        top = max(x["m_ref_max"] for x in mine["step_gaps"])
+        gaps = [x for x in mine["step_gaps"]
+                if x["m_ref_max"] >= LM2L_LEAF_FLOOR * top]
+        row = {"loss": abs(mine["loss"] - ref[name]),
+               "step_s": mine["step_s"],
+               "leaves_below_floor": len(mine["step_gaps"]) - len(gaps)}
+        for key in ("delta_rel", "m_rel"):
+            row[key] = max(x[key] for x in gaps)
+        row["flipped_rel"] = min(x["flipped_rel"] for x in gaps)
+        rec[name] = row
+        for key, gate in (("loss", g["loss1"]), ("delta_rel", g["master"]),
+                          ("m_rel", g["step_m"])):
+            if not row[key] <= gate:
+                failures.append(f"phase 2l (vi) {name} {key}: "
+                                f"{row[key]:.4g} > {gate}")
+        if not row["flipped_rel"] > 2 * g["master"]:
+            failures.append(f"phase 2l (vi) {name}: the planted fault "
+                            f"(update's sign flipped) reads "
+                            f"{row['flipped_rel']:.4g}, not above 2x the "
+                            f"gate {g['master']}")
+        log(f"phase 2l (vi): {name}, one FSDP + TP AdamW step, "
+            f"{world.FAMILIES['rows']}x{world.FAMILIES['seq']}: loss "
+            f"{mine['loss']:.5f} vs {ref[name]:.5f} on one device; per "
+            f"leaf, worst f32 master's change {row['delta_rel']:.4g} (gate "
+            f"{g['master']}), first moment {row['m_rel']:.4g} (gate "
+            f"{g['step_m']}); planted fault, sign flipped, least "
+            f"{row['flipped_rel']:.4g}; {row['leaves_below_floor']} "
+            f"leaves below {LM2L_LEAF_FLOOR} of the largest first moment; "
+            f"step {row['step_s']:.1f}s on the ranks | card {smi}")
     return rec
 
 
@@ -2646,8 +2830,13 @@ def sharded_phase(failures, smi):
 # op in the walker's table under that kind (comm_count_gaps); (v)
 # lower_stencil's plan on 2i's (4, 2) mesh and cases (f64, sweeps 4,
 # iters 10): the exchange rounds and bytes sent per rank equal to 2i's
-# halo.EXCHANGE; (vi) lower_cell for qwen3-14b train_4k
-# and decode_32k on both production meshes (four CPU processes), logged.
+# halo.EXCHANGE; (vi) lower_cell for qwen3-14b train_4k and decode_32k on
+# both production meshes and xlstm-125m train_4k on pod16x16 (five CPU
+# processes), logged, a train_4k record past 80 GB failing; (vii) the
+# cells that once stopped in torch 2.11's DTensor (tests/_dryrun_chip.py
+# STOPPED) at the sweep test's reduced sizes, one
+# CPU process a mesh, each record's status and peak logged, an error
+# failing.
 # The planted faults, each of which must fail its gate: (i) the step
 # traced with remat off (the recompute unseen), (ii) a liveness walk that
 # never frees, (iv) every group read at twice its size, and the walker's
@@ -2655,26 +2844,45 @@ def sharded_phase(failures, smi):
 # lowered at 3 sweeps for 4.  The CPU jobs run beside (i)-(iii).
 DRYRUN_FLOPS_GATE = 0.01
 DRYRUN_PEAK_GATE = (0.8, 1.25)
-DRYRUN_CELLS = (("qwen3-14b", "train_4k"), ("qwen3-14b", "decode_32k"))
+# phase 2m's CPU jobs (tests/_dryrun_chip.py): {name: (argv, early)}.
+# The early ones, (vii) and xlstm-125m's (vi) cell (252-370 s of
+# tracing), start after 2k's timed steps and run beside 2l; the others
+# start with 2m.
+DRYRUN_JOBS = {
+    **{f"stopped_{m}": (["--job", "stopped", "--mesh", m], True)
+       for m in ("pod", "multipod")},
+    "comms": (["--job", "comms"], False),
+    **{f"{a}_{c}_{m}": (["--job", "cell", "--arch", a, "--cell", c,
+                         "--mesh", m], early)
+       for a, c, m, early in (
+           [("qwen3-14b", c, m, False) for c in ("train_4k", "decode_32k")
+            for m in ("pod", "multipod")]
+           + [("xlstm-125m", "train_4k", "pod", True)])}}
 
 
-def _dryrun_jobs(out_dir):
-    """Start phase 2m's CPU processes (tests/_dryrun_chip.py): the (iv)
-    traces and the (vi) cells.  Returns {name: (process, out path)}."""
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun2m")
+
+
+def _dryrun_jobs(early: bool):
+    """Start the jobs of ``DRYRUN_JOBS`` whose flag is ``early`` into
+    ``DRYRUN_DIR``.  Returns {name: (process, out path, log file)}."""
     script = os.path.join(ROOT, "tests", "_dryrun_chip.py")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    jobs = {"comms": ["--job", "comms"]}
-    for arch, cell in DRYRUN_CELLS:
-        for mesh in ("pod", "multipod"):
-            jobs[f"{cell}_{mesh}"] = ["--job", "cell", "--arch", arch,
-                                      "--cell", cell, "--mesh", mesh]
+    if early:
+        shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+        os.makedirs(DRYRUN_DIR)
     procs = {}
-    for name, argv in jobs.items():
-        path = os.path.join(out_dir, f"{name}.json")
-        log_f = open(os.path.join(out_dir, f"{name}.log"), "w")
+    for name, (argv, when) in DRYRUN_JOBS.items():
+        if when != early:
+            continue
+        path = os.path.join(DRYRUN_DIR, f"{name}.json")
+        log_f = open(os.path.join(DRYRUN_DIR, f"{name}.log"), "w")
         procs[name] = (subprocess.Popen(
             [sys.executable, script, *argv, "--out", path], stdout=log_f,
             stderr=subprocess.STDOUT, env=env), path, log_f)
+    # a phase that fails before 2m exits the script: no job outlives it
+    atexit.register(lambda: [p.kill() for p, _, _ in procs.values()
+                             if p.poll() is None])
     return procs
 
 
@@ -2729,9 +2937,10 @@ def comm_count_gaps(counts: dict, walked: dict, table: dict,
     return gaps
 
 
-def dryrun_phase(failures, smi, rates, sharded, distributed):
-    """Phase 2m (see the comment above ``DRYRUN_FLOPS_GATE``).  Returns
-    the record."""
+def dryrun_phase(failures, smi, rates, sharded, distributed, early):
+    """Phase 2m (see the comment above ``DRYRUN_FLOPS_GATE``); ``early``:
+    the jobs ``_dryrun_jobs(True)`` started after 2k.  Returns the
+    record."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch import PAPER_PIPELINES, PAPER_STENCILS
     from repro_torch.configs import get_config
@@ -2744,10 +2953,7 @@ def dryrun_phase(failures, smi, rates, sharded, distributed):
     from repro_torch.sharding import MeshShape, ShardCtx
     from repro_torch.train import make_train_step
     t_phase = time.time()
-    out_dir = os.path.join(ROOT, "build", "dryrun2m")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
-    procs = _dryrun_jobs(out_dir)
+    procs = {**early, **_dryrun_jobs(False)}
     rec = {"card": smi}
     try:
         # (i)-(iii): 2k (i)'s step on the card and its walked graph
@@ -2947,27 +3153,45 @@ def dryrun_phase(failures, smi, rates, sharded, distributed):
                 f"{fault_gaps}")
         log(f"phase 2m (iv): traced in {jobs['comms']['trace_s']:.1f}s on "
             "the host")
-    for arch, cell in DRYRUN_CELLS:
-        for mesh in ("pod", "multipod"):
-            r = jobs.get(f"{cell}_{mesh}")
-            if r is None:
-                continue
-            if r.get("status") != "ok":
-                failures.append(f"phase 2m (vi) {arch} {cell} {mesh}: {r}")
-                continue
-            log(f"phase 2m (vi) {arch} {cell} {r['mesh']}: trace "
-                f"{r['trace_s']:.1f}s (depths {r['traced_depths']} x "
-                f"{r['repeats']}), walk {r['walk_s']:.1f}s; per device "
-                f"{r['memory']['peak_bytes'] / 2**30:.2f} GiB peak "
-                f"(arguments {r['memory']['argument_size_in_bytes'] / 2**30:.2f}"
-                f"), {r['flops_per_device']:.4g} FLOPs, "
-                f"{r['bytes_per_device']:.4g} B, "
-                f"{r['collective_bytes_per_device']:.4g} wire B; terms "
-                f"compute {r['t_compute_s']:.4g} s, memory "
-                f"{r['t_memory_s']:.4g} s, collective "
-                f"{r['t_collective_s']:.4g} s (data-sheet rates, model "
-                f"seconds): {r['bottleneck']}-bound")
-    shutil.rmtree(out_dir, ignore_errors=True)
+    for name, (argv, _) in DRYRUN_JOBS.items():
+        r = jobs.get(name)
+        if argv[1] != "cell" or r is None:
+            continue
+        arch, cell = argv[3], argv[5]
+        if r.get("status") != "ok":
+            failures.append(f"phase 2m (vi) {name}: {r}")
+            continue
+        if cell == "train_4k" and not r["fits_hbm"]:
+            failures.append(f"phase 2m (vi) {arch} {cell} {r['mesh']}: "
+                            f"{r['memory']['peak_bytes'] / 2**30:.2f} GiB "
+                            "a device, past the card's 80 GB")
+        log(f"phase 2m (vi) {arch} {cell} {r['mesh']}: trace "
+            f"{r['trace_s']:.1f}s (depths {r['traced_depths']} x "
+            f"{r['repeats']}), walk {r['walk_s']:.1f}s; per device "
+            f"{r['memory']['peak_bytes'] / 2**30:.2f} GiB peak "
+            f"(arguments {r['memory']['argument_size_in_bytes'] / 2**30:.2f}"
+            f"), {r['flops_per_device']:.4g} FLOPs, "
+            f"{r['bytes_per_device']:.4g} B, "
+            f"{r['collective_bytes_per_device']:.4g} wire B; terms "
+            f"compute {r['t_compute_s']:.4g} s, memory "
+            f"{r['t_memory_s']:.4g} s, collective "
+            f"{r['t_collective_s']:.4g} s (data-sheet rates, model "
+            f"seconds): {r['bottleneck']}-bound")
+    # (vii): the cells that stopped in torch 2.11's DTensor before the
+    # repair, at the sweep test's reduced sizes
+    for mesh in ("pod", "multipod"):
+        r = jobs.get(f"stopped_{mesh}")
+        if r is None:
+            continue
+        for key, c in r["cells"].items():
+            if c["status"] == "error":
+                failures.append(f"phase 2m (vii) {key} {mesh}: "
+                                f"{c['error']}")
+                log(f"phase 2m (vii) {key} {mesh}: error")
+            else:
+                log(f"phase 2m (vii) {key} {mesh}: {c['status']}, peak "
+                    f"{c['peak_bytes'] / 2**30:.4f} GiB a device (reduced)")
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     rec["seconds"] = time.time() - t_phase
     log(f"phase 2m: {rec['seconds']:.1f}s")
     return rec
@@ -4224,6 +4448,8 @@ def main() -> int:
     train = train_phase(failures, smi, hbm_bw, peak_bf16_tc, peak_f32)
     if failures:
         raise SystemExit("phase 2k failed:\n" + "\n".join(failures))
+    # phase 2m's long CPU jobs start here and run beside 2l
+    early = _dryrun_jobs(True)
 
     # ---- phase 2l: the sharded LM paths, eight ranks on the card ---------
     torch.cuda.empty_cache()
@@ -4234,7 +4460,7 @@ def main() -> int:
     # ---- phase 2m: the dry run held against the card ---------------------
     torch.cuda.empty_cache()
     dry = dryrun_phase(failures, smi, {"bytes": hbm_bw, "bf16": peak_bf16_tc},
-                       sharded, distributed)
+                       sharded, distributed, early)
     if failures:
         raise SystemExit("phase 2m failed:\n" + "\n".join(failures[:40]))
 

@@ -255,11 +255,22 @@ def end_fake_world() -> None:
     if dist.is_initialized() and dist.get_backend() == "fake":
         dist.destroy_process_group()
     # DTensor's own caches hold plans on the meshes of the world just
-    # ended, which a new world's meshes hash equal to
+    # ended, which a new world's meshes hash equal to: a plan served from
+    # them carries an old mesh, whose groups' names the new world has
+    # given to other groups (a collective then reads another group's
+    # size)
     from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _collective_utils as cu
     from torch.distributed.tensor import _redistribute as rd
     prop = DTensor._op_dispatcher.sharding_propagator
     for fn in (getattr(prop.propagate_op_sharding, "cache_clear", None),
+               getattr(getattr(type(prop), "_propagate_tensor_meta_cached",
+                               None), "cache_clear", None),
+               getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                       None),
+               getattr(getattr(getattr(cu, "MeshTopoInfo", None),
+                               "build_from_mesh", None), "cache_clear",
+                       None),
                getattr(getattr(rd, "_gen_transform_infos", None),
                        "cache_clear", None),
                getattr(rd, "clear_redistribute_planner_cache", None)):
@@ -492,15 +503,20 @@ def seq_plan(cfg, cell, mesh: MeshShape) -> tuple[int, int] | None:
     """(seq, k): three traces of an xLSTM prefill or training cell at
     ``seq``, ``2 seq`` and ``3 seq`` carried to ``cell.seq_len = k seq``;
     ``None``: trace every position.  xLSTM steps its sLSTM one token at
-    a time in Python (the reference scans it): a step's FLOPs are linear
-    in the sequence, its bytes quadratic (each step's slice of the whole
-    sequence has a whole-sequence grad), so a quadratic through three
-    traces is exact.  ``seq`` is one chunk a rank of the "model" axis,
-    which splits the sequence; the traces are used only where they
-    cover a sixth of the cell or less."""
+    a time in Python (the reference scans it), so a trace grows with the
+    sequence in nodes as well as in work; a step's FLOPs, bytes and peak
+    are linear in the sequence (the per-step inputs come from one
+    ``unbind``), and a quadratic through three traces carries them
+    exactly.  ``seq`` is the least length that holds two or more whole
+    mLSTM chunks and gives each rank of the "model" axis, which splits
+    the residual stream's sequence, two or more positions (a trace of one
+    chunk, or of one position a rank, takes other paths, and its peak
+    falls elsewhere); the traces are used only where they cover a
+    sixth of the cell or less."""
     if family_impl(cfg) != "xlstm" or cell.kind == "decode":
         return None
-    base = (cfg.ssm.chunk if cfg.ssm else 64) * mesh.shape["model"]
+    base = math.lcm(2 * (cfg.ssm.chunk if cfg.ssm else 64),
+                    2 * mesh.shape["model"])
     if cell.seq_len % base or cell.seq_len < SEQ_EXTEND_MIN * base:
         return None
     return base, cell.seq_len // base

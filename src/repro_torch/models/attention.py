@@ -62,6 +62,7 @@ class AttnCfg:
     impl: str = "auto"                 # auto|dense|blockwise
     decode_seq_shard: bool = False     # flash-decode: KV seq over TP group
     fuse_qkv: bool = False             # one fused qkv projection
+    split_cols: bool = False           # split products by columns (_split)
 
     @property
     def group(self) -> int:
@@ -296,10 +297,30 @@ def _core_on_mesh(q, k, v, qpos, pos0: int, c: AttnCfg, ctx: ShardCtx,
     return from_local(o, mesh, pl)
 
 
-def _heads(x, w):
-    """einsum("bsd,dhk->bhsk", x, w) as one product."""
+def _split(w, dim: int, split):
+    """``w`` with its heads (``dim``) and the dim after merged; where
+    ``split`` (a ShardCtx: the config's ``split_cols``) has a "model"
+    axis that the heads do not divide, the merged dim on it (a local
+    slice of a weight the axis replicates)."""
+    nh, w = w.shape[dim], merge_dims(w, dim)
+    if split is None or nh % axis_size(split.cmesh, "model") == 0:
+        return w
+    return split.constrain(w, *(("tp", None) if dim == 0 else (None, "tp")))
+
+
+def split_of(c: AttnCfg, ctx: ShardCtx):
+    """``ctx`` where ``c.split_cols`` and the mesh has a "model" axis (the
+    ``split`` of :func:`_split`), else ``None``."""
+    return (ctx if c.split_cols and is_device_mesh(ctx.mesh)
+            and "model" in axis_names(ctx.mesh) else None)
+
+
+def _heads(x, w, split=None):
+    """einsum("bsd,dhk->bhsk", x, w) as one product; ``split``: its
+    columns on "model" (:func:`_split`), gathered back into heads."""
     d, nh, dh = w.shape
-    return unflatten_dim(x @ merge_dims(w), -1, (nh, dh)).transpose(1, 2)
+    return unflatten_dim(x @ _split(w, 1, split), -1,
+                         (nh, dh)).transpose(1, 2)
 
 
 def attention(
@@ -317,18 +338,19 @@ def attention(
     K/V already and is read as it is (``kv_x``'s values are not used)."""
     b, s, _ = x.shape
     cross_cached = kv_x is not None and cache is not None
+    split = split_of(c, ctx)
     if c.fuse_qkv and kv_x is None:
         qkv = _heads(x, p["wqkv"])
         q = qkv[:, :c.n_heads]
         k = qkv[:, c.n_heads:c.n_heads + c.n_kv]
         v = qkv[:, c.n_heads + c.n_kv:]
     else:
-        q = _heads(x, p["wq"])
+        q = _heads(x, p["wq"], split)
         if cross_cached:
             k, v = cache["k"], cache["v"]
         else:
             src = x if kv_x is None else kv_x
-            k, v = _heads(src, p["wk"]), _heads(src, p["wv"])
+            k, v = _heads(src, p["wk"], split), _heads(src, p["wv"], split)
 
     if c.qk_norm:                      # the default eps, not cfg.norm_eps
         q = rms_norm(q, p["q_norm"])
@@ -365,5 +387,5 @@ def attention(
         o = _core(q, k, v, qpos, pos0, c, cache is None and kv_x is None,
                   kv_len)
     o = o.transpose(1, 2)
-    y = matmul_rows(merge_dims(o), merge_dims(p["wo"], 0))
+    y = matmul_rows(merge_dims(o), _split(p["wo"], 0, split))
     return ctx.constrain(y, "dp", None, None), cache

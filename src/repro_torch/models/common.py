@@ -18,8 +18,7 @@ import torch.utils.checkpoint
 
 from ..device import resolve_device
 from ..sharding import (NamedSharding, as_dtensor, distribute, from_local,
-                        is_device_mesh, is_dtensor, placements, resolve,
-                        whole_along)
+                        is_device_mesh, is_dtensor, placements, resolve)
 
 PyTree = Any
 DEFAULT_PARAM_DTYPE = torch.bfloat16
@@ -303,18 +302,99 @@ def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return from_local(gold, mesh, rows, labels.shape)
 
 
+class _SplitVocabCE(torch.autograd.Function):
+    """(logsumexp, gold logit) per row of this rank's block of logits
+    split over the vocabulary: the block's max, exps and gold logit
+    joined by MAX/SUM all-reduces over ``groups`` (the vocabulary's mesh
+    dims); the backward is the softmax and the onehot on the block, each
+    scaled by its output's grad (``softmax - onehot`` for the mean loss),
+    with no collective."""
+
+    @staticmethod
+    def forward(ctx, x, labels, lo: int, groups):
+        import torch.distributed as dist
+        m = torch.amax(x, dim=-1)
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        s = torch.sum(torch.exp(x - m[..., None]), dim=-1)
+        for g in groups:
+            dist.all_reduce(s, group=g)
+        lse = m + torch.log(s)
+        idx = labels.long() - lo
+        hit = (idx >= 0) & (idx < x.shape[-1])
+        idx = torch.where(hit, idx, 0)
+        gold = torch.gather(x, -1, idx[..., None])[..., 0]
+        gold = torch.where(hit, gold, 0.0)
+        for g in groups:
+            dist.all_reduce(gold, group=g)
+        ctx.save_for_backward(x, lse, idx, hit)
+        return lse, gold
+
+    @staticmethod
+    def backward(ctx, g_lse, g_gold):
+        x, lse, idx, hit = ctx.saved_tensors
+        grad = torch.exp(x - lse[..., None])
+        if g_lse is None:
+            grad.zero_()
+        else:
+            grad.mul_(g_lse[..., None])
+        if g_gold is not None:
+            grad.scatter_add_(-1, idx[..., None],
+                              torch.where(hit, g_gold, 0.0)[..., None])
+        return grad, None, None, None
+
+
+def _lse_gold_split(logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp, gold logit) of a DTensor of logits split over the
+    vocabulary (its last dim), Megatron's vocabulary-parallel cross
+    entropy: each rank keeps its block, and only (rows,) vectors cross
+    ranks.  Both come back split as the logits' rows are."""
+    from torch.distributed.tensor import Replicate, Shard
+    from ..sharding import block_start, normalized
+    mesh, v = logits.device_mesh, logits.ndim - 1
+    places = normalized(logits.placements, logits.ndim)
+    if any(p.is_partial() for p in places):
+        places = tuple(Replicate() if p.is_partial() else p for p in places)
+        logits = logits.redistribute(mesh, places)
+    vocab = [j for j, p in enumerate(places)
+             if isinstance(p, Shard) and p.dim == v]
+    rows = tuple(Replicate() if j in vocab else p
+                 for j, p in enumerate(places))
+    labels = as_dtensor(labels, mesh)
+    if normalized(labels.placements, labels.ndim) != rows:
+        labels = labels.redistribute(mesh, rows)
+    lse, gold = _SplitVocabCE.apply(
+        logits.to_local(), labels.to_local(), block_start(logits, v),
+        [mesh.get_group(j) for j in vocab])
+    return (from_local(lse, mesh, rows, labels.shape),
+            from_local(gold, mesh, rows, labels.shape))
+
+
+def _vocab_split(logits: torch.Tensor) -> bool:
+    from torch.distributed.tensor import Shard
+    from ..sharding import normalized
+    return is_dtensor(logits) and any(
+        isinstance(p, Shard) and p.dim == logits.ndim - 1
+        for p in normalized(logits.placements, logits.ndim))
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None,
                   z_loss: float = 0.0) -> torch.Tensor:
     """Mean next-token CE.  logits (..., V) f32; labels (...) int.
 
-    On a mesh, logits sharded over the vocabulary are gathered over it
-    first: the gold logit's gather from a vocabulary-sharded DTensor has
-    no working DTensor form (its masked partial result fails to
-    reduce)."""
-    logits = whole_along(logits, -1).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = _gold(logits, labels)
+    On a mesh, logits split over the vocabulary stay split: the
+    logsumexp and the gold logit are joined across the vocabulary's
+    ranks (:func:`_lse_gold_split`), as XLA partitions the reference's
+    over its ``("dp", None, "tp")`` logits, so no rank holds a row of the
+    whole vocabulary.  Logits whose vocabulary is whole take the gold
+    logit on each rank's rows (:func:`_gold`)."""
+    if _vocab_split(logits):
+        lse, gold = _lse_gold_split(logits.float(), labels)
+    else:
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = _gold(logits, labels)
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * lse ** 2

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..sharding import ShardCtx
+from ..sharding import ShardCtx, matmul_rows
 from .common import PSpec, rms_norm
 from .config import ModelConfig
 
@@ -113,9 +113,11 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     chunk_decay = torch.exp(torch.sum(la, dim=-1))        # (b,c,h)
     s = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
     s_prevs = []
-    for ci in range(nc):
+    # per-chunk views from one unbind each: their grads stack once (a
+    # select per chunk would add a zero tensor of every chunk per chunk)
+    for decay_c, S_c in zip(chunk_decay.unbind(1), S.unbind(1)):
         s_prevs.append(s)
-        s = chunk_decay[:, ci, :, None, None] * s + S[:, ci]
+        s = decay_c[:, :, None, None] * s + S_c
     s_prev = torch.stack(s_prevs, dim=1)                  # (b,c,h,p,n)
 
     # contribution of earlier chunks: C_i . (decay_from_start_i * S_prev)
@@ -149,17 +151,29 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx,
     di = s.d_inner(d)
     h = s.n_heads(d)
     n = s.n_groups * s.d_state
-
-    z = x @ p["wz"]
-    xin = x @ p["wx"]
-    Bp = x @ p["wB"]
-    Cp = x @ p["wC"]
-    dt = x @ p["wdt"]
+    # batched over the rows (sharding.matmul_rows): a product's backward
+    # views its grad as rows, which torch 2.11 refuses for a grad whose
+    # sequence dim DTensor split over "model"; each placed as its weight's
+    # columns are (torch 2.11 cannot add a split bias to a partial sum)
+    z = ctx.constrain(matmul_rows(x, p["wz"]), "dp", None, "tp")
+    xin = ctx.constrain(matmul_rows(x, p["wx"]), "dp", None, "tp")
+    Bp = ctx.constrain(matmul_rows(x, p["wB"]), "dp", None, None)
+    Cp = ctx.constrain(matmul_rows(x, p["wC"]), "dp", None, None)
+    dt = ctx.constrain(matmul_rows(x, p["wdt"]), "dp", None, "tp")
 
     conv_in = torch.cat([xin, Bp.to(xin.dtype), Cp.to(xin.dtype)], dim=-1)
-    conv_out, conv_state = _causal_conv(
-        conv_in, p["conv_w"], p["conv_b"],
-        state["conv"] if state is not None else None)
+    # depthwise, on each rank's rows with the channels whole (torch 2.11's
+    # DTensor fails to plan the pad's redistribution in training, and
+    # to cut x, B and C out of channels split over "model")
+    chans = ("dp", None, None)
+    st = () if state is None else (state["conv"],)
+    conv_out, conv_state = ctx.blocks(
+        _causal_conv,
+        [chans, (None, None), (None,)] + [chans] * len(st),
+        [(conv_in.shape, chans),
+         ((b, s.d_conv - 1, conv_in.shape[-1]), chans)],
+        conv_in, p["conv_w"], p["conv_b"], *st)
+    conv_state = ctx.constrain(conv_state, "dp", None, "tp")  # the state's
     xin = conv_out[..., :di]
     Bp = conv_out[..., di:di + n]
     Cp = conv_out[..., di + n:]
@@ -169,12 +183,24 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx,
     xh = xin.reshape(b, l, h, s.head_dim)
     xh = ctx.constrain(xh, "dp", None, "tp", None)
 
+    # the scan on each rank's (batch, heads) blocks: its reshapes and
+    # products over batch, chunk and heads have no DTensor view on torch
+    # 2.11; B and C are whole on every head's rank
+    heads = ("dp", None, "tp", None)
+    bc = ("dp", None, None)
+    st_ax = ((b, h, s.head_dim, n), ("dp", "tp", None, None))
     if state is None or l > 1:
-        y, final_state = ssd_chunked(xh, dtf, A, Bp, Cp, s.chunk)
+        y, final_state = ctx.blocks(
+            lambda *a: ssd_chunked(*a, s.chunk),
+            [heads, heads[:3], ("tp",), bc, bc],
+            [(xh.shape, heads), st_ax], xh, dtf, A, Bp, Cp)
         new_state = {"conv": conv_state, "ssm": final_state}
     else:
-        new_ssm, y1 = ssd_step(state["ssm"], xh[:, 0], dtf[:, 0], A,
-                               Bp[:, 0], Cp[:, 0])
+        new_ssm, y1 = ctx.blocks(
+            ssd_step, [st_ax[1], heads[:1] + heads[2:], ("dp", "tp"),
+                       ("tp",), bc[:1] + bc[2:], bc[:1] + bc[2:]],
+            [st_ax, ((b, h, s.head_dim), ("dp", "tp", None))],
+            state["ssm"], xh[:, 0], dtf[:, 0], A, Bp[:, 0], Cp[:, 0])
         y = y1[:, None]
         new_state = {"conv": conv_state, "ssm": new_ssm}
 

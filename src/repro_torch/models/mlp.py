@@ -33,17 +33,26 @@ def mlp_param_specs(d_model: int, d_ff: int, act: str) -> dict[str, PSpec]:
     }
 
 
+def gated_in(x: torch.Tensor, w_in: torch.Tensor, ctx: ShardCtx,
+             *axes: str | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(gate, up): ``x`` against the two halves of ``w_in`` (d, 2, f),
+    each constrained to the logical ``axes`` where they are given.  On a
+    mesh one product per half, on one device one product over the
+    flattened weight (see the module's docstring)."""
+    if is_dtensor(w_in):
+        gate, up = (x @ w_in[:, z] for z in (0, 1))
+        if axes:
+            gate, up = (ctx.constrain(t, *axes) for t in (gate, up))
+        return gate, up
+    h = (x @ w_in.reshape(w_in.shape[0], -1)).unflatten(-1, w_in.shape[1:])
+    if axes:
+        h = ctx.constrain(h, *axes[:-1], None, axes[-1])
+    return h[..., 0, :], h[..., 1, :]
+
+
 def mlp(p: dict, x: torch.Tensor, act: str, ctx: ShardCtx) -> torch.Tensor:
-    d = x.shape[-1]
     if act in GATED:
-        w_in = p["w_in"]
-        if is_dtensor(w_in):
-            gate, up = (ctx.constrain(x @ w_in[:, z], "dp", None, "tp")
-                        for z in (0, 1))
-        else:
-            h = (x @ w_in.reshape(d, -1)).unflatten(-1, w_in.shape[1:])
-            h = ctx.constrain(h, "dp", None, None, "tp")
-            gate, up = h[..., 0, :], h[..., 1, :]
+        gate, up = gated_in(x, p["w_in"], ctx, "dp", None, "tp")
         if act == "swiglu":
             h = F.silu(gate.float()).to(x.dtype) * up
         else:

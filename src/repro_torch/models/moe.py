@@ -15,8 +15,10 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from ..sharding import ShardCtx, from_local, is_dtensor, whole_along
+from ..sharding import (ShardCtx, from_local, is_dtensor, local_map,
+                        whole_along)
 from .common import PSpec
+from .mlp import gated_in
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +88,7 @@ def moe_ffn(p: dict, x: torch.Tensor, m: MoeCfg, ctx: ShardCtx
     while n % g:
         g -= 1
     ng = n // g                               # tokens per group
-    xt = ctx.constrain(x.reshape(g, ng, d), "dp", None, None)
+    xt, rows = _group_tokens(x, g, ctx)
     if is_dtensor(xt):
         mesh, pl = xt.device_mesh, xt.placements
 
@@ -164,12 +166,44 @@ def moe_ffn(p: dict, x: torch.Tensor, m: MoeCfg, ctx: ShardCtx
     y = groups(torch.sum(ya.reshape(gl, ng, m.top_k, d), dim=2))
 
     if m.n_shared:
-        hshared = torch.einsum("gnd,dzf->gnzf", xt, p["shared_w_in"])
-        gate, up = hshared[:, :, 0], hshared[:, :, 1]
+        gate, up = gated_in(xt, p["shared_w_in"], ctx)
         hs = F.silu(gate.float()).to(x.dtype) * up
-        ys = torch.einsum("gnf,fd->gnd", hs, p["shared_w_out"])
-        sg = torch.sigmoid(torch.einsum("gnd,dz->gnz", xt.float(),
-                                        p["shared_gate"].float()))
+        # each product's grad arrives over the groups' rows (its
+        # backward views it as rows; a row dim split over "model" has no
+        # such view on torch 2.11)
+        ys = ctx.constrain(torch.einsum("gnf,fd->gnd", hs,
+                                        p["shared_w_out"]), "dp", None, None)
+        sg = torch.sigmoid(ctx.constrain(torch.einsum(
+            "gnd,dz->gnz", xt.float(), p["shared_gate"].float()),
+            "dp", None, None))
         y = y + ys * sg.to(y.dtype)
 
-    return y.reshape(b, s, d), aux
+    if rows is None:
+        return y.reshape(b, s, d), aux
+    y = ctx.constrain(y, "dp", None, None)
+    if tuple(y.placements) != rows:
+        y = y.redistribute(y.device_mesh, rows)
+    return local_map(lambda t: t.reshape(-1, s, d), y.device_mesh, [rows],
+                     rows, y), aux
+
+
+def _group_tokens(x: torch.Tensor, g: int, ctx: ShardCtx):
+    """(x (B, S, D) as ``g`` groups of consecutive tokens (g, B*S/g, D),
+    constrained over ``dp``; on a mesh, the placements of the rows each
+    rank's groups were cut from, else ``None``).  On a mesh the
+    sequence is made whole and each rank cuts its groups from its own
+    rows (:func:`~repro_torch.sharding.local_map`), which are the same
+    tokens wherever ``dp`` splits the rows and the groups alike (else the
+    rows are made whole): a flatten of (B, S) with S split over "model"
+    has no DTensor view on torch 2.11."""
+    b, s, d = x.shape
+    if not is_dtensor(x):
+        return ctx.constrain(x.reshape(g, -1, d), "dp", None, None), None
+    from torch.distributed.tensor import Replicate
+    rows = ctx.placements_for(x.shape, "dp", None, None)
+    if rows != ctx.placements_for((g, b * s // g, d), "dp", None, None):
+        rows = (Replicate(),) * len(rows)
+    ng = b * s // g
+    xt = local_map(lambda t: t.reshape(-1, ng, d), x.device_mesh, [rows],
+                   rows, x)
+    return ctx.constrain(xt, "dp", None, None), rows

@@ -19,18 +19,20 @@ import torch
 from ..device import resolve_device
 from ..sharding import ShardCtx
 from .attention import (AttnCfg, _heads, attention, attn_param_specs,
-                        make_cache)
+                        make_cache, split_of)
 from .common import (PSpec, cross_entropy, layer_norm, place_state, remat,
                      sinusoidal_positions, stack_specs, tree_map)
 from .config import ModelConfig
 from .mlp import mlp, mlp_param_specs
+from .transformer import lookup
 
 
 def _attn_cfg(cfg: ModelConfig, causal: bool) -> AttnCfg:
     return AttnCfg(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
         d_head=cfg.d_head, causal=causal, rope_theta=None,
-        block_q=cfg.block_q, block_k=cfg.block_k, impl=cfg.attn_impl)
+        block_q=cfg.block_q, block_k=cfg.block_k, impl=cfg.attn_impl,
+        split_cols=True)
 
 
 def _ln_specs(d: int) -> dict[str, PSpec]:
@@ -130,40 +132,48 @@ def _dec_layer(cfg: ModelConfig, ctx: ShardCtx, lp, lc, h, enc_out,
     return h + mlp(lp["mlp"], _ln(h, lp["ln3"]), "gelu", ctx)
 
 
-def _embed_dec(params, tokens, pos0: int, cfg: ModelConfig):
+def _embed_dec(params, tokens, pos0: int, cfg: ModelConfig,
+               ctx: ShardCtx | None = None):
     """Token embeddings plus learned positions pos0..pos0+s-1; the start
     is clamped to [0, max_seq - s], as the reference's ``dynamic_slice``
-    clamps it."""
-    h = params["embed"][tokens]
+    clamps it.  On a mesh the rows are looked up on each rank's block of
+    the table (the transformer's ``lookup``): DTensor's own gather and
+    its backward (``aten.index_put``) fail there on torch 2.11 and 2.13."""
+    ctx = ctx or ShardCtx()
+    h = lookup(params["embed"], tokens, ctx)
     s = tokens.shape[1]
     start = min(max(pos0, 0), params["pos_dec"].shape[0] - s)
     pos = params["pos_dec"][start:start + s]
-    return h + pos[None].to(h.dtype)
+    return ctx.constrain(h + pos[None].to(h.dtype), "dp", None, None)
 
 
-def _logits(params, h):
+def _logits(params, h, ctx: ShardCtx):
+    h = ctx.constrain(h, "dp", None, None)
     return (h @ params["embed"].T).float()
 
 
 def whisper_loss(params, batch, cfg: ModelConfig, ctx: ShardCtx):
     """The training loss; autograd differentiates it."""
-    params = ctx.on_cmesh(params)
+    params = ctx.gather_weights(params)
     enc_out = encode(params, batch["frames"], cfg, ctx)
     tokens = batch["tokens"]
-    h = _embed_dec(params, tokens, 0, cfg)
+    h = _embed_dec(params, tokens, 0, cfg, ctx)
     h, _ = decode_stack(params, h, enc_out, cfg, ctx)
-    logits = ctx.constrain(_logits(params, h[:, :-1]), "dp", None, "tp")
+    logits = ctx.constrain(_logits(params, h[:, :-1], ctx),
+                           "dp", None, "tp")
     loss = cross_entropy(logits, tokens[:, 1:])
     return loss, {"loss": loss}
 
 
-def _cross_kv(params, enc_out, cfg: ModelConfig):
+def _cross_kv(params, enc_out, cfg: ModelConfig,
+              ctx: ShardCtx | None = None):
     """Per-layer cross K/V of the encoder output, stacked, in its dtype."""
     ks, vs = [], []
+    split = split_of(_attn_cfg(cfg, causal=False), ctx or ShardCtx())
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_layers"], i)["cross_attn"]
-        ks.append(_heads(enc_out, lp["wk"]))
-        vs.append(_heads(enc_out, lp["wv"]))
+        ks.append(_heads(enc_out, lp["wk"], split))
+        vs.append(_heads(enc_out, lp["wv"], split))
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -197,7 +207,7 @@ def whisper_state_init(cfg: ModelConfig, batch: int, max_len: int,
 def whisper_prefill(params, batch, cfg: ModelConfig, ctx: ShardCtx,
                     max_len: int | None = None):
     """Encode the audio and run the decoder prompt, building the caches."""
-    params = ctx.on_cmesh(params)
+    params = ctx.gather_weights(params)
     enc_out = encode(params, batch["frames"], cfg, ctx)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -208,18 +218,18 @@ def whisper_prefill(params, batch, cfg: ModelConfig, ctx: ShardCtx,
     caches = {"self": place_state(
                   self_c, whisper_state_specs(cfg, b, max_len or s)["self"],
                   ctx),
-              "cross": _cross_kv(params, enc_out, cfg)}
-    h = _embed_dec(params, tokens, 0, cfg)
+              "cross": _cross_kv(params, enc_out, cfg, ctx)}
+    h = _embed_dec(params, tokens, 0, cfg, ctx)
     h, caches = decode_stack(params, h, None, cfg, ctx, pos0=0,
                              caches=caches, cache_len=0)
-    return caches, s, _logits(params, h[:, -1:])
+    return caches, s, _logits(params, h[:, -1:], ctx)
 
 
 def whisper_decode(params, caches, cache_len: int, tokens, cfg: ModelConfig,
                    ctx: ShardCtx):
-    params = ctx.on_cmesh(params)
-    h = _embed_dec(params, tokens, cache_len, cfg)
+    params = ctx.gather_weights(params)
+    h = _embed_dec(params, tokens, cache_len, cfg, ctx)
     h, caches = decode_stack(params, h, None, cfg, ctx, pos0=cache_len,
                              caches=caches, cache_len=cache_len)
-    logits = ctx.constrain(_logits(params, h), "dp", None, "tp")
+    logits = ctx.constrain(_logits(params, h, ctx), "dp", None, "tp")
     return caches, cache_len + tokens.shape[1], logits

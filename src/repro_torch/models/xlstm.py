@@ -23,8 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..sharding import (ShardCtx, from_local, is_dtensor, merge_dims,
-                        unflatten_dim)
+from ..sharding import (ShardCtx, from_local, is_dtensor, matmul_rows,
+                        merge_dims, unflatten_dim)
 from .common import PSpec, cross_entropy, place_state, remat, rms_norm
 from .config import ModelConfig
 from .transformer import embed, unembed
@@ -47,9 +47,26 @@ def _log_sigmoid(x):
                       x.shape)
 
 
-def _proj(x, w):
-    """einsum("bld,dhp->blhp", x, w) as one product."""
-    return unflatten_dim(x @ merge_dims(w, 1), -1, w.shape[1:])
+def _proj(x, w, split: ShardCtx | None = None, heads: bool = True):
+    """einsum("bld,dhp->blhp", x, w) as one product (batched over the
+    rows on a mesh: :func:`~repro_torch.sharding.matmul_rows`); without
+    ``heads``, its (b, l, h*p) view.  ``split`` (the fallback of
+    :func:`_split_cols`) puts the product's columns on "model"."""
+    wm = merge_dims(w, 1)
+    if split is not None:
+        wm = split.constrain(wm, None, "tp")
+    y = matmul_rows(x, wm)
+    return unflatten_dim(y, -1, w.shape[1:]) if heads else y
+
+
+def _split_cols(ctx: ShardCtx, bax, hax) -> ShardCtx | None:
+    """``ctx`` where a block's scan falls back to its rows over ``dp``
+    and its heads whole (too few heads for "model", too few rows for the
+    mesh: ``ShardCtx.scan_axes``), else ``None``.  There the scan runs
+    whole on every "model" rank, and the block's products split over
+    "model" by their columns (heads x head dim, gathered for the scan)
+    and by their contraction (the output product, summed)."""
+    return ctx if (bax, hax) == ("dp", None) else None
 
 
 # ---------------------------------------------------------------------------
@@ -93,9 +110,12 @@ def mlstm_sequential(q, k, v, log_i, log_f, state=None):
     C, n, m = state if state is not None else _mlstm_zero_state(
         b, h, p, q.device)
     ys = []
-    for t in range(l):
-        qt, kt, vt = q[:, t].float(), k[:, t].float(), v[:, t].float()
-        li, lf = log_i[:, t], log_f[:, t]
+    # per-step views from one unbind each: their grads stack once (a
+    # select per step would add a zero tensor of the whole sequence per
+    # step, quadratic in it)
+    for qt, kt, vt, li, lf in zip(*(a.unbind(1) for a in
+                                    (q, k, v, log_i, log_f))):
+        qt, kt, vt = qt.float(), kt.float(), vt.float()
         m_new = torch.maximum(lf + m, li)
         fprime = torch.exp(lf + m - m_new)
         iprime = torch.exp(li - m_new)
@@ -144,9 +164,9 @@ def mlstm_chunked(q, k, v, log_i, log_f, chunk: int, state=None):
     logD = torch.where(tri, logD, -torch.inf)     # (b,c,h,i,j)
 
     ys = []
-    for ci in range(nc):
-        qh, kh, vh = qc[:, ci], kc[:, ci], vc[:, ci]            # (b,h,q,p)
-        li, Fb, Ft, logD_b = lic[:, ci], Fc[:, ci], Ftot[:, ci], logD[:, ci]
+    # per-chunk views from one unbind each (see mlstm_sequential)
+    for qh, kh, vh, li, Fb, Ft, logD_b in zip(*(
+            a.unbind(1) for a in (qc, kc, vc, lic, Fc, Ftot, logD))):
         # stabilizer per position: max over inter (Fb + m) and intra terms
         m_pos = torch.maximum(Fb + m[..., None], torch.amax(logD_b, dim=-1))
         w = torch.exp(logD_b - m_pos[..., None])                # (b,h,i,j)
@@ -171,31 +191,63 @@ def mlstm_chunked(q, k, v, log_i, log_f, chunk: int, state=None):
     return y, (C, n, m)
 
 
+def _state_axes(shapes, axes) -> list:
+    """(shape, logical axes) of each state leaf (b, h, ...): ``axes``
+    for its batch and heads (``ShardCtx.scan_axes``)."""
+    return [(s, tuple(axes) + (None,) * (len(s) - 2)) for s in shapes]
+
+
 def mlstm_block(pp: dict, x, cfg: ModelConfig, ctx: ShardCtx, state=None):
     b, l, d = x.shape
     h, p = cfg.n_heads, mlstm_pdim(cfg)
     # the sequence whole for the products and the chunked scan (the
     # residual keeps its split; Megatron's sequence parallelism)
     xn = ctx.constrain(layer_norm_like(x, pp["ln"], cfg), "dp", None, None)
-    q = _proj(xn, pp["wq"])
+    bax, hax = ctx.scan_axes(b, h)
+    split = _split_cols(ctx, bax, hax)
+    q = _proj(xn, pp["wq"], split)
     # K over sqrt(p) taken in x's dtype (bfloat16 makes sqrt(384)
     # 19.625), as a host number: no device tensor, no copy per call
-    k = _proj(xn, pp["wk"]) / float(
+    k = _proj(xn, pp["wk"], split) / float(
         torch.sqrt(torch.tensor(float(p), dtype=x.dtype)))
-    v = _proj(xn, pp["wv"])
+    v = _proj(xn, pp["wv"], split)
     xf = xn.float()
-    log_i = xf @ pp["wi"] + pp["bi"]
-    log_f = _log_sigmoid(xf @ pp["wf"] + pp["bf"])
-    if l == 1 and state is not None:
-        y, new_state = mlstm_sequential(q, k, v, log_i, log_f, state)
-    else:
-        y, new_state = mlstm_chunked(q, k, v, log_i, log_f,
-                                     chunk=cfg.ssm.chunk if cfg.ssm else 64,
-                                     state=state)
-    og = torch.sigmoid(_proj(xf, pp["wog"].float()))
-    yh = y * og
-    out = merge_dims(yh.to(x.dtype)) @ merge_dims(pp["out"], 0)
-    return x + ctx.constrain(out, "dp", None, None), new_state
+    log_i = matmul_rows(xf, pp["wi"]) + pp["bi"]
+    log_f = _log_sigmoid(matmul_rows(xf, pp["wf"]) + pp["bf"])
+    chunk = cfg.ssm.chunk if cfg.ssm else 64
+
+    def scan(q, k, v, log_i, log_f, *st):
+        if l == 1 and st:
+            y, st = mlstm_sequential(q, k, v, log_i, log_f, st)
+        else:
+            y, st = mlstm_chunked(q, k, v, log_i, log_f, chunk=chunk,
+                                  state=st or None)
+        return (y,) + tuple(st)
+    # on a mesh, on each rank's (batch, heads) blocks: the scan's
+    # reshapes, its cumsum (whose backward is aten.flip) and its small
+    # per-chunk ops have no DTensor form on torch 2.11 or take one plan
+    # each
+    heads = (bax, None, hax, None)
+    st_axes = _state_axes(((b, h, p, p), (b, h, p), (b, h)), (bax, hax))
+    y, *new_state = ctx.blocks(
+        scan, [heads] * 3 + [heads[:3]] * 2
+        + [ax for _, ax in st_axes[:len(state or ())]],
+        [(q.shape, heads)] + st_axes, q, k, v, log_i, log_f,
+        *(state or ()))
+    new_state = tuple(new_state)
+    og = torch.sigmoid(_proj(xf, pp["wog"].float(), split, heads=False))
+    yh = merge_dims(y) * og
+    return x + _out(yh.to(x.dtype), pp["out"], ctx, split), new_state
+
+
+def _out(y, w, ctx: ShardCtx, split: ShardCtx | None):
+    """The block's output product, y (b, l, h*p) against ``w`` (h, p,
+    d), on the residual's axes; ``split``: its contraction on "model"
+    (:func:`_split_cols`)."""
+    wm = merge_dims(w, 0)
+    if split is not None:
+        wm = split.constrain(wm, "tp", None)
+    return ctx.constrain(matmul_rows(y, wm), "dp", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -222,22 +274,68 @@ def _slstm_zero_state(b, h, p, device):
                        device=device), zeros)
 
 
-def slstm_scan(pp: dict, xn, state=None):
+def slstm_scan(pp: dict, xn, state=None, ctx: ShardCtx | None = None):
     """xn: (b, l, d) normalized input.  Sequential (recurrence through h).
     The four gates' input and recurrent products each run as one product
     over the gates side by side; every gate column is summed on its own,
     as in four products."""
+    ctx = ctx or ShardCtx()
     b, l, d = xn.shape
     h, p = pp["wz"].shape[1], pp["wz"].shape[2]
     w_all = torch.cat([pp[f"w{g}"] for g in GATES], dim=-1)      # (d,h,4p)
     b_all = torch.cat([pp[f"b{g}"] for g in GATES], dim=-1)      # (h,4p)
     r_all = torch.cat([pp[f"r{g}"] for g in GATES], dim=-1)      # (h,p,4p)
-    pre = _proj(xn.float(), w_all) + b_all                       # (b,l,h,4p)
-    c, n, m, hprev = state if state is not None else _slstm_zero_state(
-        b, h, p, xn.device)
+    bax, hax = ctx.scan_axes(b, h)
+    pre = _proj(xn.float(), w_all, _split_cols(ctx, bax, hax)) + b_all
+    # on a mesh, on each rank's (rows, heads) blocks: every step is
+    # local to a (row, head), and DTensor would plan its ops anew per
+    # token
+    st_axes = _state_axes(((b, h, p),) * 4, (bax, hax))
+    y, *new_state = ctx.blocks(
+        _slstm_steps, [(bax, None, hax, None), (hax, None, None)]
+        + [ax for _, ax in st_axes[:len(state or ())]],
+        [(pre.shape[:3] + (p,), (bax, None, hax, None))] + st_axes,
+        pre, r_all, *(state or ()))
+    return y, tuple(new_state)
+
+
+class _Recurrent(torch.autograd.Function):
+    """``(h[:, :, None, :] @ r)[:, :, 0]``, h (b, heads, p) against r
+    (heads, p, 4p), with the products and sums of autograd's own
+    forward and backward, but saving h and r: the broadcast product
+    copies r once per row, and autograd would keep that copy for every
+    step of the sequence (b x r's bytes a token: 155 GB a sLSTM layer of
+    xlstm-125m's ``train_4k``, 16 rows a device)."""
+
+    @staticmethod
+    def forward(ctx, h, r):
+        ctx.save_for_backward(h, r)
+        return (h[:, :, None, :] @ r)[:, :, 0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, r = ctx.saved_tensors
+        b, heads, p = h.shape
+        q = r.shape[-1]
+        a = h.reshape(b * heads, 1, p)
+        w = r.expand(b, heads, p, q).reshape(b * heads, p, q)
+        g = grad.reshape(b * heads, 1, q)
+        grad_h = g.bmm(w.transpose(1, 2)).view(b, heads, p)
+        grad_r = a.transpose(1, 2).bmm(g).view(b, heads, p, q).sum(0)
+        return grad_h, grad_r
+
+
+def _slstm_steps(pre, r_all, *state):
+    """The sLSTM recurrence over ``pre`` (b, l, h, 4p), the gates' input
+    products, from ``state`` (c, n, m, h) or zeros; returns (y, c, n, m,
+    h)."""
+    b, _, h, p4 = pre.shape
+    p = p4 // 4
+    c, n, m, hprev = state or _slstm_zero_state(b, h, p, pre.device)
     ys = []
-    for t in range(l):
-        g = pre[:, t] + (hprev[:, :, None, :] @ r_all)[:, :, 0]  # (b,h,4p)
+    # per-step views from one unbind (see mlstm_sequential)
+    for pre_t in pre.unbind(1):
+        g = pre_t + _Recurrent.apply(hprev, r_all)               # (b,h,4p)
         zt = torch.tanh(g[..., :p])
         li = g[..., p:2 * p]
         lf = _log_sigmoid(g[..., 2 * p:3 * p])
@@ -250,16 +348,16 @@ def slstm_scan(pp: dict, xn, state=None):
         hprev = ot * c / torch.clamp(n, min=MIN_DENOM)
         m = m_new
         ys.append(hprev)
-    return torch.stack(ys, dim=1), (c, n, m, hprev)
+    return torch.stack(ys, dim=1), c, n, m, hprev
 
 
 def slstm_block(pp: dict, x, cfg: ModelConfig, ctx: ShardCtx, state=None):
     b, l, d = x.shape
     xn = ctx.constrain(layer_norm_like(x, pp["ln"], cfg), "dp", None, None)
-    y, new_state = slstm_scan(pp, xn, state)
-    w = pp["out"]
-    out = merge_dims(y.to(x.dtype)) @ merge_dims(w, 0)
-    return x + ctx.constrain(out, "dp", None, None), new_state
+    y, new_state = slstm_scan(pp, xn, state, ctx)
+    split = _split_cols(ctx, *ctx.scan_axes(b, cfg.n_heads))
+    return x + _out(merge_dims(y.to(x.dtype)), pp["out"], ctx,
+                    split), new_state
 
 
 def layer_norm_like(x, scale, cfg: ModelConfig):
@@ -292,11 +390,12 @@ def xlstm_apply(params, h, cfg: ModelConfig, ctx: ShardCtx, states=None):
     for key, s in _layer_keys(cfg):
         block = slstm_block if s else mlstm_block
         st = states[key] if states is not None else None
-        h, ns = remat(cfg.remat, block, ctx.on_cmesh(params["layers"][key]),
-                      h, cfg, ctx, st)
+        h, ns = remat(cfg.remat, block,
+                      ctx.gather_weights(params["layers"][key]), h, cfg,
+                      ctx, st)
         if states is not None:
             new_states[key] = ns
-    h = rms_norm(h, ctx.on_cmesh(params["ln_final"]), cfg.norm_eps)
+    h = rms_norm(h, ctx.gather_weights(params["ln_final"]), cfg.norm_eps)
     return h, new_states
 
 

@@ -23,13 +23,14 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from ..sharding import ShardCtx, merge_dims, unflatten_dim
+from ..sharding import ShardCtx, unflatten_dim
 from .attention import AttnCfg, attention, make_cache
 from .common import (PSpec, cross_entropy, place_state, remat, rms_norm,
                      stack_specs, tree_map)
 from .config import ModelConfig
 from .mamba2 import (mamba_block, mamba_param_specs, mamba_state_init,
                      mamba_state_specs)
+from .mlp import gated_in
 from .transformer import embed, unembed
 
 LAYERS_PER_UNIT = 3
@@ -97,7 +98,8 @@ def _apply_shared(cfg: ModelConfig, ctx: ShardCtx, shared: dict, up: dict,
     """One firing.  The LoRA delta a @ b is formed in float32, cast to the
     base weight's dtype and added there: two roundings, every firing."""
     x2 = torch.cat([h, h0], dim=-1)
-    x2n = rms_norm(x2, shared["ln_attn"], cfg.norm_eps)
+    x2n = ctx.constrain(rms_norm(x2, shared["ln_attn"], cfg.norm_eps),
+                        "dp", None, None)
     p = dict(wq=shared["wq"], wk=shared["wk"], wv=shared["wv"],
              wo=shared["wo"])
     if cfg.lora_rank:
@@ -111,11 +113,11 @@ def _apply_shared(cfg: ModelConfig, ctx: ShardCtx, shared: dict, up: dict,
                          cache=kv_cache, cache_len=cache_len)
     h = h + a_out
     x2 = torch.cat([h, h0], dim=-1)
-    m_in = rms_norm(x2, shared["ln_mlp"], cfg.norm_eps)
-    w_in = shared["w_in"]
-    gm = unflatten_dim(m_in @ merge_dims(w_in, 1), -1, w_in.shape[1:])
-    hh = F.silu(gm[..., 0, :].float()).to(h.dtype) * gm[..., 1, :]
-    return h + hh @ shared["w_out"]
+    m_in = ctx.constrain(rms_norm(x2, shared["ln_mlp"], cfg.norm_eps),
+                         "dp", None, None)
+    gate, up = gated_in(m_in, shared["w_in"], ctx, "dp", None, "tp")
+    hh = F.silu(gate.float()).to(h.dtype) * up
+    return h + ctx.constrain(hh @ shared["w_out"], "dp", None, None)
 
 
 def zamba_unit(cfg: ModelConfig, ctx: ShardCtx, shared: dict, up: dict, h,
@@ -144,15 +146,15 @@ def zamba_apply(params, h, cfg: ModelConfig, ctx: ShardCtx, pos0: int = 0,
     """state: {"ssm_i": stacked mamba states, "kv": stacked KV caches}
     or None; written in place and returned."""
     h0 = h
-    shared = ctx.on_cmesh(params["shared"])
+    shared = ctx.gather_weights(params["shared"])
     for r in range(cfg.n_layers // LAYERS_PER_UNIT):
-        up = ctx.on_cmesh(tree_map(lambda t: t[r], params["units"],
-                                   torch.is_tensor))
+        up = ctx.gather_weights(tree_map(lambda t: t[r], params["units"],
+                                         torch.is_tensor))
         st = (tree_map(lambda t: t[r], state, torch.is_tensor)
               if state is not None else None)
         h = remat(cfg.remat, zamba_unit, cfg, ctx, shared, up, h,
                   h0, st, r % 2 == 1, pos0, cache_len)
-    h = rms_norm(h, ctx.on_cmesh(params["ln_final"]), cfg.norm_eps)
+    h = rms_norm(h, ctx.gather_weights(params["ln_final"]), cfg.norm_eps)
     return h, state
 
 

@@ -12,6 +12,7 @@ Logical axes:
   ep    expert parallel (MoE expert dim)         -> "model"
   sp    sequence parallel (long-context KV/state)-> "data"
   seq   the residual stream's sequence dim       -> "model"
+  rows  a scan's batch rows over every mesh dim  -> ("pod", "data", "model")
 
 A mesh is a ``torch.distributed`` ``DeviceMesh`` with the reference's dim
 names, ``("data", "model")`` or ``("pod", "data", "model")``, or, where
@@ -110,6 +111,9 @@ def _mesh_axes(mesh, logical: str) -> Any:
         # Megatron-style sequence parallelism: the residual stream's seq
         # dim shards over the TP group between attention/MLP regions
         "seq": "model",
+        # a recurrence's rows, where its heads do not divide "model"
+        # (ShardCtx.scan_axes)
+        "rows": ("pod", "data", "model") if has_pod else ("data", "model"),
     }
     return table[logical]
 
@@ -381,11 +385,21 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def normalized(places: Sequence, ndim: int) -> tuple:
+    """``places`` with every ``Shard(d)`` at ``d >= 0`` (``Shard(-1)`` of
+    a 3-D tensor is ``Shard(2)``): torch 2.11's DTensor refuses a
+    negative shard dim in some sharding rules (``aten.index_put``)."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(p.dim % ndim) if type(p) is Shard and p.dim < 0
+                 else p for p in places)
+
+
 def from_local(t: torch.Tensor, mesh, places: Sequence, shape=None):
     """A DTensor whose local part on this rank is ``t`` (no check across
     ranks; differentiable); ``shape``: its global shape where the blocks
     are uneven."""
     from torch.distributed.tensor import DTensor
+    places = normalized(places, t.ndim)
     if shape is None:
         return DTensor.from_local(t, mesh, tuple(places), run_check=False)
     stride, acc = [], 1
@@ -412,9 +426,10 @@ def whole_along(x: torch.Tensor, *dims: int) -> torch.Tensor:
         return x
     from torch.distributed.tensor import Replicate, Shard
     dims = {d % x.ndim for d in dims} if x.ndim else set()
+    have = normalized(x.placements, x.ndim)
     want = tuple(Replicate() if isinstance(pl, Shard) and pl.dim in dims
-                 else pl for pl in x.placements)
-    if want == tuple(x.placements):
+                 else pl for pl in have)
+    if want == have:
         return x
     return x.redistribute(x.device_mesh, want)
 
@@ -485,6 +500,51 @@ def merge_dims(x: torch.Tensor, dim: int = -2) -> torch.Tensor:
     if is_dtensor(x):
         return _MergeDims.apply(x, dim)
     return x.reshape(x.shape[:dim] + (-1,) + x.shape[dim + 2:])
+
+
+def local_map(fn, mesh, in_places: Sequence, out_places, *args):
+    """``fn`` run on this rank's blocks, as the reference's ``shard_map``
+    runs a body: for the ops that torch 2.11's DTensor cannot propagate
+    (a flatten of a dim pair whose inner dim is split, ``aten.flip``) and
+    for loops of small ops that DTensor would plan one by one.
+
+    Each tensor of ``args`` whose ``in_places`` entry is a placements
+    tuple is taken as a DTensor on ``mesh`` (a plain tensor as
+    replicated), moved to those placements, and passed to ``fn`` as its
+    local block; an entry ``None`` passes its argument as it is.
+    ``fn``'s result, a tensor or a tuple of tensors, is this rank's
+    blocks of the outputs, which ``out_places`` (one placements tuple, or
+    one per output) place.  The grad of an input block takes its own
+    placements, except that a mesh dim where the input is replicated and
+    an output is split reads it as ``Partial()``: each rank there used the
+    whole input on its share of the work, so its grad is that share of a
+    sum.  Which rank computes a product changes, not what the product
+    is; work on blocks replicated over a mesh dim is repeated on each of
+    its ranks.  Without a ``DeviceMesh``, ``fn(*args)``."""
+    if not is_device_mesh(mesh):
+        return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    single = bool(out_places) and not isinstance(out_places[0],
+                                                 (tuple, list))
+    outs = [out_places] if single else list(out_places)
+    split = {j for pl in outs for j, p in enumerate(pl)
+             if isinstance(p, Shard)}
+    local = []
+    for x, pl in zip(args, in_places):
+        if pl is None or not torch.is_tensor(x):
+            local.append(x)
+            continue
+        pl = normalized(pl, x.ndim)
+        x = as_dtensor(x, mesh)
+        if normalized(x.placements, x.ndim) != pl:
+            x = x.redistribute(mesh, pl)
+        local.append(x.to_local(grad_placements=tuple(
+            Partial() if isinstance(p, Replicate) and j in split else p
+            for j, p in enumerate(pl))))
+    got = fn(*local)
+    if torch.is_tensor(got):
+        return from_local(got, mesh, outs[0])
+    return tuple(from_local(t, mesh, pl) for t, pl in zip(got, outs))
 
 
 def full_tensor(x: torch.Tensor) -> torch.Tensor:
@@ -633,6 +693,35 @@ class ShardCtx:
         return placements(self.cmesh, resolve(self.cmesh, logical, shape,
                                               self.overrides))
 
+    def scan_axes(self, batch: int, heads: int) -> tuple:
+        """(batch axis, heads axis) of a recurrence's blocks, each step
+        local to a (row, head): the heads over "model" where they divide
+        it; else the rows over every mesh dim where they divide the
+        mesh (xlstm-125m's 4 heads on a 16-way "model" axis: each rank
+        scans its own rows, not all 16 of its "data" group's); else the
+        rows over ``dp``, the heads whole."""
+        if not is_device_mesh(self.mesh):
+            return "dp", "tp"
+        cm = self.cmesh
+        if heads % axis_size(cm, "model") == 0:
+            return "dp", "tp"
+        if batch % math.prod(axis_size(cm, n) for n in axis_names(cm)) == 0:
+            return "rows", None
+        return "dp", None
+
+    def blocks(self, fn, ins: Sequence, outs: Sequence, *args):
+        """``fn(*args)`` on each rank's blocks (:func:`local_map` on
+        :attr:`cmesh`): ``ins`` gives per argument its logical axes
+        (``None``: passed as it is), ``outs`` per output its shape and
+        logical axes; the axes that do not divide a dim replicate it.
+        ``fn(*args)`` without a mesh."""
+        if not is_device_mesh(self.mesh):
+            return fn(*args)
+        in_pl = [None if ax is None else self.placements_for(a.shape, *ax)
+                 for a, ax in zip(args, ins)]
+        out_pl = [self.placements_for(shape, *ax) for shape, ax in outs]
+        return local_map(fn, self.cmesh, in_pl, out_pl, *args)
+
     def constrain(self, x: torch.Tensor, *logical: str | None
                   ) -> torch.Tensor:
         """``x`` redistributed to ``logical``'s placements.  A plain
@@ -645,7 +734,7 @@ class ShardCtx:
                             "gives shapes only")
         x = as_dtensor(x, self.cmesh)
         want = self.placements_for(x.shape, *logical)
-        if tuple(x.placements) == want:
+        if normalized(x.placements, x.ndim) == want:
             return x
         return x.redistribute(self.cmesh, want)
 
@@ -653,8 +742,12 @@ class ShardCtx:
         """FSDP's all-gather: every DTensor leaf of ``tree`` whole over
         every mesh dim but ``model`` (its TP shards kept), on
         :attr:`cmesh`.  Model code gathers a unit's weights at the
-        unit's entry, so remat's recompute gathers them again and the
-        grads reduce-scatter back to the params' placements."""
+        unit's entry (zamba2, xLSTM and Whisper outside its remat), so
+        the grads reduce-scatter back to the params' placements.  Every
+        family gathers on every mesh: with the weights' ``fsdp`` split
+        left in place, DTensor's cost model splits a product's rows over
+        "model", and the grad's view as rows in the backward then has a
+        row dim split over "model", which torch 2.11 refuses."""
         if not is_device_mesh(self.mesh):
             return tree
         from torch.distributed.tensor import Replicate, Shard
@@ -681,15 +774,6 @@ class ShardCtx:
                 return tuple(walk(v) for v in t)
             return one(t) if torch.is_tensor(t) else t
         return walk(tree)
-
-    def on_cmesh(self, tree: Any) -> Any:
-        """``tree``'s params on :attr:`cmesh`: on a pod mesh gathered
-        over ("pod", "data") as :meth:`gather_weights` does (the
-        families that do not gather per unit); on any other mesh, or
-        none, ``tree`` itself."""
-        if self.cmesh is self.mesh:
-            return tree
-        return self.gather_weights(tree)
 
     def place(self, x: torch.Tensor, *logical: str | None):
         """A tensor that every rank holds whole (a batch, a param from

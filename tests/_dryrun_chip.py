@@ -4,6 +4,8 @@ the card's host CPU (a fake world of its own; no device):
     python tests/_dryrun_chip.py --job comms --out FILE
     python tests/_dryrun_chip.py --job cell --arch A --cell C \\
         --mesh pod|multipod --out FILE [--full-depth]
+    python tests/_dryrun_chip.py --job stopped --mesh pod|multipod \\
+        --out FILE
 
 ``comms`` (2m (iv)): phase 2l's dense decode step (qwen3-14b at 8 of 40
 layers, TP-only params, 4 rows on caches of 272 holding 256) and its
@@ -11,7 +13,9 @@ FSDP + TP training step (2 layers, 4 x 256 tokens, f32 AdamW), traced on
 a fake (2, 4) world and walked: per collective kind the count, operand
 bytes and wire bytes; and the same walk with every group read at twice
 its size (the planted fault).  ``cell`` (2m (vi)): ``lower_cell``'s
-record.  The processes import torch, numpy and ``repro_torch`` only.
+record.  ``stopped`` (2m (vii)): the cells that stopped in torch 2.11's
+DTensor before the repair, reduced.  The processes import torch, numpy
+and ``repro_torch`` only.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import json
 import os
 import sys
 import time
+import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
@@ -75,6 +80,44 @@ def comms() -> dict:
     return out
 
 
+#: the records that stopped in torch 2.11's DTensor on the card's host
+#: before the model code ran those ops on local blocks: (arch, cells),
+#: on both meshes
+STOPPED = (("olmoe-1b-7b", ("train_4k",)),
+           ("qwen2-moe-a2.7b", ("train_4k", "prefill_32k", "decode_32k")),
+           ("zamba2-7b", ("train_4k", "prefill_32k", "decode_32k",
+                          "long_500k")),
+           ("xlstm-125m", ("train_4k",)), ("whisper-tiny", ("train_4k",)))
+
+
+def stopped(multi_pod: bool) -> dict:
+    """2m (vii): the formerly stopped records' cells on one mesh, at the
+    sweep test's reduced sizes (``tests/_dryrun_sweep.py`` ``shrink``,
+    ``SMALL``): per cell its status and peak bytes a device, or its
+    error."""
+    from repro_torch.launch import dryrun
+    sweep = _load("_dryrun_sweep")
+    out = {}
+    try:
+        for arch, cells in STOPPED:
+            for name in cells:
+                try:
+                    rec = dryrun.lower_cell(arch, name, multi_pod,
+                                            shrink=sweep.shrink,
+                                            cell=sweep.SMALL[name])
+                    out[f"{arch}:{name}"] = {
+                        "status": rec["status"],
+                        "peak_bytes": rec["memory"]["peak_bytes"]}
+                except Exception as e:      # the phase reports it
+                    out[f"{arch}:{name}"] = {
+                        "status": "error",
+                        "error": f"{type(e).__name__}: {e}"[:600],
+                        "traceback": traceback.format_exc()[-3000:]}
+    finally:
+        dryrun.end_fake_world()
+    return {"cells": out}
+
+
 def cell(arch: str, cell_name: str, multi_pod: bool, full_depth: bool):
     from repro_torch.launch import dryrun
     try:
@@ -86,7 +129,8 @@ def cell(arch: str, cell_name: str, multi_pod: bool, full_depth: bool):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--job", choices=["comms", "cell"], required=True)
+    ap.add_argument("--job", choices=["comms", "cell", "stopped"],
+                    required=True)
     ap.add_argument("--arch", default="qwen3-14b")
     ap.add_argument("--cell", default="train_4k")
     ap.add_argument("--mesh", choices=["pod", "multipod"], default="pod")
@@ -94,9 +138,13 @@ def main(argv=None) -> int:
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
-    rec = (comms() if args.job == "comms" else
-           cell(args.arch, args.cell, args.mesh == "multipod",
-                args.full_depth))
+    if args.job == "comms":
+        rec = comms()
+    elif args.job == "stopped":
+        rec = stopped(args.mesh == "multipod")
+    else:
+        rec = cell(args.arch, args.cell, args.mesh == "multipod",
+                   args.full_depth)
     rec = {**rec, "process_s": time.perf_counter() - t0}
     with open(args.out, "w") as f:
         json.dump(rec, f, default=str)

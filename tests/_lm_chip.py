@@ -1,5 +1,7 @@
 """The ranks of ``chip_smoke.py`` phase 2l: the sharded LM paths, eight
-ranks on one GPU over gloo, at full width.
+ranks on one GPU over gloo, at full width: qwen3-14b serving and
+training and olmoe-1b-7b's dispatch ((i)-(iii)), then zamba2, qwen2-moe
+and the training steps of olmoe, Whisper and xLSTM ((iv)-(vi)).
 
     python tests/_lm_chip.py --rank R --world N --port P --out DIR \\
         --suite chip --device cuda
@@ -273,7 +275,8 @@ def step_gaps(sums, maxes) -> dict:
     the first moment against the reference's, as the gap's norm over the
     reference's (``*_rel``) and as the largest gap over the reference's
     largest entry (``*_max_rel``); ``flipped_rel`` reads the planted
-    sign flip."""
+    sign flip; ``m_ref_max`` is the reference's largest first-moment
+    entry."""
     s = dict(zip(SUM_KEYS, sums))
     m = dict(zip(MAX_KEYS, maxes))
 
@@ -285,7 +288,8 @@ def step_gaps(sums, maxes) -> dict:
             "delta_max_rel": (m["delta_diff_max"] / m["delta_ref_max"]
                               if m["delta_ref_max"] > 0 else 0.0),
             "m_max_rel": (m["m_diff_max"] / m["m_ref_max"]
-                          if m["m_ref_max"] > 0 else 0.0)}
+                          if m["m_ref_max"] > 0 else 0.0),
+            "m_ref_max": m["m_ref_max"]}
 
 
 def step_sums_on_mesh(r: Rank, params, state, init, ref_dir) -> list:
@@ -398,7 +402,10 @@ def chip_training(r: Rank, m24, m42, m81, rec) -> None:
     checkpoint on (2, 4) and restored on (4, 2) and on (8, 1) (each
     leaf's fingerprint equal to the saved one's); the optimizer state is
     re-meshed live onto (8, 1) beside them, the whole state re-meshed
-    onto (2, 4) (fingerprints again), and a second step taken there.
+    onto (2, 4) (fingerprints again), the first batch's loss taken
+    there (for one device's after its first step), and a second step,
+    whose loss must equal the second batch's loss on the live state
+    before the round trip.
     The whole 31 GB state through a checkpoint would take about 400 s
     of disk on the card's host (a first run: 100 s to save, 140-155 s a
     restore), so the checkpoint holds the params (4.4 GB); the CPU
@@ -409,7 +416,7 @@ def chip_training(r: Rank, m24, m42, m81, rec) -> None:
     from repro_torch.models.common import (init_params, param_shardings,
                                            tree_leaves, tree_map)
     from repro_torch.optim import AdamWConfig, init_opt_state, opt_state_specs
-    from repro_torch.sharding import ShardCtx
+    from repro_torch.sharding import ShardCtx, full_tensor, on_mesh
     from repro_torch.train import make_train_step
     from repro_torch.train.loop import remesh_tree
     torch = r.torch
@@ -443,6 +450,13 @@ def chip_training(r: Rank, m24, m42, m81, rec) -> None:
                          tree_leaves(state["master"], torch.is_tensor))))])
     dist.all_reduce(wrote, op=dist.ReduceOp.MIN)
     r.check("2l params written back from the master", bool(wrote.item()))
+    # the second batch's loss on the live state, before the checkpoint,
+    # the restores and the remesh: step 2, taken after them, must read it
+    ctx = ShardCtx(m24)
+    with torch.no_grad(), on_mesh():
+        live = arch.loss(params, {"tokens": ctx.place(
+            batches[1]["tokens"], "dp", None)}, cfg, ctx)[0]
+    out["loss2_live"] = float(full_tensor(live))
     out["state_bytes"] = sum(t.numel() * t.element_size() for t in
                              tree_leaves({"p": params, "o": state},
                                          torch.is_tensor))
@@ -488,6 +502,12 @@ def chip_training(r: Rank, m24, m42, m81, rec) -> None:
         p is None or fingerprint(t) == p for t, p in zip(
             tree_leaves(moved, torch.is_tensor), oprints + prints)))
     del tree, state81, restored
+    # the first batch's loss on the state after the round trip, held
+    # against one device's after its own first step
+    with torch.no_grad(), on_mesh():
+        after = arch.loss(moved["params"], {"tokens": ctx.place(
+            batches[0]["tokens"], "dp", None)}, cfg, ctx)[0]
+    out["loss1_after"] = float(full_tensor(after))
     (_, _, met2), dt, _ = _timed(r, lambda: step(
         moved["params"], moved["opt"], batches[1]))
     out["loss2"] = float(met2["loss"])
@@ -589,6 +609,198 @@ def chip_moe(r: Rank, mesh, rec) -> None:
     _free(r)
 
 
+#: phase 2l (iv)-(vi): the other families' sharded paths on (2, 4), at
+#: full width, depth cut: zamba2-7b at two units (serving, TP-only
+#: params), qwen2-moe-a2.7b at two layers (prefill, TP-only), and one
+#: FSDP + TP AdamW step each of olmoe-1b-7b (two layers), whisper-tiny
+#: (4 + 4 layers) and xlstm-125m (two blocks, the second sLSTM)
+FAMILIES = dict(zamba_units=2, moe_layers=2, rows=4, prompt=256, decode=4,
+                seq=256, olmoe_layers=2, xlstm_layers=2,
+                zamba_seed=2031, moe_seed=2032, step_seed=2033)
+STEP_ARCHS = ("olmoe-1b-7b", "whisper-tiny", "xlstm-125m")
+
+
+def family_cfgs():
+    """(zamba2-7b, qwen2-moe-a2.7b, {arch: config} of the steps) of 2l
+    (iv)-(vi)."""
+    from repro_torch.configs import get_config
+    F = FAMILIES
+    zamba = dataclasses.replace(get_config("zamba2-7b"),
+                                n_layers=3 * F["zamba_units"],
+                                serve_params_tp_only=True)
+    moe = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              n_layers=F["moe_layers"],
+                              serve_params_tp_only=True)
+    steps = {
+        "olmoe-1b-7b": dataclasses.replace(get_config("olmoe-1b-7b"),
+                                           n_layers=F["olmoe_layers"]),
+        "whisper-tiny": get_config("whisper-tiny"),
+        "xlstm-125m": dataclasses.replace(
+            get_config("xlstm-125m"), n_layers=F["xlstm_layers"],
+            slstm_layers=(F["xlstm_layers"] - 1,))}
+    return zamba, moe, steps
+
+
+def family_batch(cfg, salt: int, device):
+    """The seeded batch of a 2l (vi) step: tokens (rows, seq) and, for
+    Whisper, as many audio frames of standard normal draws, bfloat16."""
+    import torch
+    F = FAMILIES
+    out = {"tokens": torch.from_numpy(chip_tokens(
+        cfg.vocab, F["rows"], F["seq"], salt)).to(device)}
+    if cfg.family == "audio":
+        rng = np.random.default_rng(CHIP["token_seed"] + salt)
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (F["rows"], F["seq"], cfg.d_model)).astype(np.float32)).to(
+            device, torch.bfloat16)
+    return out
+
+
+def step_params(cfg, device, mesh=None):
+    """2l (vi)'s params of ``cfg``: the seeded draw at the weights' true
+    fan-in (``chip_smoke.scale_to_fan_in``, the tied embedding too, as
+    ``chip_smoke.trainer_fan_in`` takes them: at the reference's init
+    xLSTM's clip scales every grad but the embedding's below AdamW's
+    eps), on ``mesh`` (FSDP + TP) or one device."""
+    import torch
+    from repro_torch.models import make_arch
+    from repro_torch.models.common import init_params
+    specs = make_arch(cfg).param_specs(cfg)
+    params = init_params(torch.Generator(device).manual_seed(
+        FAMILIES["step_seed"]), specs, device, mesh=mesh)
+    cs = _load_root("chip_smoke")
+    cs.scale_to_fan_in(params, specs)
+    if cfg.tie_embeddings:
+        params["embed"].mul_(math.sqrt(cfg.vocab / cfg.d_model))
+    return params
+
+
+def _load_root(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(HERE), f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def drop_shared_tp_block(params) -> None:
+    """2l (v)'s planted fault: the shared expert's output rows that
+    "model" rank 0 holds zeroed in every layer (one TP rank's share of
+    the shared expert's product lost)."""
+    w = params["units"]["ffn_0"]["shared_w_out"]     # (layers, fs, d)
+    mesh = w.device_mesh
+    if mesh.get_coordinate()[mesh.mesh_dim_names.index("model")] == 0:
+        w.to_local().zero_()
+
+
+def serve_logits(arch, cfg, params, ctx, toks, decode: int, late: bool):
+    """Prefill over ``toks[:, :prompt]``, then ``decode`` teacher-forced
+    steps: the last position's logits of each (whole, float32, on the
+    host) and, with ``late``, the last step again one cache slot late
+    (a planted fault's logits)."""
+    import torch
+    from repro_torch.sharding import full_tensor
+    p = FAMILIES["prompt"]
+    place = (lambda t: ctx.place(t, "dp", None)) if ctx.mesh is not None \
+        else (lambda t: t)
+    with torch.no_grad():
+        st, n, lg = arch.prefill(params, {"tokens": place(toks[:, :p])},
+                                 cfg, ctx, max_len=p + decode + 1)
+        out = [full_tensor(lg)[:, -1].float().cpu()]
+        last = None
+        for i in range(decode):
+            tok = place(toks[:, p + i:p + i + 1])
+            st, n_next, lg = arch.decode(params, st, n, tok, cfg, ctx)
+            out.append(full_tensor(lg)[:, -1].float().cpu())
+            last, n = (tok, n), n_next
+        fault = None
+        if late:
+            tok, n_last = last
+            _, _, lg = arch.decode(params, st, n_last + 1, tok, cfg, ctx)
+            fault = full_tensor(lg)[:, -1].float().cpu()
+    return torch.stack(out, 1), fault
+
+
+def chip_families(r: Rank, mesh, rec) -> None:
+    """(iv) zamba2-7b prefill 4 x 256 and 4 teacher-forced decode steps,
+    then the last again one cache slot late (the planted fault); (v)
+    qwen2-moe-a2.7b prefill 4 x 256, clean and with one TP rank's share
+    of the shared expert lost (the planted fault); (vi) one FSDP + TP
+    AdamW step each of olmoe-1b-7b, whisper-tiny and xlstm-125m, each
+    rank's blocks of the f32 master's change and first moment held
+    against the parent's single-device step (``step_sums_on_mesh``).
+    Logits are written for the parent."""
+    from repro_torch.models import make_arch
+    from repro_torch.models.common import (init_params, scale_scores,
+                                           tree_leaves)
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.sharding import ShardCtx
+    from repro_torch.train import make_train_step
+    torch = r.torch
+    F = FAMILIES
+    zcfg, mcfg, steps = family_cfgs()
+    ov = {"fsdp": None}
+    out = {}
+    # (iv)
+    t0 = time.perf_counter()
+    arch = make_arch(zcfg)
+    specs = arch.param_specs(zcfg)
+    params = init_params(torch.Generator(r.device).manual_seed(
+        F["zamba_seed"]), specs, r.device, mesh=mesh, overrides=ov)
+    scale_scores(params, specs)
+    toks = torch.from_numpy(chip_tokens(zcfg.vocab, F["rows"],
+                                        F["prompt"] + F["decode"],
+                                        salt=5)).to(r.device)
+    logits, fault = serve_logits(arch, zcfg, params,
+                                 ShardCtx(mesh, overrides=ov), toks,
+                                 F["decode"], late=True)
+    if r.rank == 0:
+        np.save(os.path.join(r.out, "zamba.npy"), logits.numpy())
+        np.save(os.path.join(r.out, "zamba_fault.npy"), fault.numpy())
+    del params
+    _free(r)
+    out["zamba_s"] = time.perf_counter() - t0
+    # (v)
+    t0 = time.perf_counter()
+    arch = make_arch(mcfg)
+    specs = arch.param_specs(mcfg)
+    params = init_params(torch.Generator(r.device).manual_seed(
+        F["moe_seed"]), specs, r.device, mesh=mesh, overrides=ov)
+    toks = torch.from_numpy(chip_tokens(mcfg.vocab, F["rows"],
+                                        F["prompt"], salt=6)).to(r.device)
+    ctx = ShardCtx(mesh, overrides=ov)
+    for name in ("clean", "fault"):
+        if name == "fault":
+            drop_shared_tp_block(params)
+        logits, _ = serve_logits(arch, mcfg, params, ctx, toks, 0, False)
+        if r.rank == 0:
+            np.save(os.path.join(r.out, f"qwen2moe_{name}.npy"),
+                    logits.numpy())
+    del params
+    _free(r)
+    out["moe_s"] = time.perf_counter() - t0
+    # (vi)
+    opt = AdamWConfig(**CHIP_OPT)
+    for k, (name, cfg) in enumerate(steps.items()):
+        t0 = time.perf_counter()
+        arch = make_arch(cfg)
+        params = step_params(cfg, r.device, mesh)
+        state = init_opt_state(params, opt)
+        init = [t.to_local().clone() for t in tree_leaves(params,
+                                                          torch.is_tensor)]
+        step = make_train_step(arch, opt, ShardCtx(mesh))
+        params, state, met = step(params, state,
+                                  family_batch(cfg, 10 + k, r.device))
+        out[name] = {
+            "loss": float(met["loss"]),
+            "step_gaps": step_sums_on_mesh(r, params, state, init,
+                                           os.path.join(r.out, name)),
+            "step_s": time.perf_counter() - t0}
+        del params, state, init, step
+        _free(r)
+    rec["families"] = out
+
+
 def suite_chip(r: Rank) -> None:
     from repro_torch.kernels import engine as keng
     m24, m42, m81 = (r.mesh(s, DM) for s in ((2, 4), (4, 2), (8, 1)))
@@ -603,6 +815,9 @@ def suite_chip(r: Rank) -> None:
     t0 = time.perf_counter()
     chip_moe(r, m24, rec)
     rec["moe_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chip_families(r, m24, rec)
+    rec["families_s"] = time.perf_counter() - t0
     rec["launches"] = {k: keng.LAUNCHES[k] - before[k]
                        for k in keng.LAUNCHES}
     r.check("2l launches none of K1-K5", not any(rec["launches"].values()),

@@ -1,7 +1,7 @@
 """Worlds of local ranks for the sharded LM paths.
 
     python tests/_lm_world.py --rank R --world N --port P --out DIR \\
-        --suite lm|families|train [--device cpu|cuda]
+        --suite lm|families|train|recurrent|ce [--device cpu|cuda]
 
 One process per rank, joined over gloo, as ``tests/_dist_world.py``
 starts them (``run_world(..., script=SCRIPT)``).  The ranks import torch,
@@ -20,8 +20,13 @@ Suites:
   ranks 4-7 run (1, 4) (and flash-decode against dense there), then
   both on the (2, 2, 2) pod mesh;
 * ``families`` (4 ranks, (2, 2)): olmoe with ``dispatch="ep"`` and
-  ``"local"``, and zamba2, xLSTM and Whisper, a prefill and one decode
-  step each;
+  ``"local"``, and zamba2, xLSTM, Whisper and qwen2-moe, a prefill and
+  one decode step each;
+* ``recurrent`` (8 ranks): one float32 step each of Whisper and xLSTM
+  on (2, 2), and xLSTM's on (1, 8) with its rows split over both mesh
+  dims, the moments written for the reference's single-device step;
+* ``ce`` (4 ranks): the vocabulary-parallel cross entropy on (2, 2) and
+  (1, 4), its loss and its grad;
 * ``train`` (4 ranks): a step with 8-bit AdamW state and compression on
   (2, 2), the seeded init on the mesh against one device, a sharded
   checkpoint for the reference to restore, a ``Trainer`` saving on
@@ -355,6 +360,7 @@ TRAIN_SERVE = (
     ("family/zamba2-7b", "zamba2-7b", {}),
     ("family/xlstm-125m", "xlstm-125m", {}),
     ("family/whisper-tiny", "whisper-tiny", {}),
+    ("family/qwen2-moe-a2.7b", "qwen2-moe-a2.7b", {}),
 )
 TRAINER = dict(total_steps=4, ckpt_every=2, log_every=1)
 
@@ -520,7 +526,111 @@ def trainer_case(r: Rank, m22, m41) -> None:
     r.record["seconds"]["trainer"] = time.perf_counter() - t0
 
 
-SUITES = {"lm": suite_lm, "families": suite_families, "train": suite_train}
+def step_case(r: Rank, mesh, key: str, arch_name: str,
+              rows: int = TRAIN_ROWS) -> None:
+    """One float32 AdamW step from the parent's params
+    (``params_<arch>.npz``) on ``rows`` x ``TRAIN_SEQ`` tokens; writes
+    the step's metrics and its first and second moments, whole."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.sharding import ShardCtx
+    from repro_torch.train import make_train_step
+    torch = r.torch
+    t0 = time.perf_counter()
+    cfg, arch = _arch(arch_name)
+    params = _params(r, arch_name, cfg, arch, torch.float32, mesh)
+    opt = AdamWConfig(**TRAIN_OPT)
+    step = make_train_step(arch, opt, ShardCtx(mesh))
+    batch = _batch(r, cfg, rows, TRAIN_SEQ, TRAIN_SEED, torch.float32)
+    _, state, met = step(params, init_opt_state(params, opt), batch)
+    arrays = {f"metric_{k}": np.asarray(float(v)) for k, v in met.items()}
+    for key_ in ("m", "v"):
+        for (path, _), t in zip(keypaths(state[key_]),
+                                tree_leaves(state[key_], torch.is_tensor)):
+            arrays[key_ + path] = _np(t)
+    r.write(mesh, key, arrays)
+    r.record["seconds"][key] = time.perf_counter() - t0
+
+
+#: the ``recurrent`` suite (8 ranks): a sharded training step of the
+#: families whose scans run on each rank's blocks, on (2, 2) in ranks
+#: 0-3, then xLSTM's on (1, 8) over 8 rows, where its 4 heads do not
+#: divide "model" and the scans split the rows over both mesh dims
+RECURRENT = ("whisper-tiny", "xlstm-125m")
+ROWS_SPLIT = ("xlstm-125m", (1, 8), 8)
+#: on ROWS_SPLIT's (1, 8) mesh, 4 heads and 4 rows, too few for it:
+#: the products' columns split over "model", xLSTM's scans whole there
+COLS_SPLIT = RECURRENT
+
+
+def suite_recurrent(r: Rank) -> None:
+    m22 = r.mesh((2, 2), DM)
+    name, shape, rows = ROWS_SPLIT
+    wide = r.mesh(shape, DM)
+    if r.rank < 4:
+        for arch in RECURRENT:
+            step_case(r, m22, f"step/{arch}", arch)
+    r.torch.distributed.barrier()
+    step_case(r, wide, f"rows/{name}", name, rows=rows)
+    for arch in COLS_SPLIT:
+        step_case(r, wide, f"cols/{arch}", arch)
+        serve_case(r, wide, f"colserve/{arch}", arch, "f32", f32_cache=True,
+                   decode_steps=1)
+
+
+#: the ``ce`` suite: the vocabulary-parallel cross entropy on (2, 2) and
+#: (1, 4), float32 logits split over "model", z-loss and mask on and off
+CE_ROWS, CE_SEQ, CE_VOCAB, CE_SEED, CE_Z = 4, 6, 64, 11, 1e-4
+CE_CASES = tuple((f"ce/{a}x{b}/z{int(z)}/mask{int(mk)}", (a, b), z, mk)
+                 for a, b in ((2, 2), (1, 4)) for z in (False, True)
+                 for mk in (False, True))
+
+
+def ce_inputs():
+    """Seeded (logits (rows, seq, vocab) float32, labels (rows, seq),
+    mask (rows, seq) float32 with zeros): the first rows' labels hit
+    every eighth of the vocabulary, so that every block on a (1, 4) or
+    (2, 2) mesh holds some."""
+    rng = np.random.default_rng(CE_SEED)
+    logits = rng.standard_normal((CE_ROWS, CE_SEQ, CE_VOCAB)).astype(
+        np.float32) * 3
+    labels = rng.integers(0, CE_VOCAB, (CE_ROWS, CE_SEQ)).astype(np.int32)
+    labels.reshape(-1)[:8] = np.arange(8) * (CE_VOCAB // 8) + 3
+    mask = (rng.random((CE_ROWS, CE_SEQ)) < 0.7).astype(np.float32)
+    return logits, labels, mask
+
+
+def ce_case(r: Rank, mesh, key: str, z_loss: bool, masked: bool) -> None:
+    """The loss and its grad with respect to the logits, whole; checks
+    that the grad keeps the logits' vocabulary split."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.models.common import cross_entropy
+    from repro_torch.sharding import ShardCtx, on_mesh
+    torch = r.torch
+    ctx = ShardCtx(mesh)
+    logits, labels, mask = (torch.from_numpy(a).to(r.device)
+                            for a in ce_inputs())
+    with on_mesh():
+        x = ctx.place(logits, "dp", None, "tp").detach().requires_grad_()
+        loss = cross_entropy(
+            x, ctx.place(labels, "dp", None),
+            mask=ctx.place(mask, "dp", None) if masked else None,
+            z_loss=CE_Z if z_loss else 0.0)
+        loss.backward()
+    split = [isinstance(p, Shard) and p.dim == 2 for p in x.grad.placements]
+    r.check(f"{key} grad split over the vocabulary", any(split),
+            x.grad.placements)
+    r.write(mesh, key, {"loss": _np(loss), "grad": _np(x.grad)})
+
+
+def suite_ce(r: Rank) -> None:
+    meshes = {shape: r.mesh(shape, DM) for shape in ((2, 2), (1, 4))}
+    for key, shape, z, mk in CE_CASES:
+        ce_case(r, meshes[shape], key, z, mk)
+
+
+SUITES = {"lm": suite_lm, "families": suite_families, "train": suite_train,
+          "recurrent": suite_recurrent, "ce": suite_ce}
 
 
 def main(argv=None) -> int:

@@ -87,9 +87,9 @@ def test_depth_plan():
     assert dryrun.depth_plan(get_config("whisper-tiny")) is None
     pod = dryrun.production_mesh_shape()
     cfg = get_config("xlstm-125m")
-    assert dryrun.seq_plan(cfg, dryrun.CELLS["train_4k"], pod) is None
+    assert dryrun.seq_plan(cfg, dryrun.CELLS["train_4k"], pod) == (128, 32)
     assert dryrun.seq_plan(cfg, dryrun.CELLS["prefill_32k"], pod) == \
-        (1024, 32)
+        (128, 256)
     assert dryrun.seq_plan(cfg, dryrun.CELLS["decode_32k"], pod) is None
     assert dryrun.seq_plan(get_config("qwen3-14b"), dryrun.CELLS[
         "train_4k"], pod) is None

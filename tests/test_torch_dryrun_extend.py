@@ -3,9 +3,9 @@ whole traces, on a fake world of 256 ranks:
 
 * depth: a transformer traced at one and two units and carried to four
   gives the four-unit trace's FLOPs, collectives and memory split, and
-  its bytes within 1e-6 (after a switch between a 256- and a 512-rank
-  world in one process the collective bytes part by 1.1e-4: PERF.md,
-  open questions);
+  its bytes within 1e-6, whatever worlds the process held before
+  (``dryrun.end_fake_world`` clears DTensor's caches, whose plans would
+  carry an old world's meshes);
 * sequence: xLSTM traced at three sequence lengths and carried to a
   longer one along a quadratic gives that trace's totals.
 
@@ -43,9 +43,10 @@ def test_depth_extension_equals_the_deeper_trace():
 def test_sequence_extension_equals_the_longer_trace(monkeypatch):
     """xLSTM on three sequence lengths carried to a longer one along a
     quadratic equals its trace at that length (here four base lengths,
-    where the sweep waits for twelve)."""
+    where the sweep waits for twelve; a base of 32: two positions a
+    rank of the 16-way "model" axis)."""
     monkeypatch.setattr(dryrun, "SEQ_EXTEND_MIN", 4)
-    small = dataclasses.replace(dryrun.CELLS["train_4k"], seq_len=64,
+    small = dataclasses.replace(dryrun.CELLS["train_4k"], seq_len=128,
                                 global_batch=32)
 
     def tiny(cfg):
@@ -56,8 +57,8 @@ def test_sequence_extension_equals_the_longer_trace(monkeypatch):
                             cell=small)
     full = dryrun.lower_cell("xlstm-125m", "train_4k", False, shrink=tiny,
                              cell=small, full_depth=True)
-    assert ext["traced_seq_lens"] == [16, 32, 48]
-    assert full["traced_seq_lens"] == [64]
+    assert ext["traced_seq_lens"] == [32, 64, 96]
+    assert full["traced_seq_lens"] == [128]
     for k in ("flops_per_device", "bytes_per_device",
               "collective_bytes_per_device"):
         assert ext[k] == pytest.approx(full[k], rel=1e-9), k
