@@ -30,6 +30,7 @@ import dataclasses
 import itertools
 import os
 import threading
+import time
 import warnings
 from collections import OrderedDict
 from typing import Callable
@@ -133,7 +134,7 @@ _MODE_OVERRIDE: str | None = None
 _LOCK = threading.RLock()
 _REPORTS: OrderedDict = OrderedDict()       # plan -> Report
 _REPORTS_MAXSIZE = 512
-_COUNTERS = {"verifications": 0, "report_cache_hits": 0}
+_COUNTERS = {"verifications": 0, "report_cache_hits": 0, "seconds": 0.0}
 
 
 def verify_mode() -> str:
@@ -157,8 +158,8 @@ def set_verify_mode(mode: str | None) -> None:
 
 
 def counters() -> dict:
-    """``verifications`` (passes run; cache hits run none) and
-    ``report_cache_hits``."""
+    """``verifications`` (passes run; cache hits run none),
+    ``report_cache_hits`` and ``seconds`` (spent in the passes run)."""
     with _LOCK:
         return dict(_COUNTERS)
 
@@ -715,9 +716,12 @@ def _verify_cached(plan) -> Report:
             _REPORTS.move_to_end(plan)
             _COUNTERS["report_cache_hits"] += 1
             return hit
+    t0 = time.perf_counter()
     report = verify_plan(plan)
+    seconds = time.perf_counter() - t0
     with _LOCK:
         _COUNTERS["verifications"] += 1
+        _COUNTERS["seconds"] += seconds
         _REPORTS[plan] = report
         while len(_REPORTS) > _REPORTS_MAXSIZE:
             _REPORTS.popitem(last=False)

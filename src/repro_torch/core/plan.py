@@ -80,6 +80,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from . import perfmodel as _pm
 from .isa import assemble, assemble_pipeline
 from .stencil import (Factorization, StencilPipeline, StencilSpec, as_stages,
@@ -631,7 +632,9 @@ class ExecutionPlan:
 class PlanCache:
     """LRU cache of lowered plans with observable counters (``hits``,
     ``misses``, ``lowers``, ``autotune_calls`` — the tile autotunes
-    lowering ran for ``tile="auto"`` — and ``evictions``)."""
+    lowering ran for ``tile="auto"`` — ``evictions`` and ``lower_s``,
+    the seconds spent lowering, autotunes included and verification
+    not)."""
 
     def __init__(self, maxsize: int = 512):
         self.maxsize = maxsize
@@ -642,6 +645,7 @@ class PlanCache:
         self.lowers = 0
         self.autotune_calls = 0
         self.evictions = 0
+        self.lower_s = 0.0
 
     def __len__(self) -> int:
         return len(self._store)
@@ -671,8 +675,12 @@ class PlanCache:
             if hit is not None:
                 return hit
             self.lowers += 1
-            plan = factory()
-            _verify_new_plan(plan)
+            with tracing.span("casper.lower"):
+                t0 = time.perf_counter()
+                plan = factory()
+                self.lower_s += time.perf_counter() - t0
+                with tracing.span("casper.verify"):
+                    _verify_new_plan(plan)
             self.put(key, plan)
             return plan
 
@@ -692,6 +700,7 @@ class PlanCache:
                 "lowers": self.lowers,
                 "autotune_calls": self.autotune_calls,
                 "evictions": self.evictions,
+                "lower_s": self.lower_s,
                 "hit_rate": self.hits / total if total else 0.0,
             }
 
@@ -700,6 +709,7 @@ class PlanCache:
             self._store.clear()
             self.hits = self.misses = self.lowers = 0
             self.autotune_calls = self.evictions = 0
+            self.lower_s = 0.0
 
 
 #: Environment switch of the plan verifier (``off`` / ``warn`` /
@@ -1108,9 +1118,11 @@ def run_owned(plan: ExecutionPlan, held: list, iters: int) -> torch.Tensor:
         from ..kernels import stream as _stream
         return _stream.run_plan_streamed(plan, out, iters)
     for _ in range(q):
-        out = execute(plan, out)
+        with tracing.span("casper.block"):
+            out = execute(plan, out)
     if r:
-        out = execute(plan.remainder(r), out)
+        with tracing.span("casper.block"):
+            out = execute(plan.remainder(r), out)
     return out
 
 
@@ -1132,14 +1144,15 @@ def place(spec, grid, backend: str, sweeps: int, tile_req,
     CPU tensor is never copied to the card, and a CUDA tensor is left for
     the slab executor to copy to the host, as the reference copies a
     device array (``np.asarray``)."""
-    if isinstance(grid, np.ndarray):
-        grid = torch.from_numpy(np.ascontiguousarray(grid))
-    plan = lower(spec, _grid_shape_for(spec, grid), grid.dtype,
-                 backend=backend, sweeps=sweeps, tile=tile_req,
-                 device=device)
-    if stays_on_host(plan, grid):
-        return plan, grid
-    return plan, grid.to(device).contiguous()
+    with tracing.span("casper.place"):
+        if isinstance(grid, np.ndarray):
+            grid = torch.from_numpy(np.ascontiguousarray(grid))
+        plan = lower(spec, _grid_shape_for(spec, grid), grid.dtype,
+                     backend=backend, sweeps=sweeps, tile=tile_req,
+                     device=device)
+        if stays_on_host(plan, grid):
+            return plan, grid
+        return plan, grid.to(device).contiguous()
 
 
 @functools.lru_cache(maxsize=512)
@@ -1151,10 +1164,11 @@ def runner(spec, backend: str, sweeps: int, tile_req,
     placed first (:func:`place`): on the device, or, where its plan says
     so, left on the host for the slab executor."""
     def run(grid, iters: int) -> torch.Tensor:
-        plan, g = place(spec, grid, backend, sweeps, tile_req, device)
-        held = [g]
-        del g
-        return run_owned(plan, held, iters)
+        with tracing.span("casper.run"):
+            plan, g = place(spec, grid, backend, sweeps, tile_req, device)
+            held = [g]
+            del g
+            return run_owned(plan, held, iters)
     return run
 
 

@@ -48,6 +48,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..core import plan as _plan
 from ..core import ref as _ref
 from ..core.stencil import StencilPipeline, StencilSpec, _classify, as_stages
@@ -312,44 +313,45 @@ def _launch(kernel: str, spec, src: torch.Tensor, out: torch.Tensor, *,
     planes keep their own element copies), and a batch of small grids of
     rank 1-2 packs :func:`repro_torch.core.plan.pack_factor` grids into
     each CTA."""
-    padded = kernel in ("K2", "K4")
-    streamed = _plan.streams(spec)
-    itemsize = src.element_size()
-    batch = src.shape[0]
-    src_shape = tuple(src.shape[1:])
-    pack = 1 if streamed else _plan.pack_factor(
-        spec, out_shape, tile, sweeps, itemsize, batch, padded=padded)
-    _plan.launch_blocks(out_shape, tile, batch, pack)
-    lib = _lib()
-    path = ("plain" if padded and streamed
-            else _plan.load_path(src_shape, tile, itemsize, src.data_ptr(),
-                                 padded=padded))
-    a = _args(spec, padded, sweeps, batch, grid_shape, tile, src_shape,
-              out_shape, origin, itemsize, _ASYNC_LOAD[path], pack)
-    counter = None
-    if _TILE_RECORDS is not None:
-        a = CasperArgs.from_buffer_copy(a)
-        counter = torch.zeros(3 + len(LOAD_KINDS), dtype=torch.int32,
-                              device=src.device)
-        a.tiles = counter.data_ptr()
-    fn = getattr(lib, _ENTRY[src.dtype])
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    err = fn(src.device.index, src.data_ptr(), out.data_ptr(),
-             ctypes.addressof(a), stream)
-    if err:
-        raise RuntimeError(f"{kernel} launch failed: "
-                           f"{lib.casper_error_string(err).decode()}")
-    LAUNCHES[kernel] += 1
-    if src.dim() == 4:
-        RANK3_LAUNCHES[kernel] += 1
-    if counter is not None:
-        _TILE_RECORDS.append({
-            "kernel": kernel, "path": path, "stream": streamed,
-            "pack": pack, "tiles": counter,
-            "smem_launch": lib.casper_smem_bytes(ctypes.addressof(a),
-                                                 itemsize),
-            "smem_plan": _plan.smem_bytes(tile, spec, sweeps, itemsize,
-                                          padded=padded, pack=pack)})
+    with tracing.span("casper.launch"):
+        padded = kernel in ("K2", "K4")
+        streamed = _plan.streams(spec)
+        itemsize = src.element_size()
+        batch = src.shape[0]
+        src_shape = tuple(src.shape[1:])
+        pack = 1 if streamed else _plan.pack_factor(
+            spec, out_shape, tile, sweeps, itemsize, batch, padded=padded)
+        _plan.launch_blocks(out_shape, tile, batch, pack)
+        lib = _lib()
+        path = ("plain" if padded and streamed
+                else _plan.load_path(src_shape, tile, itemsize, src.data_ptr(),
+                                     padded=padded))
+        a = _args(spec, padded, sweeps, batch, grid_shape, tile, src_shape,
+                  out_shape, origin, itemsize, _ASYNC_LOAD[path], pack)
+        counter = None
+        if _TILE_RECORDS is not None:
+            a = CasperArgs.from_buffer_copy(a)
+            counter = torch.zeros(3 + len(LOAD_KINDS), dtype=torch.int32,
+                                  device=src.device)
+            a.tiles = counter.data_ptr()
+        fn = getattr(lib, _ENTRY[src.dtype])
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = fn(src.device.index, src.data_ptr(), out.data_ptr(),
+                 ctypes.addressof(a), stream)
+        if err:
+            raise RuntimeError(f"{kernel} launch failed: "
+                               f"{lib.casper_error_string(err).decode()}")
+        LAUNCHES[kernel] += 1
+        if src.dim() == 4:
+            RANK3_LAUNCHES[kernel] += 1
+        if counter is not None:
+            _TILE_RECORDS.append({
+                "kernel": kernel, "path": path, "stream": streamed,
+                "pack": pack, "tiles": counter,
+                "smem_launch": lib.casper_smem_bytes(ctypes.addressof(a),
+                                                     itemsize),
+                "smem_plan": _plan.smem_bytes(tile, spec, sweeps, itemsize,
+                                              padded=padded, pack=pack)})
 
 
 def count_tiles(on: bool = True) -> None:
